@@ -1,0 +1,1 @@
+from .stft import build_optimal_window, build_window, istft, stft  # noqa: F401

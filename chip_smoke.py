@@ -1,0 +1,441 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py [--profile]
+
+Phases (each asserts; any failure exits non-zero):
+  1. the card's name and power limit; build both CUDA kernels from
+     ``audio_source_separation_tpu_torch/csrc`` with nvcc (one process per
+     source, in parallel) and print the build time;
+  2. kernels: K1 (weighted covariance) at C in {2, 3, 4} and K2 (fused C = 2
+     AuxIVA-IP iteration) at 2 x 2049 x 469, each held against its plain
+     PyTorch version on the same inputs, K2 also bit-identical across two
+     launches; median times of 25 launches by CUDA events;
+  3. main path, C = 2: a 60 s, 16 kHz stereo convolutive mixture ->
+     stft(4096, 2048) -> AuxLaplaceIVA(IP) x 100 -> projection-back -> istft
+     on the card; K2 once per iteration, loss finite and non-increasing,
+     SI-SDR up by more than 5 dB, the first 20 losses against the port's
+     own CPU float64 run;
+  4. main path, C = 3: 3 mics, 3 sources, 20 iterations through K1;
+  5. one ``{"kernels": [...]}`` line, then the last line
+     ``{"ok": true, "device": {...}}``.
+
+``--profile`` also writes a torch.profiler table of 20 C = 2 iterations to
+``chiprun_out/profile_c2.txt``.  Exits non-zero without printing a result
+when CUDA is not available.
+"""
+
+import argparse
+import itertools
+import json
+import math
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from audio_source_separation_tpu_torch import AuxLaplaceIVA, istft, stft
+from audio_source_separation_tpu_torch.ops import _build
+from audio_source_separation_tpu_torch.ops.cov_kernel import (
+    weighted_covariance_planes,
+    weighted_covariance_planes_plain,
+)
+from audio_source_separation_tpu_torch.ops.fused_ip import (
+    fused_auxiva_ip_iter,
+    fused_auxiva_ip_iter_plain,
+)
+from audio_source_separation_tpu_torch.ops.ip_components import (
+    _covariance_planes,
+    pair_products_planes,
+    separate_components,
+)
+
+SEED = 111
+SR = 16000
+N_SAMPLES = 958_464  # ~60 s at 16 kHz -> 2049 bins x 469 frames
+FFT_SIZE, HOP_SIZE = 4096, 2048
+ITERS_C2, ITERS_C3, N_MATCH = 100, 20, 20
+EPS, THRESHOLD = 1e-12, 1e12
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 non-tensor
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# tolerances, float32 kernel against float32 plain version on the same inputs
+K1_RTOL = 1e-4  # max |err| / max |plain|
+K2_RTOL = 1e-4  # the same, for W, psum and the NLL
+LOSS_MONOTONE_RTOL = 1e-5  # f32 loss may rise by rounding noise only
+LOSS_MATCH_RTOL = 1e-4  # card f32 vs CPU f64, first 20 losses
+ROOT = Path(__file__).resolve().parent
+
+
+def log(msg):
+    print(msg, file=sys.stderr, flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def synth_mixture(rng, n_sources, n_samples, taps=8):
+    """Amplitude-modulated noise sources through short random FIRs (the
+    recipe of tests/conftest.py::synth_convolutive_mixture); returns the
+    mixture and each source's image at mic 0."""
+    t = np.arange(n_samples) / SR
+    mods = [3.0, 5.0, 7.0, 11.0]
+    sources = []
+    for n in range(n_sources):
+        env = 0.5 * (1 + np.sign(np.sin(2 * np.pi * mods[n] * t + 0.7 * n)))
+        env = np.convolve(env, np.ones(64) / 64, mode="same")
+        sources.append(env * rng.randn(n_samples))
+    mixture = np.zeros((n_sources, n_samples))
+    images = np.zeros((n_sources, n_samples))
+    for m in range(n_sources):
+        for n in range(n_sources):
+            h = 0.2 * rng.randn(taps) * np.exp(-0.7 * np.arange(taps))
+            h[(3 * m + 5 * n) % taps] += 1.0 if m == n else 0.8
+            contribution = np.convolve(sources[n], h)[:n_samples]
+            mixture[m] += contribution
+            if m == 0:
+                images[n] = contribution
+    return mixture, images
+
+
+def si_sdr(estimate, target):
+    alpha = np.sum(estimate * target) / np.sum(target**2)
+    projection = alpha * target
+    noise = estimate - projection
+    return 10 * np.log10(np.sum(projection**2) / np.sum(noise**2))
+
+
+def best_pairing_si_sdr(estimates, targets):
+    n = len(targets)
+    return max(
+        np.mean([si_sdr(estimates[i], targets[p[i]]) for i in range(n)])
+        for p in itertools.permutations(range(n))
+    )
+
+
+def median_ms(fn, warmup=5, reps=25):
+    """Median device time of one call of ``fn`` over ``reps`` calls.
+
+    Each call sits between two CUDA events.  All calls are queued behind a
+    spin kernel that lasts longer than the host takes to enqueue them, so
+    the device never waits on the host between the events and they time
+    the device work alone, not the wrapper's Python overhead."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - start
+    torch.cuda.synchronize()
+    events = [
+        (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        for _ in range(reps)
+    ]
+    # 3e9 cycles/s is above the card's top clock, so the spin outlasts 2x
+    # the measured enqueue time
+    torch.cuda._sleep(int(2 * reps * host_s * 3e9) + 1_000_000)
+    for begin, end in events:
+        begin.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([begin.elapsed_time(end) for begin, end in events]))
+
+
+def bound(n_bytes, n_flops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rel_err(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+# --------------------------------------------------------------------------- #
+# phase 2: kernels against their plain versions
+# --------------------------------------------------------------------------- #
+def random_mixture(gen, C, F, T):
+    env = torch.rand((C, 1, T), generator=gen, device="cuda") + 0.05
+    re = torch.randn((C, F, T), generator=gen, device="cuda") * env
+    im = torch.randn((C, F, T), generator=gen, device="cuda") * env
+    return torch.complex(re, im).contiguous()
+
+
+def k1_case(gen, C, F, T):
+    X = random_mixture(gen, C, F, T)
+    # 1/R-like weights spanning three decades
+    w = (10.0 ** (3 * torch.rand((C, T), generator=gen, device="cuda") - 1.5)).contiguous()
+    out = weighted_covariance_planes(X, w)
+    ref = weighted_covariance_planes_plain(X, w)
+    torch.cuda.synchronize()
+    err = rel_err(out, ref)
+    assert math.isfinite(err) and err <= K1_RTOL, ("K1", C, err)
+    planes = pair_products_planes(X).contiguous()
+    ms = median_ms(lambda: weighted_covariance_planes(X, w))
+    plain_ms = median_ms(lambda: weighted_covariance_planes_plain(X, w))
+    library_ms = median_ms(lambda: _covariance_planes(planes, w))  # one torch.matmul
+    n_bytes = X.numel() * 8 + w.numel() * 4 + out.numel() * 4
+    n_flops = F * T * (3 * C * C + 2 * C * C * C)  # pair products + contraction
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    return {
+        "C": C, "max_abs_err": float((out - ref).abs().max()), "rel_err": err,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def k2_case(gen, F, T):
+    X = random_mixture(gen, 2, F, T)
+    zero_bin = 1000
+    X[:, zero_bin] = 0
+    noise = torch.complex(
+        torch.randn((2, 2, F), generator=gen, device="cuda"),
+        torch.randn((2, 2, F), generator=gen, device="cuda"),
+    )
+    eye = torch.eye(2, dtype=torch.complex64, device="cuda")[:, :, None]
+    W = (eye + 0.3 * noise).contiguous()
+    W[:, :, zero_bin] = eye[:, :, 0]
+    psum = torch.sum(
+        torch.abs(separate_components([[W[s, c] for c in range(2)] for s in range(2)], X)) ** 2, dim=1
+    ).contiguous()
+
+    out = fused_auxiva_ip_iter(X, W, psum, eps=EPS, threshold=THRESHOLD)
+    again = fused_auxiva_ip_iter(X, W, psum, eps=EPS, threshold=THRESHOLD)
+    ref = fused_auxiva_ip_iter_plain(X, W, psum, eps=EPS, threshold=THRESHOLD)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, again)), "K2 not bit-identical across launches"
+    assert torch.equal(out[0][:, :, zero_bin], W[:, :, zero_bin]), "K2 changed an all-zero bin"
+    w_err = rel_err(out[0], ref[0])
+    p_err = rel_err(out[1], ref[1])
+    nll_err = abs(float(out[3]) - float(ref[3])) / abs(float(ref[3]))
+    assert max(w_err, p_err, nll_err) <= K2_RTOL, ("K2", w_err, p_err, nll_err)
+    ms = median_ms(lambda: fused_auxiva_ip_iter(X, W, psum, eps=EPS, threshold=THRESHOLD))
+    plain_ms = median_ms(lambda: fused_auxiva_ip_iter_plain(X, W, psum, eps=EPS, threshold=THRESHOLD))
+    n_bytes = X.numel() * 8 + 2 * W.numel() * 8 + 2 * psum.numel() * 4 + 8
+    n_flops = F * T * 62  # covariance (26) + separation power sums (36) per (f, t)
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    return {
+        "max_abs_err": float(max((out[0] - ref[0]).abs().max(), (out[1] - ref[1]).abs().max())),
+        "rel_err": {"W": w_err, "psum": p_err, "nll": nll_err},
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+# --------------------------------------------------------------------------- #
+# phases 3-4: the main path
+# --------------------------------------------------------------------------- #
+def check_losses(loss, name):
+    loss = np.asarray(loss)
+    assert np.isfinite(loss).all(), (name, "non-finite loss")
+    rises = np.diff(loss) - LOSS_MONOTONE_RTOL * np.abs(loss[:-1])
+    assert (rises <= 0).all(), (name, "loss rose", float(rises.max()))
+
+
+def per_iteration(X, record):
+    """Per-iteration times of the solver loop: ``ms`` by CUDA events,
+    differencing 110- and 10-iteration calls (init and finalize cancel), and
+    ``host_ms``, the host's time to enqueue one iteration (``update_state``
+    and, when recording, ``nll``) without waiting for the device."""
+    solver = AuxLaplaceIVA(recordable_loss=record)
+
+    def run(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        solver(X, iteration=n)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    run(10)
+    short = min(run(10) for _ in range(3))
+    long_ = min(run(110) for _ in range(3))
+    state = solver.init_state(X.contiguous())
+    losses = []
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(100):
+        state = solver.update_state(state)
+        if record:
+            losses.append(solver.nll(state))
+    host_ms = (time.perf_counter() - start) * 10
+    torch.cuda.synchronize()
+    return {"ms": (long_ - short) / 100, "host_ms": host_ms}
+
+
+def main_path_c2(rng):
+    mixture, images = synth_mixture(rng, 2, N_SAMPLES)
+    fused_auxiva_ip_iter.launches = 0
+    weighted_covariance_planes.launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE)
+    solver = AuxLaplaceIVA(algorithm_spatial="IP")
+    Y = solver(X, iteration=ITERS_C2)
+    y = istft(Y, fft_size=FFT_SIZE, hop_size=HOP_SIZE, length=N_SAMPLES)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    k2_launches = fused_auxiva_ip_iter.launches
+    k1_launches = weighted_covariance_planes.launches
+
+    assert tuple(X.shape) == (2, FFT_SIZE // 2 + 1, -(-N_SAMPLES // HOP_SIZE) + 1), X.shape
+    assert k2_launches == ITERS_C2, ("K2 launches", k2_launches)
+    assert k1_launches == 0, ("K1 launches on the C = 2 path", k1_launches)
+    check_losses(solver.loss, "C=2")
+    y = y.cpu().numpy()
+    assert np.isfinite(y).all() and y.shape == mixture.shape
+    before = best_pairing_si_sdr(mixture, images)
+    after = best_pairing_si_sdr(y, images)
+    assert after > before + 5.0, ("SI-SDR", before, after)
+
+    X_cpu = stft(mixture, fft_size=FFT_SIZE, hop_size=HOP_SIZE, device="cpu")
+    reference = AuxLaplaceIVA(device="cpu")
+    reference(X_cpu, iteration=N_MATCH - 1)
+    match = np.max(np.abs(np.asarray(solver.loss[:N_MATCH]) - reference.loss) / np.abs(reference.loss))
+    assert match <= LOSS_MATCH_RTOL, ("loss vs CPU float64", match)
+
+    return X, {
+        "iterations": ITERS_C2, "k2_launches": k2_launches, "wall_s": wall_s,
+        "loss_first": solver.loss[0], "loss_last": solver.loss[-1],
+        "si_sdr_before_db": before, "si_sdr_after_db": after,
+        "loss_vs_cpu_f64_max_rel": float(match),
+        "per_iter_loss_on": per_iteration(X, True),
+        "per_iter_loss_off": per_iteration(X, False),
+    }
+
+
+def main_path_c3(rng):
+    mixture, images = synth_mixture(rng, 3, N_SAMPLES)
+    fused_auxiva_ip_iter.launches = 0
+    weighted_covariance_planes.launches = 0
+    X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE)
+    solver = AuxLaplaceIVA(algorithm_spatial="IP")
+    Y = solver(X, iteration=ITERS_C3)
+    y = istft(Y, fft_size=FFT_SIZE, hop_size=HOP_SIZE, length=N_SAMPLES)
+    torch.cuda.synchronize()
+    k1_launches = weighted_covariance_planes.launches
+    k2_launches = fused_auxiva_ip_iter.launches
+
+    assert k1_launches >= ITERS_C3, ("K1 launches", k1_launches)
+    assert k2_launches == 0, ("K2 launches on the C = 3 path", k2_launches)
+    check_losses(solver.loss, "C=3")
+    y = y.cpu().numpy()
+    assert np.isfinite(y).all() and y.shape == mixture.shape
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    AuxLaplaceIVA(recordable_loss=False)(X, iteration=ITERS_C3)
+    end.record()
+    end.synchronize()
+    return {
+        "iterations": ITERS_C3, "k1_launches": k1_launches,
+        "loss_first": solver.loss[0], "loss_last": solver.loss[-1],
+        "si_sdr_before_db": best_pairing_si_sdr(mixture, images),
+        "si_sdr_after_db": best_pairing_si_sdr(y, images),
+        "ms_per_call_20_iters": start.elapsed_time(end),
+    }
+
+
+def profile_c2(X, path):
+    """torch.profiler table of a 20-iteration C = 2 solver call, and the
+    device time of each kernel per iteration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    solver = AuxLaplaceIVA(recordable_loss=True)
+    solver(X, iteration=5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solver(X, iteration=20)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    key = "self_device_time_total" if hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(events.table(sort_by=key, row_limit=25))
+    per_iter_us = {
+        re.search(r"fused_ip_\w+", e.key).group(0): getattr(e, key) / 20
+        for e in events
+        if re.search(r"fused_ip_\w+", e.key)
+    }
+    return {"device_busy_ms_20_iters": sum(getattr(e, key) for e in events) / 1e3, "kernel_us_per_iter": per_iter_us}
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true", help="write a torch.profiler table")
+    args = parser.parse_args()
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: CUDA is not available")
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print("card: " + card, flush=True)
+
+    start = time.perf_counter()
+    outputs = _build.build_all(verbose=True)
+    build_s = time.perf_counter() - start
+    for name, out in outputs.items():
+        log("nvcc {}:\n{}".format(name, out))
+    print(json.dumps({"build_s": build_s, "built": sorted(outputs)}), flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    F, T = 2049, 469
+    k1 = [k1_case(gen, C, F, T) for C in (2, 3, 4)]
+    k2 = k2_case(gen, F, T)
+    print(json.dumps({"k1_cases": k1, "k2_case": k2}), flush=True)
+
+    rng = np.random.RandomState(SEED)
+    X2, c2 = main_path_c2(rng)
+    print(json.dumps({"main_path_c2": c2}), flush=True)
+    c3 = main_path_c3(rng)
+    print(json.dumps({"main_path_c3": c3}), flush=True)
+    if args.profile:
+        prof = profile_c2(X2, ROOT / "chiprun_out" / "profile_c2.txt")
+        print(json.dumps({"profile_c2": prof}), flush=True)
+
+    k1_main = k1[1]  # C = 3, the shape of the K1 main path
+    kernels = [
+        {
+            "name": "weighted_covariance (K1)", "route": "cuda",
+            "source": "audio_source_separation_tpu_torch/csrc/weighted_covariance.cu",
+            "replaces": "audio_source_separation_tpu/ops/pallas_kernels.py:96",
+            "launches": c3["k1_launches"],
+            "max_abs_err": max(c["max_abs_err"] for c in k1),
+            "max_rel_err": max(c["rel_err"] for c in k1), "tolerance": "max_rel_err <= {}".format(K1_RTOL),
+            "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
+            "bound_ms": k1_main["bound_ms"], "bound_us": k1_main["bound_ms"] * 1e3, "bound_by": k1_main["bound_by"],
+            "library_ms": k1_main["library_ms"], "shape": [3, F, T],
+        },
+        {
+            "name": "fused_auxiva_ip (K2)", "route": "cuda",
+            "source": "audio_source_separation_tpu_torch/csrc/fused_auxiva_ip.cu",
+            "replaces": "audio_source_separation_tpu/ops/pallas_fused.py:231",
+            "launches": c2["k2_launches"],
+            "max_abs_err": k2["max_abs_err"],
+            "max_rel_err": max(k2["rel_err"].values()), "tolerance": "max_rel_err <= {}".format(K2_RTOL),
+            "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+            "bound_ms": k2["bound_ms"], "bound_us": k2["bound_ms"] * 1e3, "bound_by": k2["bound_by"],
+            "library_ms": None, "shape": [2, F, T],
+        },
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print("card: " + card, flush=True)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

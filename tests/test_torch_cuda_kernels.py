@@ -1,0 +1,80 @@
+"""The port's CUDA kernels against their plain versions on the card.
+
+Needs an NVIDIA GPU with ``nvcc``; each test skips without one.  This file
+imports neither JAX nor ``conftest``, so on a machine without JAX it runs
+on its own:
+
+    python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from audio_source_separation_tpu_torch.ops.cov_kernel import (
+    weighted_covariance_planes,
+    weighted_covariance_planes_plain,
+)
+from audio_source_separation_tpu_torch.ops.fused_ip import (
+    fused_auxiva_ip_iter,
+    fused_auxiva_ip_iter_plain,
+)
+from audio_source_separation_tpu_torch.ops.ip_components import separate_components
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _mixture(seed, C, F, T, device):
+    rng = np.random.RandomState(seed)
+    X = (rng.randn(C, F, T) + 1j * rng.randn(C, F, T)) * (np.abs(rng.randn(C, 1, T)) + 0.1)
+    return torch.as_tensor(X.astype(np.complex64), device=device)
+
+
+@pytest.mark.parametrize("C,N,F,T", [(2, 2, 70, 33), (3, 3, 129, 100), (4, 4, 257, 469), (3, 1, 31, 7)])
+def test_k1_matches_plain(cuda, C, N, F, T):
+    X = _mixture(C + N, C, F, T, cuda)
+    w = torch.as_tensor((np.abs(np.random.RandomState(1).randn(N, T)) + 0.1).astype(np.float32), device=cuda)
+    launches = weighted_covariance_planes.launches
+    out = weighted_covariance_planes(X, w)
+    assert weighted_covariance_planes.launches == launches + 1
+    ref = weighted_covariance_planes_plain(X, w)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5 * float(ref.abs().max()))
+
+
+def test_k1_rejects_bad_operands(cuda):
+    X = _mixture(0, 2, 9, 16, cuda)
+    w = torch.ones((2, 16), device=cuda)
+    with pytest.raises(ValueError):
+        weighted_covariance_planes(X.to(torch.complex128), w)
+    with pytest.raises(ValueError):
+        weighted_covariance_planes(X, w.double())
+    with pytest.raises(ValueError):
+        weighted_covariance_planes(X, torch.ones((2, 15), device=cuda))
+
+
+@pytest.mark.parametrize("F,T", [(200, 37), (2049, 469)])
+def test_k2_matches_plain_and_is_deterministic(cuda, F, T):
+    X = _mixture(7, 2, F, T, cuda)
+    X[:, 3] = 0
+    rng = np.random.RandomState(2)
+    W = np.eye(2)[:, :, None] + 0.3 * (rng.randn(2, 2, F) + 1j * rng.randn(2, 2, F))
+    W[:, :, 3] = np.eye(2)
+    W = torch.as_tensor(W.astype(np.complex64), device=cuda)
+    psum = torch.sum(torch.abs(separate_components([[W[s, c] for c in range(2)] for s in range(2)], X)) ** 2, dim=1)
+    out = fused_auxiva_ip_iter(X, W, psum)
+    again = fused_auxiva_ip_iter(X, W, psum)
+    ref = fused_auxiva_ip_iter_plain(X, W, psum)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    assert torch.equal(out[0][:, :, 3], W[:, :, 3])
+    torch.testing.assert_close(out[0], ref[0], rtol=0, atol=1e-4 * float(ref[0].abs().max()))
+    torch.testing.assert_close(out[1], ref[1], rtol=1e-4, atol=1e-6 * float(ref[1].abs().max()))
+    torch.testing.assert_close(out[3], ref[3], rtol=1e-4, atol=0)
