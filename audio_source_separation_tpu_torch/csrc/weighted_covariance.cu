@@ -16,9 +16,13 @@
 // that is 23.1 MB, about 6.9 us at the H100's 3.35 TB/s; it is bound by
 // bytes.  Design: one warp per bin, lanes stride the frame axis, so every
 // element of X is read exactly once with coalesced 8-byte loads; the pair
-// products are formed in registers and contracted against the weights
-// (staged in shared memory) in registers, then reduced across the warp by
-// shuffles.  Pair products never reach device memory.
+// products are formed in registers and contracted against the weights in
+// registers, then reduced across the warp by shuffles.  Pair products never
+// reach device memory.  The weights are staged in shared memory kChunk
+// frames at a time, so any T fits in N * min(T, kChunk) * 4 bytes (at most
+// 32 KB, under the 48 KB a launch gets without opting in);
+// kChunk is a multiple of 32, so each lane visits its frames in the same
+// order as with all T staged at once.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (no fast math).
@@ -28,19 +32,18 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
+constexpr int kChunk = 2048;  // frames of weights staged per pass
 
 template <int C, int N>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 weighted_covariance_kernel(const float2* __restrict__ x,
                            const float* __restrict__ w,
                            float* __restrict__ out, int F, int T) {
-  extern __shared__ float w_s[];  // (N, T)
-  for (int i = threadIdx.x; i < N * T; i += blockDim.x) w_s[i] = w[i];
-  __syncthreads();
-
+  extern __shared__ float w_s[];  // (N, stride), stride = min(T, kChunk)
+  const int stride = min(T, kChunk);
   const int lane = threadIdx.x & 31;
   const int f = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (f >= F) return;  // whole warp leaves together
+  const bool active = f < F;  // idle warps still take part in the barriers
 
   constexpr int P = C * C;
   float acc[P][N];
@@ -49,28 +52,38 @@ weighted_covariance_kernel(const float2* __restrict__ x,
 #pragma unroll
     for (int n = 0; n < N; ++n) acc[p][n] = 0.f;
 
-  for (int t = lane; t < T; t += 32) {
-    float2 xv[C];
+  for (int t0 = 0; t0 < T; t0 += kChunk) {
+    const int len = min(kChunk, T - t0);
+    __syncthreads();  // the previous chunk's weights are consumed
+    for (int n = 0; n < N; ++n)
+      for (int j = threadIdx.x; j < len; j += blockDim.x)
+        w_s[n * stride + j] = w[static_cast<size_t>(n) * T + t0 + j];
+    __syncthreads();
+    if (!active) continue;
+    for (int t = lane; t < len; t += 32) {
+      float2 xv[C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) xv[c] = x[(static_cast<size_t>(c) * F + f) * T + t];
-    float pl[P];
-    int k = 0;
+      for (int c = 0; c < C; ++c) xv[c] = x[(static_cast<size_t>(c) * F + f) * T + t0 + t];
+      float pl[P];
+      int k = 0;
 #pragma unroll
-    for (int c = 0; c < C; ++c) pl[k++] = xv[c].x * xv[c].x + xv[c].y * xv[c].y;
+      for (int c = 0; c < C; ++c) pl[k++] = xv[c].x * xv[c].x + xv[c].y * xv[c].y;
 #pragma unroll
-    for (int c = 0; c < C; ++c)
+      for (int c = 0; c < C; ++c)
 #pragma unroll
-      for (int d = c + 1; d < C; ++d) {
-        pl[k++] = xv[c].x * xv[d].x + xv[c].y * xv[d].y;
-        pl[k++] = xv[c].y * xv[d].x - xv[c].x * xv[d].y;
+        for (int d = c + 1; d < C; ++d) {
+          pl[k++] = xv[c].x * xv[d].x + xv[c].y * xv[d].y;
+          pl[k++] = xv[c].y * xv[d].x - xv[c].x * xv[d].y;
+        }
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const float wn = w_s[n * stride + t];
+#pragma unroll
+        for (int p = 0; p < P; ++p) acc[p][n] += pl[p] * wn;
       }
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const float wn = w_s[n * T + t];
-#pragma unroll
-      for (int p = 0; p < P; ++p) acc[p][n] += pl[p] * wn;
     }
   }
+  if (!active) return;
 
 #pragma unroll
   for (int p = 0; p < P; ++p)
@@ -93,13 +106,7 @@ weighted_covariance_kernel(const float2* __restrict__ x,
 template <int C, int N>
 cudaError_t launch(const void* x, const void* w, void* out, int F, int T,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * N * T;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        weighted_covariance_kernel<C, N>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  const size_t smem = sizeof(float) * N * (T < kChunk ? T : kChunk);  // <= 32 KB
   const int blocks = (F + kWarpsPerBlock - 1) / kWarpsPerBlock;
   weighted_covariance_kernel<C, N><<<blocks, kWarpsPerBlock * 32, smem, stream>>>(
       static_cast<const float2*>(x), static_cast<const float*>(w),

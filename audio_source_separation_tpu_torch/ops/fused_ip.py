@@ -9,11 +9,15 @@ sums ``sum_f |y|^2``, ``sum_f log|det W_f|`` and the Laplace NLL
 iteration's weights and this iteration's loss.
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/fused_auxiva_ip.cu`` (its source note gives the bound and the design);
-on a CPU tensor it runs :func:`fused_auxiva_ip_iter_plain`.
+``csrc/fused_auxiva_ip.cu`` (its source note gives the bound and the
+design), one launch per iteration at any ``T``, laid out by
+:func:`k2_launch_plan`; on a CPU tensor it runs
+:func:`fused_auxiva_ip_iter_plain`.
 """
 
 import ctypes
+import functools
+from collections import namedtuple
 
 import torch
 
@@ -50,20 +54,88 @@ def fused_auxiva_ip_iter_plain(X, W, psum, eps=EPS, threshold=THRESHOLD):
     return torch.stack([torch.stack(row) for row in rows]), psum_new, logdet, nll
 
 
+# Launch plan constants; each mirrors the CUDA source.
+SMEM_LIMIT = 232_448  # shared memory a Hopper block may opt into, bytes
+STATIC_SMEM = 2_048  # bound on the kernel's static shared arrays (under 1 KB)
+WEIGHT_CHUNK = 1024  # frames of weights staged per pass (kChunk)
+RESIDENT_BINS = (8, 4, 2)  # bins per group with a resident-slab kernel, most first
+STREAMED_BINS = 8  # bins per group of the streamed kernel
+
+K2Plan = namedtuple("K2Plan", "bins resident smem_bytes groups row_stride")
+K2Plan.__doc__ = """How K2 is launched for one ``(F, T)``.
+
+``bins`` per group; ``resident`` whether a group's X slab lives in shared
+memory (else the frame axis is streamed and X is read twice);
+``smem_bytes`` of dynamic shared memory per block; ``groups`` of bins, at
+most one block each (the kernel launches as many blocks as fit on the card
+at once, each taking every so many groups); ``row_stride`` floats per
+partial row (``2 T`` frame sums and the logdet, padded to 16 bytes).
+"""
+
+
+def _slab_bytes(bins, T):
+    """Shared memory of a resident slab: per channel, ``bins`` rows of ``T``
+    complex64 and 16 bytes of slack for an 8-byte-aligned start."""
+    return 2 * (8 * bins * T + 16)
+
+
+def _plan(F, T, bins, resident):
+    weights = -(-8 * min(T, WEIGHT_CHUNK) // 16) * 16
+    return K2Plan(
+        bins=bins,
+        resident=resident,
+        smem_bytes=weights + (_slab_bytes(bins, T) if resident else 0),
+        groups=-(-F // bins),
+        row_stride=-(-(2 * T + 1) // 4) * 4,
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def k2_launch_plan(F, T):
+    """The :class:`K2Plan` for a ``(2, F, T)`` mixture.
+
+    The slab is resident with the most bins per group of
+    ``RESIDENT_BINS`` whose slab fits beside the staged weights; past
+    ``T = 6943``, where not even 2 bins fit, the frame axis is streamed in
+    groups of ``STREAMED_BINS``.
+    """
+    if F < 1 or T < 1:
+        raise ValueError("K2 takes F >= 1 bins and T >= 1 frames, got F={}, T={}".format(F, T))
+    for bins in RESIDENT_BINS:
+        plan = _plan(F, T, bins, True)
+        if plan.smem_bytes + STATIC_SMEM <= SMEM_LIMIT:
+            return plan
+    return _plan(F, T, STREAMED_BINS, False)
+
+
 def _entry():
-    lib = _build.load("fused_auxiva_ip")
-    fn = lib.fused_auxiva_ip_f32
+    fn = _build.load("fused_auxiva_ip").fused_auxiva_ip_f32
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_void_p] * 8
-            + [ctypes.c_int] * 2
+            + [ctypes.c_int] * 5
             + [ctypes.c_float] * 2
             + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
-        lib.fused_auxiva_ip_bins_per_block.argtypes = []
-        lib.fused_auxiva_ip_bins_per_block.restype = ctypes.c_int
-    return fn, lib.fused_auxiva_ip_bins_per_block()
+    return fn
+
+
+# (device index, stream) -> (partial rows, tickets); the kernel leaves the
+# tickets' counters at zero, so they are zeroed only when allocated
+_scratch = {}
+
+
+def _scratch_for(device, stream, plan):
+    key = (device.index, stream)
+    part, tickets = _scratch.get(key, (None, None))
+    n_part = plan.groups * (plan.row_stride + 1) + 1  # rows, root sums, logdet
+    if part is None or part.numel() < n_part:
+        part = torch.empty((n_part,), dtype=torch.float32, device=device)
+    if tickets is None:
+        tickets = torch.zeros((3,), dtype=torch.int32, device=device)
+    _scratch[key] = (part, tickets)
+    return part, tickets
 
 
 def _check_operand(name, t, dtype, shape, device):
@@ -80,7 +152,7 @@ def fused_auxiva_ip_iter(X, W, psum, eps=EPS, threshold=THRESHOLD):
 
     On CUDA, ``X`` is contiguous complex64 ``(2, F, T)``, ``W`` contiguous
     complex64 ``(2, 2, F)`` and ``psum`` contiguous float32 ``(2, T)``, all
-    on one device; ``T`` is at most 6144 (the weights live in shared memory).
+    on one device, at any ``F`` and ``T``.
     """
     if X.device.type == "cpu":
         return fused_auxiva_ip_iter_plain(X, W, psum, eps=eps, threshold=threshold)
@@ -89,24 +161,21 @@ def fused_auxiva_ip_iter(X, W, psum, eps=EPS, threshold=THRESHOLD):
     if X.ndim != 3 or X.shape[0] != 2:
         raise ValueError("K2 takes a (2, F, T) mixture, got {}".format(tuple(X.shape)))
     _, F, T = X.shape
-    if T > 6144:
-        raise ValueError("K2 covers T <= 6144 frames, got {}".format(T))
     device = X.device
     _check_operand("X", X, torch.complex64, (2, F, T), device)
     _check_operand("W", W, torch.complex64, (2, 2, F), device)
     _check_operand("psum", psum, torch.float32, (2, T), device)
-    fn, bins = _entry()
-    blocks = -(-F // bins)
+    plan = k2_launch_plan(F, T)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    part, tickets = _scratch_for(device, stream, plan)
     W_new = torch.empty_like(W)
     psum_new = torch.empty_like(psum)
-    psum_part = torch.empty((blocks, 2, T), dtype=torch.float32, device=device)
-    logdet_part = torch.empty((blocks,), dtype=torch.float32, device=device)
     stats = torch.empty((2,), dtype=torch.float32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    status = fn(
+    status = _entry()(
         X.data_ptr(), W.data_ptr(), psum.data_ptr(), W_new.data_ptr(),
-        psum_part.data_ptr(), logdet_part.data_ptr(), psum_new.data_ptr(),
-        stats.data_ptr(), F, T, eps, threshold, stream,
+        psum_new.data_ptr(), stats.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+        F, T, plan.bins, int(plan.resident), plan.smem_bytes,
+        eps, threshold, stream,
     )
     _build.check(status, "fused_auxiva_ip")
     fused_auxiva_ip_iter.launches += 1

@@ -7,17 +7,22 @@ Phases (each asserts; any failure exits non-zero):
   1. the card's name and power limit; build both CUDA kernels from
      ``audio_source_separation_tpu_torch/csrc`` with nvcc (one process per
      source, in parallel) and print the build time;
-  2. kernels: K1 (weighted covariance) at C in {2, 3, 4} and K2 (fused C = 2
-     AuxIVA-IP iteration) at 2 x 2049 x 469, each held against its plain
-     PyTorch version on the same inputs, K2 also bit-identical across two
-     launches; median times of 25 launches by CUDA events;
+  2. kernels: K1 (weighted covariance) at C in {2, 3, 4} x 2049 x 469 and
+     at C = 4 x 65 x 16,384, and K2 (fused C = 2 AuxIVA-IP iteration, one
+     launch) at 2 x 2049 x 469 and at 2 x 257 x 9000 (the frame axis
+     streamed), each held against its plain PyTorch version on the same
+     inputs, K2 also bit-identical across two launches; median times of 25
+     launches by CUDA events;
   3. main path, C = 2: a 60 s, 16 kHz stereo convolutive mixture ->
      stft(4096, 2048) -> AuxLaplaceIVA(IP) x 100 -> projection-back -> istft
      on the card; K2 once per iteration, loss finite and non-increasing,
      SI-SDR up by more than 5 dB, the first 20 losses against the port's
      own CPU float64 run;
-  4. main path, C = 3: 3 mics, 3 sources, 20 iterations through K1;
-  5. one ``{"kernels": [...]}`` line, then the last line
+  4. main path, C = 2, long: a 120 s mixture at stft(1024, 256), 2 x 513 x
+     7501 (past the 6144 frames that once capped K2), 20 iterations, K2 once
+     per iteration, loss non-increasing, SI-SDR up by more than 5 dB;
+  5. main path, C = 3: 3 mics, 3 sources, 20 iterations through K1;
+  6. one ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 ``--profile`` also writes a torch.profiler table of 20 C = 2 iterations to
@@ -47,18 +52,22 @@ from audio_source_separation_tpu_torch.ops.cov_kernel import (
 from audio_source_separation_tpu_torch.ops.fused_ip import (
     fused_auxiva_ip_iter,
     fused_auxiva_ip_iter_plain,
+    k2_launch_plan,
 )
 from audio_source_separation_tpu_torch.ops.ip_components import (
     _covariance_planes,
     pair_products_planes,
     separate_components,
 )
+from audio_source_separation_tpu_torch.tools.timing import median_ms
 
 SEED = 111
 SR = 16000
 N_SAMPLES = 958_464  # ~60 s at 16 kHz -> 2049 bins x 469 frames
 FFT_SIZE, HOP_SIZE = 4096, 2048
-ITERS_C2, ITERS_C3, N_MATCH = 100, 20, 20
+N_SAMPLES_LONG = 1_920_000  # 120 s at 16 kHz -> 513 bins x 7501 frames
+FFT_SIZE_LONG, HOP_SIZE_LONG = 1024, 256
+ITERS_C2, ITERS_C2_LONG, ITERS_C3, N_MATCH = 100, 20, 20, 20
 EPS, THRESHOLD = 1e-12, 1e12
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 non-tensor
 HBM_BYTES_PER_S = 3.35e12
@@ -122,35 +131,6 @@ def best_pairing_si_sdr(estimates, targets):
     )
 
 
-def median_ms(fn, warmup=5, reps=25):
-    """Median device time of one call of ``fn`` over ``reps`` calls.
-
-    Each call sits between two CUDA events.  All calls are queued behind a
-    spin kernel that lasts longer than the host takes to enqueue them, so
-    the device never waits on the host between the events and they time
-    the device work alone, not the wrapper's Python overhead."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - start
-    torch.cuda.synchronize()
-    events = [
-        (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        for _ in range(reps)
-    ]
-    # 3e9 cycles/s is above the card's top clock, so the spin outlasts 2x
-    # the measured enqueue time
-    torch.cuda._sleep(int(2 * reps * host_s * 3e9) + 1_000_000)
-    for begin, end in events:
-        begin.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return float(np.median([begin.elapsed_time(end) for begin, end in events]))
-
-
 def bound(n_bytes, n_flops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / F32_FLOPS_PER_S * 1e3
@@ -196,7 +176,7 @@ def k1_case(gen, C, F, T):
 
 def k2_case(gen, F, T):
     X = random_mixture(gen, 2, F, T)
-    zero_bin = 1000
+    zero_bin = F // 2
     X[:, zero_bin] = 0
     noise = torch.complex(
         torch.randn((2, 2, F), generator=gen, device="cuda"),
@@ -225,6 +205,7 @@ def k2_case(gen, F, T):
     n_flops = F * T * 62  # covariance (26) + separation power sums (36) per (f, t)
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return {
+        "F": F, "T": T, "plan": k2_launch_plan(F, T)._asdict(),
         "max_abs_err": float(max((out[0] - ref[0]).abs().max(), (out[1] - ref[1]).abs().max())),
         "rel_err": {"W": w_err, "psum": p_err, "nll": nll_err},
         "ms": ms, "plain_ms": plain_ms, "library_ms": None,
@@ -315,6 +296,40 @@ def main_path_c2(rng):
     }
 
 
+def main_path_c2_long(rng):
+    """C = 2 through the entry points at T > 6144 frames."""
+    mixture, images = synth_mixture(rng, 2, N_SAMPLES_LONG)
+    fused_auxiva_ip_iter.launches = 0
+    weighted_covariance_planes.launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE_LONG, hop_size=HOP_SIZE_LONG)
+    solver = AuxLaplaceIVA(algorithm_spatial="IP")
+    Y = solver(X, iteration=ITERS_C2_LONG)
+    y = istft(Y, fft_size=FFT_SIZE_LONG, hop_size=HOP_SIZE_LONG, length=N_SAMPLES_LONG)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    k2_launches = fused_auxiva_ip_iter.launches
+    k1_launches = weighted_covariance_planes.launches
+
+    F, T = X.shape[1], X.shape[2]
+    assert (F, T) == (FFT_SIZE_LONG // 2 + 1, N_SAMPLES_LONG // HOP_SIZE_LONG + 1) and T > 6144, X.shape
+    assert k2_launches == ITERS_C2_LONG, ("K2 launches", k2_launches)
+    assert k1_launches == 0, ("K1 launches on the C = 2 path", k1_launches)
+    check_losses(solver.loss, "C=2 long")
+    y = y.cpu().numpy()
+    assert np.isfinite(y).all() and y.shape == mixture.shape
+    before = best_pairing_si_sdr(mixture, images)
+    after = best_pairing_si_sdr(y, images)
+    assert after > before + 5.0, ("SI-SDR", before, after)
+    return {
+        "shape": [2, F, T], "plan": k2_launch_plan(F, T)._asdict(),
+        "iterations": ITERS_C2_LONG, "k2_launches": k2_launches, "wall_s": wall_s,
+        "loss_first": solver.loss[0], "loss_last": solver.loss[-1],
+        "si_sdr_before_db": before, "si_sdr_after_db": after,
+    }
+
+
 def main_path_c3(rng):
     mixture, images = synth_mixture(rng, 3, N_SAMPLES)
     fused_auxiva_ip_iter.launches = 0
@@ -367,6 +382,7 @@ def profile_c2(X, path):
         for e in events
         if re.search(r"fused_ip_\w+", e.key)
     }
+    assert len(per_iter_us) == 1, ("K2 is one kernel per iteration", per_iter_us)
     return {"device_busy_ms_20_iters": sum(getattr(e, key) for e in events) / 1e3, "kernel_us_per_iter": per_iter_us}
 
 
@@ -393,12 +409,16 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     F, T = 2049, 469
     k1 = [k1_case(gen, C, F, T) for C in (2, 3, 4)]
+    k1_long = k1_case(gen, 4, 65, 16_384)
     k2 = k2_case(gen, F, T)
-    print(json.dumps({"k1_cases": k1, "k2_case": k2}), flush=True)
+    k2_long = k2_case(gen, 257, 9000)
+    print(json.dumps({"k1_cases": k1, "k1_long": k1_long, "k2_case": k2, "k2_long": k2_long}), flush=True)
 
     rng = np.random.RandomState(SEED)
     X2, c2 = main_path_c2(rng)
     print(json.dumps({"main_path_c2": c2}), flush=True)
+    c2_long = main_path_c2_long(rng)
+    print(json.dumps({"main_path_c2_long": c2_long}), flush=True)
     c3 = main_path_c3(rng)
     print(json.dumps({"main_path_c3": c3}), flush=True)
     if args.profile:
@@ -412,8 +432,9 @@ def main():
             "source": "audio_source_separation_tpu_torch/csrc/weighted_covariance.cu",
             "replaces": "audio_source_separation_tpu/ops/pallas_kernels.py:96",
             "launches": c3["k1_launches"],
-            "max_abs_err": max(c["max_abs_err"] for c in k1),
-            "max_rel_err": max(c["rel_err"] for c in k1), "tolerance": "max_rel_err <= {}".format(K1_RTOL),
+            "max_abs_err": max(c["max_abs_err"] for c in k1 + [k1_long]),
+            "max_rel_err": max(c["rel_err"] for c in k1 + [k1_long]),
+            "tolerance": "max_rel_err <= {}".format(K1_RTOL),
             "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
             "bound_ms": k1_main["bound_ms"], "bound_us": k1_main["bound_ms"] * 1e3, "bound_by": k1_main["bound_by"],
             "library_ms": k1_main["library_ms"], "shape": [3, F, T],
@@ -423,8 +444,9 @@ def main():
             "source": "audio_source_separation_tpu_torch/csrc/fused_auxiva_ip.cu",
             "replaces": "audio_source_separation_tpu/ops/pallas_fused.py:231",
             "launches": c2["k2_launches"],
-            "max_abs_err": k2["max_abs_err"],
-            "max_rel_err": max(k2["rel_err"].values()), "tolerance": "max_rel_err <= {}".format(K2_RTOL),
+            "max_abs_err": max(k2["max_abs_err"], k2_long["max_abs_err"]),
+            "max_rel_err": max(*k2["rel_err"].values(), *k2_long["rel_err"].values()),
+            "tolerance": "max_rel_err <= {}".format(K2_RTOL),
             "ms": k2["ms"], "plain_ms": k2["plain_ms"],
             "bound_ms": k2["bound_ms"], "bound_us": k2["bound_ms"] * 1e3, "bound_by": k2["bound_by"],
             "library_ms": None, "shape": [2, F, T],

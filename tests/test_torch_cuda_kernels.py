@@ -15,6 +15,7 @@ from audio_source_separation_tpu_torch.ops.cov_kernel import (
     weighted_covariance_planes,
     weighted_covariance_planes_plain,
 )
+from audio_source_separation_tpu_torch import AuxLaplaceIVA
 from audio_source_separation_tpu_torch.ops.fused_ip import (
     fused_auxiva_ip_iter,
     fused_auxiva_ip_iter_plain,
@@ -38,7 +39,9 @@ def _mixture(seed, C, F, T, device):
     return torch.as_tensor(X.astype(np.complex64), device=device)
 
 
-@pytest.mark.parametrize("C,N,F,T", [(2, 2, 70, 33), (3, 3, 129, 100), (4, 4, 257, 469), (3, 1, 31, 7)])
+@pytest.mark.parametrize(
+    "C,N,F,T", [(2, 2, 70, 33), (3, 3, 129, 100), (4, 4, 257, 469), (3, 1, 31, 7), (4, 4, 33, 16_384)]
+)
 def test_k1_matches_plain(cuda, C, N, F, T):
     X = _mixture(C + N, C, F, T, cuda)
     w = torch.as_tensor((np.abs(np.random.RandomState(1).randn(N, T)) + 0.1).astype(np.float32), device=cuda)
@@ -60,15 +63,18 @@ def test_k1_rejects_bad_operands(cuda):
         weighted_covariance_planes(X, torch.ones((2, 15), device=cuda))
 
 
-@pytest.mark.parametrize("F,T", [(200, 37), (2049, 469)])
-def test_k2_matches_plain_and_is_deterministic(cuda, F, T):
-    X = _mixture(7, 2, F, T, cuda)
+def _k2_operands(F, T, device):
+    X = _mixture(7, 2, F, T, device)
     X[:, 3] = 0
     rng = np.random.RandomState(2)
     W = np.eye(2)[:, :, None] + 0.3 * (rng.randn(2, 2, F) + 1j * rng.randn(2, 2, F))
     W[:, :, 3] = np.eye(2)
-    W = torch.as_tensor(W.astype(np.complex64), device=cuda)
+    W = torch.as_tensor(W.astype(np.complex64), device=device)
     psum = torch.sum(torch.abs(separate_components([[W[s, c] for c in range(2)] for s in range(2)], X)) ** 2, dim=1)
+    return X, W, psum
+
+
+def _check_k2(X, W, psum):
     out = fused_auxiva_ip_iter(X, W, psum)
     again = fused_auxiva_ip_iter(X, W, psum)
     ref = fused_auxiva_ip_iter_plain(X, W, psum)
@@ -78,3 +84,34 @@ def test_k2_matches_plain_and_is_deterministic(cuda, F, T):
     torch.testing.assert_close(out[0], ref[0], rtol=0, atol=1e-4 * float(ref[0].abs().max()))
     torch.testing.assert_close(out[1], ref[1], rtol=1e-4, atol=1e-6 * float(ref[1].abs().max()))
     torch.testing.assert_close(out[3], ref[3], rtol=1e-4, atol=0)
+
+
+# every layout of the launch plan: (2049, 469) 8 bins resident; (33, 3000)
+# 4 bins resident; (33, 6145) 2 bins resident, just past the old 6144-frame
+# cap; (33, 6943) the largest resident slab; (33, 9000) streamed; (257, 469)
+# odd F T, so channel 1's runs start 8 bytes off 16
+@pytest.mark.parametrize(
+    "F,T", [(200, 37), (2049, 469), (33, 3000), (33, 6145), (33, 6943), (33, 9000), (257, 469)]
+)
+def test_k2_matches_plain_and_is_deterministic(cuda, F, T):
+    _check_k2(*_k2_operands(F, T, cuda))
+
+
+def _solver_launches(C, F, T, iterations, counter):
+    X = _mixture(C, C, F, T, "cuda")
+    counter.launches = 0
+    solver = AuxLaplaceIVA()
+    Y = solver(X, iteration=iterations)
+    torch.cuda.synchronize()
+    assert torch.isfinite(Y).all() and np.isfinite(solver.loss).all()
+    return counter.launches, solver.loss
+
+
+def test_solver_runs_long_recordings_through_the_kernels(cuda):
+    """C = 2 past 6144 frames goes through K2 once per iteration and C = 4
+    at 16,384 frames through K1: no length-based detour."""
+    launches, loss = _solver_launches(2, 33, 7000, 3, fused_auxiva_ip_iter)
+    assert launches == 3
+    assert np.all(np.diff(loss) <= 1e-5 * np.abs(loss[:-1]))
+    launches, _ = _solver_launches(4, 33, 16_384, 2, weighted_covariance_planes)
+    assert launches >= 2

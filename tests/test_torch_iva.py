@@ -34,6 +34,19 @@ def test_matches_jax_trajectory(rng, n_channels, guard):
     assert np.all(np.diff(ours.loss) <= 1e-9 * np.abs(ours.loss[:-1]))
 
 
+def test_matches_jax_past_6144_frames(rng):
+    """C = 2 at T = 6200 frames, past the 6144 that K2 once capped: the
+    entry takes any length, and the trajectory matches JAX."""
+    X = make_mixture(rng, n_channels=2, n_bins=5, n_frames=6200)
+    ref = JaxAuxLaplaceIVA(algorithm_spatial="IP")
+    Y_ref = np.asarray(ref(X, iteration=3))
+    ours = AuxLaplaceIVA(algorithm_spatial="IP", device="cpu")
+    Y = ours(X, iteration=3)
+    assert len(ours.loss) == 4
+    np.testing.assert_allclose(ours.loss, ref.loss, rtol=1e-9)
+    np.testing.assert_allclose(_np(Y), Y_ref, atol=1e-8)
+
+
 @pytest.mark.parametrize("n_channels,guard", [(2, "one_norm"), (3, "one_norm"), (2, "none")])
 def test_update_dispatch(rng, monkeypatch, n_channels, guard):
     """C = 2 with the one-norm guard calls K2 once per iteration; every

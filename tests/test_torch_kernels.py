@@ -34,8 +34,11 @@ from audio_source_separation_tpu_torch.ops.covariance import (
     weighted_covariance_auto,
 )
 from audio_source_separation_tpu_torch.ops.fused_ip import (
+    SMEM_LIMIT,
+    STATIC_SMEM,
     fused_auxiva_ip_iter,
     fused_auxiva_ip_iter_plain,
+    k2_launch_plan,
 )
 
 from conftest import make_mixture
@@ -155,3 +158,33 @@ def test_k2_zero_bin_keeps_identity(rng, dtype):
     # the zero bin contributes log|det I| = 0; the psum input differs from a
     # run without the bin only by the bin's own zero contribution
     np.testing.assert_allclose(float(logdet), float(logdet_rest), rtol=1e-6 if dtype == np.complex64 else 1e-12)
+
+
+@pytest.mark.parametrize("T", [7, 469, 6144, 6145, 20_000, 100_000])
+def test_k2_launch_plan(T):
+    """Every T gets a plan within a Hopper block's shared memory; the slab
+    is resident at the main path's T = 469 and up to 2 bins at T = 6145,
+    and streamed beyond."""
+    plan = k2_launch_plan(2049, T)
+    assert plan.smem_bytes + STATIC_SMEM <= SMEM_LIMIT == 232_448
+    assert plan.bins % 2 == 0
+    assert plan.groups == -(-2049 // plan.bins)
+    assert plan.row_stride % 4 == 0 and plan.row_stride >= 2 * T + 1
+    assert plan.resident == (T <= 6145)
+    if T == 469:
+        assert plan.bins == 8
+        assert plan.smem_bytes >= 2 * 8 * 8 * T  # both channels' rows of 8 bins
+    if T == 6145:
+        assert plan.bins == 2
+    if not plan.resident:
+        assert plan.bins == 8 and plan.smem_bytes <= 8 * 1024  # the staged weights only
+
+
+def test_k2_launch_plan_rejects_what_does_not_fit():
+    """No mixture without bins or frames; the resident slab takes the most
+    bins that fit, and streams only where 2 bins do not (T > 6943)."""
+    for F, T in [(2049, 0), (0, 469), (-1, 7)]:
+        with pytest.raises(ValueError):
+            k2_launch_plan(F, T)
+    assert [k2_launch_plan(33, T).bins for T in (1700, 1800, 3400, 3500)] == [8, 4, 4, 2]
+    assert k2_launch_plan(33, 6943).resident and not k2_launch_plan(33, 6944).resident
