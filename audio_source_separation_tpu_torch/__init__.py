@@ -5,8 +5,12 @@ as the reference) to PyTorch, with every Pallas kernel rewritten as a CUDA
 kernel for Hopper (``csrc/``).  This package imports neither JAX nor the
 JAX package.
 
-Ported so far: the AuxLaplaceIVA-IP main path -- ``stft`` ->
-``AuxLaplaceIVA(algorithm_spatial="IP")`` -> projection-back -> ``istft``.
+Ported so far: the main path -- ``stft`` ->
+``AuxLaplaceIVA(algorithm_spatial="IP")`` -> projection-back -> ``istft``
+-- and the rest of the IVA family (``models/iva.py``): ``AuxLaplaceIVA`` and
+``AuxGaussIVA`` with IP, ISS and IP2, ``GradLaplaceIVA``,
+``NaturalGradLaplaceIVA``, ``OverAuxLaplaceIVA`` (with ``transform.pca``)
+and the ``SparseAuxIVA`` stub.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise rather than fall back.
@@ -19,7 +23,14 @@ complex, demixing filters ``(n_bins, n_sources, n_channels)``, output
 __version__ = "0.1.0"
 
 from .algorithm import apply_projection_back, projection_back  # noqa: F401
-from .models import AuxLaplaceIVA  # noqa: F401
+from .models import (  # noqa: F401
+    AuxGaussIVA,
+    AuxLaplaceIVA,
+    GradLaplaceIVA,
+    NaturalGradLaplaceIVA,
+    OverAuxLaplaceIVA,
+    SparseAuxIVA,
+)
 from .runtime import resolve_device  # noqa: F401
-from .transform import build_optimal_window, build_window, istft, stft  # noqa: F401
+from .transform import build_optimal_window, build_window, istft, pca, stft  # noqa: F401
 from .utils import state_from_jax  # noqa: F401

@@ -1,7 +1,8 @@
 // One whole AuxIVA-IP iteration for C = N = 2 (kernel K2), in one launch.
 //
 // Per bin f, from the previous iteration's frame power sums psum (2, T):
-//   winv[n, t] = 1 / max(sqrt(psum[n, t]), eps)
+//   winv[n, t] = 1 / max(sqrt(psum[n, t]), eps)     (Laplace contrast)
+//              = 1 / max(psum[n, t] / F, eps)        (Gauss contrast)
 //   U_n        = (1/T) sum_t winv[n, t] x x^H          (4 planes x 2 sources)
 //   for n = 0, 1 (sequential rows):
 //     w    = (W U_n)^{-1} e_n                          (2x2 adjugate)
@@ -9,8 +10,12 @@
 //     W[n] = conj(w) / sqrt(w^H U_n w)                 (Cholesky sum of squares)
 // and then, for the next iteration and this iteration's loss,
 //   psum'[n, t] = sum_f |sum_c W[n, c] x_c|^2,   logdet = sum_f log|det W_f|,
-//   nll         = 2 sum sqrt(psum') - 2 T logdet.
-// The estimates Y are never written to device memory.
+//   nll         = 2 sum sqrt(psum') - 2 T logdet                 (Laplace)
+//               = F sum log max(psum' / F, eps) - 2 T logdet     (Gauss).
+// The estimates Y are never written to device memory.  The contrast is a
+// template parameter: it changes the weights and the NLL's per-column term
+// and nothing else (the launch plan, shared memory and summation order are
+// the same for both).
 //
 // Replaces audio_source_separation_tpu/ops/pallas_fused.py::_iter_kernel
 // (pallas_call in fused_auxiva_ip_iter).  Where the Pallas design does not
@@ -30,6 +35,9 @@
 //  * w^H U w uses the closed-form 2x2 Cholesky sum of squares of
 //    ops/ip_components.py::cholesky_quadratic_components, which cannot go
 //    negative in float32 (the Pallas body's direct sum can).
+//  * The Pallas kernel takes the weights 1/R as an input and leaves the
+//    contrast and the NLL to its caller; here both contrasts' weights are
+//    computed from psum in the kernel, and the NLL in its tail.
 //  * eps and threshold are the solver's, passed by the wrapper.
 //  * Ragged edges are masked in the kernel: no padded copies of X.
 //  * An all-zero bin has a singular U, so det = 0 and the inverse is NaN;
@@ -303,9 +311,31 @@ __host__ __device__ __forceinline__ size_t slab_bytes(int bins, int T) {
   return 8 * static_cast<size_t>(bins) * T + 16;
 }
 
+// ---- the contrasts ------------------------------------------------------------
+
+enum Contrast { kLaplace = 0, kGauss = 1 };
+
+// 1/R for a frame whose power sum over the bins is p
+template <int kContrast>
+__device__ __forceinline__ float inverse_weight(float p, float bins, float eps) {
+  return kContrast == kGauss ? 1.f / fmaxf(p / bins, eps) : 1.f / fmaxf(sqrtf(p), eps);
+}
+
+// one frame's term of the NLL's contrast sum, before the scale of nll_from
+template <int kContrast>
+__device__ __forceinline__ float contrast_term(float p, float bins, float eps) {
+  return kContrast == kGauss ? logf(fmaxf(p / bins, eps)) : sqrtf(p);
+}
+
+template <int kContrast>
+__device__ __forceinline__ float nll_from(float total, float logdet, float bins, int T) {
+  const float scale = kContrast == kGauss ? bins : 2.f;
+  return scale * total - 2.f * static_cast<float>(T) * logdet;
+}
+
 // ---- the kernel --------------------------------------------------------------
 
-template <int B, bool kResident>
+template <int B, bool kResident, int kContrast>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_ip_kernel(const float2* __restrict__ x,      // (2, F, T)
                 const float2* __restrict__ w_in,   // (2, 2, F)
@@ -329,6 +359,7 @@ fused_ip_kernel(const float2* __restrict__ x,      // (2, F, T)
   __shared__ int flag_s;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float bins_f = static_cast<float>(F);
   K2_STAMP(0);  // block started
   const int groups = (F + B - 1) / B;  // groups of B bins; this block takes every gridDim-th
   const int wstride = T < kChunk ? T : kChunk;
@@ -414,8 +445,8 @@ fused_ip_kernel(const float2* __restrict__ x,      // (2, F, T)
       const int len = min(kChunk, T - t0);
       __syncthreads();  // the previous chunk's weights are consumed
       for (int j = tid; j < len; j += kThreads) {
-        winv_s[j] = 1.f / fmaxf(sqrtf(psum_in[t0 + j]), eps);
-        winv_s[wstride + j] = 1.f / fmaxf(sqrtf(psum_in[T + t0 + j]), eps);
+        winv_s[j] = inverse_weight<kContrast>(psum_in[t0 + j], bins_f, eps);
+        winv_s[wstride + j] = inverse_weight<kContrast>(psum_in[T + t0 + j], bins_f, eps);
       }
       __syncthreads();
       if (cb >= nb) continue;  // warp-uniform; the loop has no barrier past this
@@ -516,7 +547,7 @@ fused_ip_kernel(const float2* __restrict__ x,      // (2, F, T)
   const int columns = 2 * T + 1;
   float* root_part = part + static_cast<size_t>(rows_n) * stride;  // (rows_n,)
   float* logdet_slot = root_part + rows_n;
-  float root = 0.f;  // lanes of warp 0: sqrt of this block's columns
+  float root = 0.f;  // lanes of warp 0: contrast terms of this block's columns
   for (int q0 = 32 * blockIdx.x; q0 < columns; q0 += 32 * gridDim.x) {
     const int q = q0 + lane;
     col_s[warp][lane] = q < columns ? sum_rows(part + q, r0, r1, stride) : 0.f;
@@ -526,7 +557,7 @@ fused_ip_kernel(const float2* __restrict__ x,      // (2, F, T)
       for (int w = 1; w < kWarps; ++w) v += col_s[w][lane];
       if (q < 2 * T) {
         psum_out[q] = v;
-        root += sqrtf(v);
+        root += contrast_term<kContrast>(v, bins_f, eps);
       } else {
         *logdet_slot = v;
       }
@@ -540,8 +571,8 @@ fused_ip_kernel(const float2* __restrict__ x,      // (2, F, T)
   }
   K2_STAMP(8);  // columns summed
   if (!last_to_arrive(&tickets[2], gridDim.x, &flag_s)) return;
-  // the last block sums the blocks' shares: a thread per block, then a
-  // fixed tree
+  // the last block sums the blocks' shares of the contrast sum: a thread per
+  // block, then a fixed tree
   float v = 0.f;
   for (int i = tid; i < rows_n; i += kThreads) v += __ldcg(root_part + i);
 #pragma unroll
@@ -553,19 +584,19 @@ fused_ip_kernel(const float2* __restrict__ x,      // (2, F, T)
     for (int i = 0; i < kWarps; ++i) total += red_s[i];
     const float logdet = __ldcg(logdet_slot);
     stats[0] = logdet;
-    stats[1] = 2.f * total - 2.f * static_cast<float>(T) * logdet;
+    stats[1] = nll_from<kContrast>(total, logdet, bins_f, T);
   }
   K2_STAMP(9);  // end (last block only)
 }
 
-// Blocks of fused_ip_kernel<B, kResident> that fit on the device at once
-// with `smem` bytes each, cached per device.
-template <int B, bool kResident>
+// Blocks of fused_ip_kernel<B, kResident, kContrast> that fit on the device
+// at once with `smem` bytes each, cached per device.
+template <int B, bool kResident, int kContrast>
 cudaError_t resident_blocks(int device, size_t smem, int* out) {
   static size_t cached_smem[kMaxDevices] = {};
   static int cached[kMaxDevices] = {};
   if (cached[device] == 0 || cached_smem[device] != smem) {
-    auto kernel = fused_ip_kernel<B, kResident>;
+    auto kernel = fused_ip_kernel<B, kResident, kContrast>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
@@ -582,7 +613,7 @@ cudaError_t resident_blocks(int device, size_t smem, int* out) {
   return cudaSuccess;
 }
 
-template <int B, bool kResident>
+template <int B, bool kResident, int kContrast>
 cudaError_t launch(const void* x, const void* w_in, const void* psum_in, void* w_out,
                    void* psum_out, void* stats, void* part, void* tickets, int F, int T,
                    size_t smem, float eps, float threshold, cudaStream_t stream) {
@@ -591,7 +622,7 @@ cudaError_t launch(const void* x, const void* w_in, const void* psum_in, void* w
   if (err != cudaSuccess) return err;
   if (device >= kMaxDevices) return cudaErrorInvalidDevice;
   int capacity = 0;
-  err = resident_blocks<B, kResident>(device, smem, &capacity);
+  err = resident_blocks<B, kResident, kContrast>(device, smem, &capacity);
   if (err != cudaSuccess) return err;
   const int groups = (F + B - 1) / B;
   const int blocks = groups < capacity ? groups : capacity;
@@ -604,10 +635,27 @@ cudaError_t launch(const void* x, const void* w_in, const void* psum_in, void* w
   float* po = static_cast<float*>(psum_out);
   float* st = static_cast<float*>(stats);
   void* args[] = {&xp, &wp, &pp, &wo, &pa, &tk, &po, &st, &F, &T, &eps, &threshold};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fused_ip_kernel<B, kResident>),
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fused_ip_kernel<B, kResident, kContrast>),
                                     dim3(blocks), dim3(kThreads), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The layouts that ops/fused_ip.py::k2_launch_plan picks, for one contrast.
+template <int kContrast>
+cudaError_t launch_plan(const void* x, const void* w_in, const void* psum_in, void* w_out,
+                        void* psum_out, void* stats, void* part, void* tickets, int F, int T,
+                        int bins, bool resident, size_t smem, float eps, float threshold,
+                        cudaStream_t s) {
+  if (!resident && bins == 8)
+    return launch<8, false, kContrast>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, smem, eps, threshold, s);
+  if (resident && bins == 8)
+    return launch<8, true, kContrast>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, smem, eps, threshold, s);
+  if (resident && bins == 4)
+    return launch<4, true, kContrast>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, smem, eps, threshold, s);
+  if (resident && bins == 2)
+    return launch<2, true, kContrast>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, smem, eps, threshold, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -618,26 +666,23 @@ cudaError_t launch(const void* x, const void* w_in, const void* psum_in, void* w
 // 4); tickets: 3 unsigned, zero before the first launch (the kernel leaves
 // the counters zero).  bins, resident and smem_bytes come from
 // ops/fused_ip.py::k2_launch_plan: a resident slab of 2, 4 or 8 bins, or
-// the frame axis streamed in groups of 8.  Returns the launch's cudaError_t
-// (0 on success).
+// the frame axis streamed in groups of 8.  contrast: 0 Laplace, 1 Gauss.
+// Returns the launch's cudaError_t (0 on success).
 extern "C" int fused_auxiva_ip_f32(const void* x, const void* w_in, const void* psum_in,
                                    void* w_out, void* psum_out, void* stats, void* part,
                                    void* tickets, int F, int T, int bins, int resident,
-                                   int smem_bytes, float eps, float threshold, void* stream) {
+                                   int smem_bytes, int contrast, float eps, float threshold,
+                                   void* stream) {
   if (F < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t need = weights_bytes(T) + (resident ? 2 * slab_bytes(bins, T) : 0);
   if (static_cast<size_t>(smem_bytes) < need) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(smem_bytes);
   cudaError_t err = cudaErrorInvalidValue;
-  if (!resident && bins == 8)
-    err = launch<8, false>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, smem, eps, threshold, s);
-  else if (resident && bins == 8)
-    err = launch<8, true>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, smem, eps, threshold, s);
-  else if (resident && bins == 4)
-    err = launch<4, true>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, smem, eps, threshold, s);
-  else if (resident && bins == 2)
-    err = launch<2, true>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, smem, eps, threshold, s);
+  if (contrast == kLaplace)
+    err = launch_plan<kLaplace>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, bins, resident != 0, smem, eps, threshold, s);
+  else if (contrast == kGauss)
+    err = launch_plan<kGauss>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, bins, resident != 0, smem, eps, threshold, s);
   return static_cast<int>(err);
 }
 

@@ -24,6 +24,14 @@
 // kChunk is a multiple of 32, so each lane visits its frames in the same
 // order as with all T staged at once.
 //
+// Any other C >= 1 and N >= 1 (the TPU kernel loops over any n_channels
+// and n_sources) takes weighted_covariance_any_kernel: one warp per (bin,
+// channel pair c <= d, tile of up to kTileN weight rows), lanes striding the
+// frame axis in the same order, the pair's two rows of X and the weights
+// read straight from global memory.  A row of X is read by every pair that
+// holds its channel, mostly from L2; the specialised instances above stay
+// the path of C in {2, 3, 4} with N <= 4.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (no fast math).
 
@@ -103,6 +111,89 @@ weighted_covariance_kernel(const float2* __restrict__ x,
   }
 }
 
+constexpr int kTileN = 8;  // weight rows per warp in the any-C kernel
+
+// out[p, f, n] for one (f, pair q, tile of weight rows) per warp.  Pair q < C
+// is the diagonal (q, q), plane q; pair q >= C is the (q - C)-th c < d pair in
+// _plane_index order, planes C + 2 (q - C) (re) and C + 2 (q - C) + 1 (im).
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+weighted_covariance_any_kernel(const float2* __restrict__ x,
+                               const float* __restrict__ w,
+                               float* __restrict__ out, int C, int N, int F,
+                               int T) {
+  const int n_pairs = C * (C + 1) / 2;
+  const int n_tiles = (N + kTileN - 1) / kTileN;
+  const long long item =
+      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (item >= static_cast<long long>(F) * n_pairs * n_tiles) return;  // no barriers below
+  const int lane = threadIdx.x & 31;
+  // item = (f * n_pairs + q) * n_tiles + tile: a block's warps share bins
+  const int tile = static_cast<int>(item % n_tiles);
+  const int q = static_cast<int>((item / n_tiles) % n_pairs);
+  const int f = static_cast<int>(item / (static_cast<long long>(n_tiles) * n_pairs));
+  int c = q, d = q;
+  if (q >= C) {
+    int r = q - C;
+    c = 0;
+    while (r >= C - 1 - c) r -= C - 1 - (c++);
+    d = c + 1 + r;
+  }
+  const int n0 = tile * kTileN;
+  const int nt = min(kTileN, N - n0);
+  const float2* xc = x + (static_cast<size_t>(c) * F + f) * T;
+  const float2* xd = x + (static_cast<size_t>(d) * F + f) * T;
+  const float* wt = w + static_cast<size_t>(n0) * T;
+
+  float re[kTileN], im[kTileN];
+#pragma unroll
+  for (int k = 0; k < kTileN; ++k) re[k] = im[k] = 0.f;
+#pragma unroll 4  // four frames' loads in flight per lane
+  for (int t = lane; t < T; t += 32) {
+    const float2 a = xc[t], b = xd[t];
+    const float pr = a.x * b.x + a.y * b.y;  // |x_c|^2 when c == d
+    const float pi = a.y * b.x - a.x * b.y;
+#pragma unroll
+    for (int k = 0; k < kTileN; ++k) {
+      if (k < nt) {
+        const float wk = wt[static_cast<size_t>(k) * T + t];
+        re[k] += pr * wk;
+        im[k] += pi * wk;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kTileN; ++k)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      re[k] += __shfl_xor_sync(0xffffffffu, re[k], off);
+      im[k] += __shfl_xor_sync(0xffffffffu, im[k], off);
+    }
+
+  if (lane == 0) {
+    const float n_frames = static_cast<float>(T);
+    const int p = q < C ? q : C + 2 * (q - C);
+#pragma unroll
+    for (int k = 0; k < kTileN; ++k) {
+      if (k < nt) {
+        out[(static_cast<size_t>(p) * F + f) * N + n0 + k] = re[k] / n_frames;
+        if (q >= C) out[(static_cast<size_t>(p + 1) * F + f) * N + n0 + k] = im[k] / n_frames;
+      }
+    }
+  }
+}
+
+cudaError_t launch_any(const void* x, const void* w, void* out, int C, int N,
+                       int F, int T, cudaStream_t stream) {
+  const long long items =
+      static_cast<long long>(F) * (C * (C + 1) / 2) * ((N + kTileN - 1) / kTileN);
+  const long long blocks = (items + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  weighted_covariance_any_kernel<<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const float2*>(x), static_cast<const float*>(w),
+      static_cast<float*>(out), C, N, F, T);
+  return cudaGetLastError();
+}
+
 template <int C, int N>
 cudaError_t launch(const void* x, const void* w, void* out, int F, int T,
                    cudaStream_t stream) {
@@ -122,13 +213,14 @@ cudaError_t launch_c(const void* x, const void* w, void* out, int N, int F,
     case 2: return launch<C, 2>(x, w, out, F, T, stream);
     case 3: return launch<C, 3>(x, w, out, F, T, stream);
     case 4: return launch<C, 4>(x, w, out, F, T, stream);
-    default: return cudaErrorInvalidValue;
+    default: return launch_any(x, w, out, C, N, F, T, stream);
   }
 }
 
 }  // namespace
 
-// x: (C, F, T) complex64 viewed as float2; w: (N, T) f32; out: (C^2, F, N) f32.
+// x: (C, F, T) complex64 viewed as float2; w: (N, T) f32; out: (C^2, F, N) f32;
+// any C >= 1 and N >= 1.
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int weighted_covariance_f32(const void* x, const void* w, void* out,
                                        int C, int N, int F, int T,
@@ -138,6 +230,8 @@ extern "C" int weighted_covariance_f32(const void* x, const void* w, void* out,
     case 2: return static_cast<int>(launch_c<2>(x, w, out, N, F, T, s));
     case 3: return static_cast<int>(launch_c<3>(x, w, out, N, F, T, s));
     case 4: return static_cast<int>(launch_c<4>(x, w, out, N, F, T, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      if (C < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(launch_any(x, w, out, C, N, F, T, s));
   }
 }

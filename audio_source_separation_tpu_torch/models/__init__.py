@@ -1,1 +1,17 @@
-from .iva import AuxLaplaceIVA  # noqa: F401
+from .iva import (  # noqa: F401
+    AuxGaussIVA,
+    AuxLaplaceIVA,
+    GradLaplaceIVA,
+    NaturalGradLaplaceIVA,
+    OverAuxLaplaceIVA,
+    SparseAuxIVA,
+)
+
+__all__ = [
+    "GradLaplaceIVA",
+    "NaturalGradLaplaceIVA",
+    "AuxLaplaceIVA",
+    "AuxGaussIVA",
+    "SparseAuxIVA",
+    "OverAuxLaplaceIVA",
+]

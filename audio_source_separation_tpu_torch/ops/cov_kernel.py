@@ -17,9 +17,6 @@ import torch
 from . import _build
 from .ip_components import _covariance_planes, pair_products_planes
 
-MAX_CHANNELS = 4
-MAX_SOURCES = 4
-
 
 def weighted_covariance_planes_plain(X, weights):
     """Plain PyTorch version of K1: ``X (C, F, T)`` complex and 2-D weights
@@ -40,10 +37,10 @@ def weighted_covariance_planes(X, weights):
     """K1: compact weighted covariance ``(C^2, F, N)``.
 
     Args:
-        X: ``(C, F, T)`` complex mixture, C in {2, 3, 4}.  On CUDA it must
-            be contiguous complex64.
-        weights: ``(N, T)`` real weights (``1/R``), N <= 4.  On CUDA it must
-            be contiguous float32 on the same device.
+        X: ``(C, F, T)`` complex mixture, any C >= 1.  On CUDA it must be
+            contiguous complex64.
+        weights: ``(N, T)`` real weights (``1/R``), any N >= 1.  On CUDA it
+            must be contiguous float32 on the same device.
     """
     if X.device.type == "cpu":
         return weighted_covariance_planes_plain(X, weights)
@@ -57,8 +54,8 @@ def weighted_covariance_planes(X, weights):
     if weights.device != X.device or weights.ndim != 2 or weights.shape[1] != T:
         raise ValueError("K1 weights must be (N, T) on the mixture's device")
     N = weights.shape[0]
-    if not (2 <= C <= MAX_CHANNELS and 1 <= N <= MAX_SOURCES):
-        raise ValueError("K1 covers 2 <= C <= 4 and 1 <= N <= 4, got C={}, N={}".format(C, N))
+    if C < 1 or N < 1 or F < 1 or T < 1:
+        raise ValueError("K1 needs C, N, F, T >= 1, got C={}, N={}, F={}, T={}".format(C, N, F, T))
     out = torch.empty((C * C, F, N), dtype=torch.float32, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     status = _entry()(X.data_ptr(), weights.data_ptr(), out.data_ptr(), C, N, F, T, stream)

@@ -3,7 +3,7 @@
 import torch
 
 from .cov_kernel import weighted_covariance_planes
-from .ip_components import assemble_components
+from .ip_components import assemble_matrices
 
 
 def weighted_covariance(X, weights):
@@ -26,17 +26,13 @@ def weighted_covariance(X, weights):
 
 
 def weighted_covariance_auto(X, weights):
-    """Weighted covariance ``(N, F, C, C)``, dispatched on the weights.
+    """Weighted covariance ``(N, F, C, C)``, dispatched on the shapes.
 
     2-D ``(N, T)`` weights go through kernel K1
     (:func:`~.cov_kernel.weighted_covariance_planes`: the CUDA kernel for a
-    CUDA mixture, its plain version on the CPU) and the compact planes are
-    assembled into Hermitian matrices; 3-D per-bin weights use
-    :func:`weighted_covariance`.
+    CUDA mixture, its plain version on the CPU) at any C and N; 3-D per-bin
+    weights use :func:`weighted_covariance`.
     """
     if weights.ndim != 2:
         return weighted_covariance(X, weights)
-    U = assemble_components(weighted_covariance_planes(X, weights))
-    return torch.stack(
-        [torch.stack([torch.stack(row, dim=-1) for row in U_n], dim=-2) for U_n in U]
-    )
+    return assemble_matrices(weighted_covariance_planes(X, weights))

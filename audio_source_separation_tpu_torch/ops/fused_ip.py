@@ -2,11 +2,18 @@
 
 Replaces ``audio_source_separation_tpu/ops/pallas_fused.py::_iter_kernel``.
 From the mixture, the demixing rows and the previous frame power sums it
-computes the weights ``1/max(sqrt(psum), eps)``, both weighted covariances,
-the guarded sequential IP row update, and, for the new rows, the frame power
-sums ``sum_f |y|^2``, ``sum_f log|det W_f|`` and the Laplace NLL
-``2 sum sqrt(psum) - 2 T logdet``.  The returned ``psum`` is both the next
-iteration's weights and this iteration's loss.
+computes the weights ``1/R``, both weighted covariances, the guarded
+sequential IP row update, and, for the new rows, the frame power sums
+``sum_f |y|^2``, ``sum_f log|det W_f|`` and the NLL.  The contrast fixes
+``R`` and the NLL (``CONTRASTS``):
+
+  * ``"laplace"``: ``R = max(sqrt(psum), eps)``, NLL ``2 sum sqrt(psum) -
+    2 T logdet`` (``AuxLaplaceIVA``);
+  * ``"gauss"``: ``R = max(psum / F, eps)``, NLL ``F sum log max(psum / F,
+    eps) - 2 T logdet`` (``AuxGaussIVA``).
+
+The returned ``psum`` is both the next iteration's weights and this
+iteration's loss.
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/fused_auxiva_ip.cu`` (its source note gives the bound and the
@@ -32,25 +39,42 @@ from .ip_components import (
 from ..utils.flooring import EPS, THRESHOLD, floor_below
 
 
-def fused_auxiva_ip_iter_plain(X, W, psum, eps=EPS, threshold=THRESHOLD):
+CONTRASTS = ("laplace", "gauss")  # the C entry's contrast code is the index
+
+
+def _contrast_code(contrast):
+    if contrast not in CONTRASTS:
+        raise ValueError("K2 contrast must be one of {}, got {!r}".format(CONTRASTS, contrast))
+    return CONTRASTS.index(contrast)
+
+
+def fused_auxiva_ip_iter_plain(X, W, psum, eps=EPS, threshold=THRESHOLD, contrast="laplace"):
     """Plain PyTorch version of K2.
 
     Args:
         X: ``(2, F, T)`` complex mixture.
         W: ``(2, 2, F)`` complex demixing rows as components ``W[n, c]``.
         psum: ``(2, T)`` frame power sums of the current rows.
+        contrast: ``"laplace"`` or ``"gauss"`` (module docstring).
     Returns:
         ``(W_new (2, 2, F), psum_new (2, T), logdet (), nll ())``.
     """
-    n_frames = X.shape[-1]
-    winv = 1.0 / floor_below(torch.sqrt(psum), eps)
+    _contrast_code(contrast)
+    n_bins, n_frames = X.shape[1], X.shape[2]
+    if contrast == "gauss":
+        winv = 1.0 / floor_below(psum / n_bins, eps)
+    else:
+        winv = 1.0 / floor_below(torch.sqrt(psum), eps)
     U = weighted_covariance_components(pair_products_planes(X), winv)
     rows = [[W[s, c] for c in range(2)] for s in range(2)]
     rows = ip_update_components(rows, U, threshold=threshold, guard="one_norm")
     Y = separate_components(rows, X)
     psum_new = torch.sum(torch.abs(Y) ** 2, dim=1)
     logdet = log_abs_det_components(rows, 2).sum()
-    nll = 2 * torch.sqrt(psum_new).sum() - 2 * n_frames * logdet
+    if contrast == "gauss":
+        nll = n_bins * torch.log(floor_below(psum_new / n_bins, eps)).sum() - 2 * n_frames * logdet
+    else:
+        nll = 2 * torch.sqrt(psum_new).sum() - 2 * n_frames * logdet
     return torch.stack([torch.stack(row) for row in rows]), psum_new, logdet, nll
 
 
@@ -113,7 +137,7 @@ def _entry():
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_void_p] * 8
-            + [ctypes.c_int] * 5
+            + [ctypes.c_int] * 6
             + [ctypes.c_float] * 2
             + [ctypes.c_void_p]
         )
@@ -147,15 +171,17 @@ def _check_operand(name, t, dtype, shape, device):
         )
 
 
-def fused_auxiva_ip_iter(X, W, psum, eps=EPS, threshold=THRESHOLD):
+def fused_auxiva_ip_iter(X, W, psum, eps=EPS, threshold=THRESHOLD, contrast="laplace"):
     """K2: one fused AuxIVA-IP iteration (see the module docstring).
 
     On CUDA, ``X`` is contiguous complex64 ``(2, F, T)``, ``W`` contiguous
     complex64 ``(2, 2, F)`` and ``psum`` contiguous float32 ``(2, T)``, all
-    on one device, at any ``F`` and ``T``.
+    on one device, at any ``F`` and ``T``; ``contrast`` picks the kernel's
+    instance.
     """
+    code = _contrast_code(contrast)
     if X.device.type == "cpu":
-        return fused_auxiva_ip_iter_plain(X, W, psum, eps=eps, threshold=threshold)
+        return fused_auxiva_ip_iter_plain(X, W, psum, eps=eps, threshold=threshold, contrast=contrast)
     if X.device.type != "cuda":
         raise ValueError("fused_auxiva_ip_iter: unsupported device {}".format(X.device))
     if X.ndim != 3 or X.shape[0] != 2:
@@ -174,7 +200,7 @@ def fused_auxiva_ip_iter(X, W, psum, eps=EPS, threshold=THRESHOLD):
     status = _entry()(
         X.data_ptr(), W.data_ptr(), psum.data_ptr(), W_new.data_ptr(),
         psum_new.data_ptr(), stats.data_ptr(), part.data_ptr(), tickets.data_ptr(),
-        F, T, plan.bins, int(plan.resident), plan.smem_bytes,
+        F, T, plan.bins, int(plan.resident), plan.smem_bytes, code,
         eps, threshold, stream,
     )
     _build.check(status, "fused_auxiva_ip")

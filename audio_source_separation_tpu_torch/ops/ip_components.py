@@ -7,12 +7,20 @@ adjugates are Laplace expansions).
 
 Layouts:
   * ``W_rows[n][c]`` complex ``(F,)`` -- demixing rows as components;
+  * ``W (F, N, C)`` complex -- the public demixing-filter layout, taken and
+    returned by the functions that bridge to it;
   * ``X (C, F, T)`` complex -- the public mixture layout;
   * ``planes (C^2, F, T)`` real -- compact Hermitian pair products
     (:func:`pair_products_planes`), contracted over frames as one real GEMM.
 """
 
+import functools
+import math
+
 import torch
+
+from .eig2 import generalized_eig2x2_descending_planes
+from .fast_linalg import det_planes, inv_planes
 
 
 def _plane_index(C):
@@ -107,6 +115,46 @@ def assemble_components(out):
     ]
 
 
+@functools.lru_cache(maxsize=None)
+def _assembly_index(C, device, dtype):
+    """Plane gather of the Hermitian ``(C, C)`` assembly, row-major over
+    ``(c, d)``: ``index (2 C^2,)`` holds the real part's plane of each entry,
+    then its imaginary part's; ``sign (C^2, 1, 1)`` is the imaginary part's
+    sign (0 on the diagonal, -1 below it)."""
+    table, _ = _plane_index(C)
+    re, im, sign = [], [], []
+    for c in range(C):
+        for d in range(C):
+            lo, hi = min(c, d), max(c, d)
+            re.append(table[("re", lo, hi)])
+            im.append(table[("re", c, c)] if c == d else table[("im", lo, hi)])
+            sign.append(0.0 if c == d else (1.0 if c < d else -1.0))
+    index = torch.tensor(re + im, dtype=torch.int64, device=device)
+    return index, torch.tensor(sign, dtype=dtype, device=device)[:, None, None]
+
+
+def assemble_matrices(out):
+    """Hermitian ``U (N, F, C, C)`` complex from compact ``(C^2, F, N)``
+    (finite planes), as one gather: a strided view of a ``(C, C, F, N)``
+    tensor."""
+    P, F, N = out.shape
+    C = math.isqrt(P)
+    index, sign = _assembly_index(C, out.device, out.dtype)
+    gathered = out.index_select(0, index)
+    U = torch.complex(gathered[:P], gathered[P:] * sign)
+    return U.reshape(C, C, F, N).permute(3, 2, 0, 1)
+
+
+def filter_rows(W):
+    """``(F, N, C)`` filter as the nested ``rows[n][c]`` list of ``(F,)``."""
+    return [[W[:, s, c] for c in range(W.shape[2])] for s in range(W.shape[1])]
+
+
+def stack_filter_rows(rows):
+    """Inverse of :func:`filter_rows`: nested rows -> ``(F, N, C)``."""
+    return torch.stack([torch.stack(row, dim=-1) for row in rows], dim=1)
+
+
 def weighted_covariance_components(planes, weights):
     """``U[n][c][d] (F,) = (1/T) sum_t w[n, t] (x_c x_d^*)(f, t)`` from the
     planes and 2-D ``(N, T)`` weights, as a nested list of complex ``(F,)``."""
@@ -196,16 +244,17 @@ def cholesky_quadratic_components(U_n, w, tiny=1e-32):
     return wUw
 
 
-def ip_update_components(W_rows, U, threshold=1e12, guard="one_norm"):
+def ip_update_components(W_rows, U, threshold=1e12, guard="one_norm", denom_floor=None):
     """Sequential IP row sweep in component layout.
 
     ``W_rows[s][c]`` and ``U[n][c][d]`` are complex ``(F,)``.  For each
     source n: solve ``(W U_n) w = e_n`` by the adjugate, normalise by
-    ``sqrt(w^H U_n w)`` (Cholesky form), and keep the old row where the
-    guard rejects the bin.  ``guard="one_norm"`` keeps bins whose
-    ``kappa_1(W U_n) = ||WU||_1 ||WU^{-1}||_1`` is below ``threshold`` (a NaN
-    kappa compares false, so singular bins keep their rows); ``"none"``
-    accepts every bin.  Returns the updated nested list.
+    ``sqrt(w^H U_n w)`` (Cholesky form; floored at ``denom_floor`` when
+    given), and keep the old row where the guard rejects the bin.
+    ``guard="one_norm"`` keeps bins whose ``kappa_1(W U_n) = ||WU||_1
+    ||WU^{-1}||_1`` is below ``threshold`` (a NaN kappa compares false, so
+    singular bins keep their rows); ``"none"`` accepts every bin.  Returns
+    the updated nested list.
     """
     if guard not in ("one_norm", "none"):
         raise ValueError("guard must be 'one_norm' or 'none', got {!r}".format(guard))
@@ -247,6 +296,8 @@ def ip_update_components(W_rows, U, threshold=1e12, guard="one_norm"):
             ok = norm * inv_norm < threshold
 
         denom = torch.sqrt(cholesky_quadratic_components(U_n, w_n))
+        if denom_floor is not None:
+            denom = torch.clamp(denom, min=denom_floor)
         for c in range(n_channels):
             new_c = w_n[c].conj() / denom
             if ok is not None:
@@ -262,3 +313,152 @@ def log_abs_det_components(W_rows, n_channels):
         n_channels,
     )
     return torch.log(torch.abs(det))
+
+
+def weighted_covariance_planes_array(planes, weights):
+    """``U (N, F, C, C)`` complex from the planes and 2-D ``(N, T)`` weights
+    (for matrix-layout consumers)."""
+    return assemble_matrices(_covariance_planes(planes, weights))
+
+
+def weighted_covariance_planes_stack(planes, weights):
+    """``U (N, C, C, F)`` complex from the planes and 2-D ``(N, T)`` weights:
+    the small axes lead and the bins trail (for the IP2 planes update)."""
+    return weighted_covariance_planes_array(planes, weights).permute(0, 2, 3, 1)
+
+
+def ip_sweep_from_planes(W, planes, inv_weights, threshold=1e12, guard="one_norm", denom_floor=None):
+    """Covariance from the planes and the IP sweep, in component layout.
+
+    Args:
+        W: demixing filters ``(F, N, C)``.
+        planes: from :func:`pair_products_planes`.
+        inv_weights: ``(N, T)`` reciprocal variances.
+        denom_floor: optional floor on the ``sqrt(w^H U w)`` normaliser.
+    Returns:
+        the updated ``W (F, N, C)``.
+    """
+    U = weighted_covariance_components(planes, inv_weights)
+    rows = ip_update_components(filter_rows(W), U, threshold=threshold, guard=guard, denom_floor=denom_floor)
+    return stack_filter_rows(rows)
+
+
+def _dynamic_set_row(W, idx, row):
+    """``W[:, idx, :] = row`` out of place, with ``idx`` a 0-d tensor that
+    stays on the device (a one-hot blend; no host read of the index)."""
+    onehot = (torch.arange(W.shape[1], device=W.device) == idx)[None, :, None]
+    return torch.where(onehot, row[:, None, :], W)
+
+
+def _take(A, idx, dim):
+    """``A`` indexed at the 0-d tensor ``idx`` along ``dim``, without a
+    host read of the index."""
+    return A.index_select(dim, idx.reshape(1)).squeeze(dim)
+
+
+def ip2_pair_update_planes(W, U_mn, m, n, threshold=1e12, guard="one_norm"):
+    """Pairwise (IP2) update of demixing rows ``(m, n)`` with every per-bin
+    small matrix as planes and the inverses as adjugates (the math of the
+    matrix path in ``models/iva.py::AuxIVABase._update_pairwise``, reference
+    ``bss/iva.py:566-599``).
+
+    Args:
+        W: ``(F, N, C)`` square demixing filter, C <= 3 (the closed forms).
+        U_mn: ``(2, C, C, F)`` weighted covariances of sources (m, n).
+        m, n: 0-d integer tensors, the pair.
+        guard: ``"one_norm"`` or ``"none"``.
+    Returns:
+        the updated ``W`` (same shape).
+    """
+    C = W.shape[-1]
+    Wc = [[W[:, i, c] for c in range(C)] for i in range(C)]
+    # WU[i][j][p] = sum_c W[i][c] U_p[c][j]: (C, C, 2, F), matrix axes leading
+    WU = torch.stack(
+        [torch.stack([sum(Wc[i][c][None] * U_mn[:, c, j] for c in range(C)) for j in range(C)]) for i in range(C)]
+    )
+    det = det_planes(WU)
+    inv = inv_planes(WU, det=det)  # inv[i][j] = (WU^{-1})[i, j], (C, C, 2, F)
+
+    if guard == "none":
+        ok = None
+    else:
+        from .ip import cond_guard  # ops/ip.py imports this module
+
+        # the matrix axes trail in the views: ok is (2, F)
+        ok = cond_guard(WU.permute(2, 3, 0, 1), inv.permute(2, 3, 0, 1), threshold=threshold, guard=guard)
+
+    # P_p = WU_p^{-1} E_mn: columns m and n of the inverse, (C, 2 cols, 2 p, F)
+    P_cols = torch.stack([_take(inv, m, 1), _take(inv, n, 1)], dim=1)
+
+    # V_p[a][b] = sum_{c,d} conj(P_p[c][a]) U_p[c][d] P_p[d][b]: 2 x 2 planes over (p, F)
+    UP = [[sum(U_mn[:, c, d] * P_cols[d, b] for d in range(C)) for b in range(2)] for c in range(C)]
+    V = [[sum(P_cols[c, a].conj() * UP[c][b] for c in range(C)) for b in range(2)] for a in range(2)]
+    Vm = [[V[a][b][0] for b in range(2)] for a in range(2)]
+    Vn = [[V[a][b][1] for b in range(2)] for a in range(2)]
+    v_m, v_n = generalized_eig2x2_descending_planes(Vm, Vn)
+
+    def normalize(v, Vp):
+        vVv = sum(v[a].conj() * Vp[a][b] * v[b] for a in range(2) for b in range(2))
+        scale = torch.sqrt(vVv)
+        return (v[0] / scale, v[1] / scale)
+
+    v_m = normalize(v_m, Vm)
+    v_n = normalize(v_n, Vn)
+
+    # w_p[c] = conj(sum_a P_p[c][a] v_p[a])
+    w_m = torch.stack([(P_cols[c, 0, 0] * v_m[0] + P_cols[c, 1, 0] * v_m[1]).conj() for c in range(C)], dim=-1)
+    w_n = torch.stack([(P_cols[c, 0, 1] * v_n[0] + P_cols[c, 1, 1] * v_n[1]).conj() for c in range(C)], dim=-1)
+    if ok is not None:
+        w_m = torch.where(ok[0][:, None], w_m, _take(W, m, 1))
+        w_n = torch.where(ok[1][:, None], w_n, _take(W, n, 1))
+    W = _dynamic_set_row(W, m, w_m)
+    return _dynamic_set_row(W, n, w_n)
+
+
+def natural_grad_step_components(W_rows, Y, Phi, lr):
+    """One natural-gradient step ``W <- W - lr ((Phi Y^H / T - I) W)`` in
+    component layout: the cross-moments ``G[n][m] = mean_t Phi_n conj(Y_m)``
+    are ``(F,)`` frame reductions and the update is component arithmetic.
+
+    Args:
+        W_rows: nested list ``[n][c]`` of complex ``(F,)`` demixing rows.
+        Y: estimates ``(N, F, T)`` (``separate(X, W)``).
+        Phi: score ``(N, F, T)``.
+        lr: learning rate.
+    Returns: the updated ``W_rows``.
+    """
+    n_sources = len(W_rows)
+    n_channels = len(W_rows[0])
+    n_frames = Y.shape[-1]
+    G = [[(Phi[n] * Y[m].conj()).sum(dim=-1) / n_frames for m in range(n_sources)] for n in range(n_sources)]
+    new_rows = []
+    for n in range(n_sources):
+        row = []
+        for c in range(n_channels):
+            delta = None
+            for m in range(n_sources):
+                g = G[n][m] - 1.0 if m == n else G[n][m]
+                term = g * W_rows[m][c]
+                delta = term if delta is None else delta + term
+            row.append(W_rows[n][c] - lr * delta)
+        new_rows.append(row)
+    return new_rows
+
+
+def plain_grad_step_components(W_rows, X, Phi, lr):
+    """One plain-gradient step ``W <- W - lr (Phi X^H / T - W^{-H})`` in
+    component layout, ``W^{-H}`` from the adjugate (square W, N <= 4)."""
+    n_sources = len(W_rows)
+    n_channels = len(W_rows[0])
+    n_frames = X.shape[-1]
+    det = det_components(W_rows, n_sources)
+    # inv_cols[n][c] = (W^{-1})[c, n]
+    inv_cols = [solve_column_components(W_rows, n_sources, n, det=det) for n in range(n_sources)]
+    new_rows = []
+    for n in range(n_sources):
+        row = []
+        for c in range(n_channels):
+            px = (Phi[n] * X[c].conj()).sum(dim=-1) / n_frames
+            row.append(W_rows[n][c] - lr * (px - inv_cols[n][c].conj()))
+        new_rows.append(row)
+    return new_rows

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..ops import _build
-from ..ops.fused_ip import STREAMED_BINS, _entry, _plan, _scratch_for, k2_launch_plan
+from ..ops.fused_ip import CONTRASTS, STREAMED_BINS, _entry, _plan, _scratch_for, k2_launch_plan
 from ..utils.flooring import EPS, THRESHOLD
 from .timing import l2_flusher, median_ms
 
@@ -83,7 +83,7 @@ def launcher(entry, X, W, psum, plan):
         status = entry(
             X.data_ptr(), W.data_ptr(), psum.data_ptr(), W_new.data_ptr(), psum_new.data_ptr(),
             stats.data_ptr(), part.data_ptr(), tickets.data_ptr(), F, T, plan.bins,
-            int(plan.resident), plan.smem_bytes, EPS, THRESHOLD, stream,
+            int(plan.resident), plan.smem_bytes, CONTRASTS.index("laplace"), EPS, THRESHOLD, stream,
         )
         _build.check(status, "k2_timeline")
 

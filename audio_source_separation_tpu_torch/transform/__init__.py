@@ -1,1 +1,2 @@
+from .pca import pca  # noqa: F401
 from .stft import build_optimal_window, build_window, istft, stft  # noqa: F401

@@ -1,10 +1,12 @@
 """Carry solver state across from the JAX package.
 
 The JAX package's ``IterativeSolver.save_state`` writes an ``.npz`` of the
-warm-startable host arrays; its IVA solvers publish the demixing filter as
+warm-startable host arrays.  Its IVA solvers publish the demixing filter as
 ``demix_filter (F, N, C)`` and, inside the power-only scan, as
-``demix_components (N, C, F)``.  :func:`state_from_jax` turns either into
-the port's warm-start kwargs, so a JAX run resumes in the port.
+``demix_components (N, C, F)``; ISS publishes no filter, only
+``estimation``; IP2 adds its pair counter ``step_count``.
+:func:`state_from_jax` turns these into the port's warm-start kwargs, so a
+JAX run resumes in the port.
 """
 
 import os
@@ -19,21 +21,31 @@ def state_from_jax(arrays, device=None):
     """Warm-start kwargs for the port's IVA solvers from JAX solver state.
 
     Args:
-        arrays: a mapping holding ``demix_filter (F, N, C)`` or
-            ``demix_components (N, C, F)`` as numpy arrays, or the path of an
-            ``.npz`` written by the JAX ``save_state``.
+        arrays: a mapping of numpy arrays holding any of ``demix_filter (F,
+            N, C)`` or ``demix_components (N, C, F)``, ``estimation (N, F,
+            T)`` and ``step_count ()``, or the path of an ``.npz`` written
+            by the JAX ``save_state``.
         device: where the tensors go; ``None`` means ``"cuda"``.
     Returns:
-        ``{"demix_filter": tensor (F, N, C)}``.  A saved ``estimation`` is
-        dropped: the IP update re-derives the estimates from the filter.
+        a dict with ``demix_filter`` (tensor ``(F, N, C)``), ``estimation``
+        (tensor; it seeds ISS, and the other updates re-derive the
+        estimates from the filter) and ``step_count`` (int), each where the
+        JAX state had it.
     """
     if isinstance(arrays, (str, os.PathLike)):
         with np.load(arrays) as data:
             arrays = {k: data[k] for k in data.files}
+    device = resolve_device(device)
+    kwargs = {}
     if "demix_filter" in arrays:
-        W = np.asarray(arrays["demix_filter"])
+        kwargs["demix_filter"] = np.asarray(arrays["demix_filter"])
     elif "demix_components" in arrays:
-        W = np.transpose(np.asarray(arrays["demix_components"]), (2, 0, 1))
-    else:
-        raise KeyError("JAX state holds neither 'demix_filter' nor 'demix_components'")
-    return {"demix_filter": torch.as_tensor(np.ascontiguousarray(W), device=resolve_device(device))}
+        kwargs["demix_filter"] = np.transpose(np.asarray(arrays["demix_components"]), (2, 0, 1))
+    if "estimation" in arrays:
+        kwargs["estimation"] = np.asarray(arrays["estimation"])
+    if not kwargs:
+        raise KeyError("JAX state holds none of 'demix_filter', 'demix_components' or 'estimation'")
+    kwargs = {k: torch.as_tensor(np.ascontiguousarray(v), device=device) for k, v in kwargs.items()}
+    if "step_count" in arrays:
+        kwargs["step_count"] = int(np.asarray(arrays["step_count"]))
+    return kwargs

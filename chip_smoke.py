@@ -22,8 +22,23 @@ Phases (each asserts; any failure exits non-zero):
      7501 (past the 6144 frames that once capped K2), 20 iterations, K2 once
      per iteration, loss non-increasing, SI-SDR up by more than 5 dB;
   5. main path, C = 3: 3 mics, 3 sources, 20 iterations through K1;
-  6. one ``{"kernels": [...]}`` line, then the last line
-     ``{"ok": true, "device": {...}}``.
+  6. the rest of the IVA family through the entry points, on the mixtures
+     of phases 3 and 5: AuxGaussIVA(IP) at C = 2 x 100 (K2's Gauss
+     instance once per iteration, SI-SDR up by more than 5 dB, the first 20
+     losses against the CPU float64 run, ms per iteration); AuxLaplaceIVA
+     ISS and IP2 at C = 2 x 50 (the same checks; IP2 through K1 every
+     iteration); AuxLaplaceIVA IP2 and AuxGaussIVA(IP) at C = 3 x 20
+     through K1; NaturalGradLaplaceIVA and GradLaplaceIVA at C = 2 x 20
+     (finite losses, the last below the first); OverAuxLaplaceIVA, 4 mics
+     -> 2 sources x 20 (finite output of shape (2, F, T)) and 4 mics -> 1
+     source x 20 (K1 at C = N = 1); AuxLaplaceIVA(IP) at C = 5 x 10, the
+     matrix path, through K1's any-C kernel every iteration;
+  7. one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
+     line ``{"ok": true, "device": {...}}``.
+
+Phase 2 also holds K2's Gauss instance at both shapes, K1 at C = 3 with
+N = 2 weight rows (IP2's pair covariances), and K1's any-C kernel at
+C = N = 5 and C = N = 1.
 
 ``--profile`` also writes a torch.profiler table of 20 C = 2 iterations to
 ``chiprun_out/profile_c2.txt``.  Exits non-zero without printing a result
@@ -43,7 +58,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from audio_source_separation_tpu_torch import AuxLaplaceIVA, istft, stft
+from audio_source_separation_tpu_torch import (
+    AuxGaussIVA,
+    AuxLaplaceIVA,
+    GradLaplaceIVA,
+    NaturalGradLaplaceIVA,
+    OverAuxLaplaceIVA,
+    istft,
+    stft,
+)
 from audio_source_separation_tpu_torch.ops import _build
 from audio_source_separation_tpu_torch.ops.cov_kernel import (
     weighted_covariance_planes,
@@ -68,6 +91,7 @@ FFT_SIZE, HOP_SIZE = 4096, 2048
 N_SAMPLES_LONG = 1_920_000  # 120 s at 16 kHz -> 513 bins x 7501 frames
 FFT_SIZE_LONG, HOP_SIZE_LONG = 1024, 256
 ITERS_C2, ITERS_C2_LONG, ITERS_C3, N_MATCH = 100, 20, 20, 20
+ITERS_ISS_IP2, ITERS_SHORT, ITERS_C5 = 50, 20, 10
 EPS, THRESHOLD = 1e-12, 1e12
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 non-tensor
 HBM_BYTES_PER_S = 3.35e12
@@ -75,6 +99,7 @@ F32_FLOPS_PER_S = 67e12
 # tolerances, float32 kernel against float32 plain version on the same inputs
 K1_RTOL = 1e-4  # max |err| / max |plain|
 K2_RTOL = 1e-4  # the same, for W, psum and the NLL
+K2_GAUSS_RTOL = 1e-5  # the Gauss instance's W and psum (its NLL: K2_RTOL)
 LOSS_MONOTONE_RTOL = 1e-5  # f32 loss may rise by rounding noise only
 LOSS_MATCH_RTOL = 1e-4  # card f32 vs CPU f64, first 20 losses
 ROOT = Path(__file__).resolve().parent
@@ -92,20 +117,21 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def synth_mixture(rng, n_sources, n_samples, taps=8):
+def synth_mixture(rng, n_sources, n_samples, taps=8, n_mics=None):
     """Amplitude-modulated noise sources through short random FIRs (the
-    recipe of tests/conftest.py::synth_convolutive_mixture); returns the
-    mixture and each source's image at mic 0."""
+    recipe of tests/conftest.py::synth_convolutive_mixture) at ``n_mics``
+    microphones (default one per source); returns the mixture and each
+    source's image at mic 0."""
     t = np.arange(n_samples) / SR
-    mods = [3.0, 5.0, 7.0, 11.0]
+    mods = [3.0, 5.0, 7.0, 11.0, 13.0]
     sources = []
     for n in range(n_sources):
         env = 0.5 * (1 + np.sign(np.sin(2 * np.pi * mods[n] * t + 0.7 * n)))
         env = np.convolve(env, np.ones(64) / 64, mode="same")
         sources.append(env * rng.randn(n_samples))
-    mixture = np.zeros((n_sources, n_samples))
+    mixture = np.zeros((n_mics or n_sources, n_samples))
     images = np.zeros((n_sources, n_samples))
-    for m in range(n_sources):
+    for m in range(n_mics or n_sources):
         for n in range(n_sources):
             h = 0.2 * rng.randn(taps) * np.exp(-0.7 * np.arange(taps))
             h[(3 * m + 5 * n) % taps] += 1.0 if m == n else 0.8
@@ -125,10 +151,8 @@ def si_sdr(estimate, target):
 
 def best_pairing_si_sdr(estimates, targets):
     n = len(targets)
-    return max(
-        np.mean([si_sdr(estimates[i], targets[p[i]]) for i in range(n)])
-        for p in itertools.permutations(range(n))
-    )
+    table = [[si_sdr(estimates[i], targets[j]) for j in range(n)] for i in range(n)]
+    return max(np.mean([table[i][p[i]] for i in range(n)]) for p in itertools.permutations(range(n)))
 
 
 def bound(n_bytes, n_flops):
@@ -151,10 +175,10 @@ def random_mixture(gen, C, F, T):
     return torch.complex(re, im).contiguous()
 
 
-def k1_case(gen, C, F, T):
+def k1_case(gen, C, F, T, N=None):
     X = random_mixture(gen, C, F, T)
-    # 1/R-like weights spanning three decades
-    w = (10.0 ** (3 * torch.rand((C, T), generator=gen, device="cuda") - 1.5)).contiguous()
+    # 1/R-like weights spanning three decades, N = C rows unless given
+    w = (10.0 ** (3 * torch.rand((N or C, T), generator=gen, device="cuda") - 1.5)).contiguous()
     out = weighted_covariance_planes(X, w)
     ref = weighted_covariance_planes_plain(X, w)
     torch.cuda.synchronize()
@@ -165,16 +189,16 @@ def k1_case(gen, C, F, T):
     plain_ms = median_ms(lambda: weighted_covariance_planes_plain(X, w))
     library_ms = median_ms(lambda: _covariance_planes(planes, w))  # one torch.matmul
     n_bytes = X.numel() * 8 + w.numel() * 4 + out.numel() * 4
-    n_flops = F * T * (3 * C * C + 2 * C * C * C)  # pair products + contraction
+    n_flops = F * T * (3 * C * C + 2 * C * C * w.shape[0])  # pair products + contraction
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return {
-        "C": C, "max_abs_err": float((out - ref).abs().max()), "rel_err": err,
+        "C": C, "N": w.shape[0], "max_abs_err": float((out - ref).abs().max()), "rel_err": err,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
 
 
-def k2_case(gen, F, T):
+def k2_case(gen, F, T, contrast="laplace"):
     X = random_mixture(gen, 2, F, T)
     zero_bin = F // 2
     X[:, zero_bin] = 0
@@ -189,23 +213,25 @@ def k2_case(gen, F, T):
         torch.abs(separate_components([[W[s, c] for c in range(2)] for s in range(2)], X)) ** 2, dim=1
     ).contiguous()
 
-    out = fused_auxiva_ip_iter(X, W, psum, eps=EPS, threshold=THRESHOLD)
-    again = fused_auxiva_ip_iter(X, W, psum, eps=EPS, threshold=THRESHOLD)
-    ref = fused_auxiva_ip_iter_plain(X, W, psum, eps=EPS, threshold=THRESHOLD)
+    kw = {"eps": EPS, "threshold": THRESHOLD, "contrast": contrast}
+    out = fused_auxiva_ip_iter(X, W, psum, **kw)
+    again = fused_auxiva_ip_iter(X, W, psum, **kw)
+    ref = fused_auxiva_ip_iter_plain(X, W, psum, **kw)
     torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(out, again)), "K2 not bit-identical across launches"
-    assert torch.equal(out[0][:, :, zero_bin], W[:, :, zero_bin]), "K2 changed an all-zero bin"
+    assert all(torch.equal(a, b) for a, b in zip(out, again)), ("K2 not bit-identical across launches", contrast)
+    assert torch.equal(out[0][:, :, zero_bin], W[:, :, zero_bin]), ("K2 changed an all-zero bin", contrast)
     w_err = rel_err(out[0], ref[0])
     p_err = rel_err(out[1], ref[1])
     nll_err = abs(float(out[3]) - float(ref[3])) / abs(float(ref[3]))
-    assert max(w_err, p_err, nll_err) <= K2_RTOL, ("K2", w_err, p_err, nll_err)
-    ms = median_ms(lambda: fused_auxiva_ip_iter(X, W, psum, eps=EPS, threshold=THRESHOLD))
-    plain_ms = median_ms(lambda: fused_auxiva_ip_iter_plain(X, W, psum, eps=EPS, threshold=THRESHOLD))
+    rtol = K2_GAUSS_RTOL if contrast == "gauss" else K2_RTOL
+    assert max(w_err, p_err) <= rtol and nll_err <= K2_RTOL, ("K2", contrast, w_err, p_err, nll_err)
+    ms = median_ms(lambda: fused_auxiva_ip_iter(X, W, psum, **kw))
+    plain_ms = median_ms(lambda: fused_auxiva_ip_iter_plain(X, W, psum, **kw))
     n_bytes = X.numel() * 8 + 2 * W.numel() * 8 + 2 * psum.numel() * 4 + 8
     n_flops = F * T * 62  # covariance (26) + separation power sums (36) per (f, t)
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return {
-        "F": F, "T": T, "plan": k2_launch_plan(F, T)._asdict(),
+        "F": F, "T": T, "contrast": contrast, "plan": k2_launch_plan(F, T)._asdict(),
         "max_abs_err": float(max((out[0] - ref[0]).abs().max(), (out[1] - ref[1]).abs().max())),
         "rel_err": {"W": w_err, "psum": p_err, "nll": nll_err},
         "ms": ms, "plain_ms": plain_ms, "library_ms": None,
@@ -223,12 +249,13 @@ def check_losses(loss, name):
     assert (rises <= 0).all(), (name, "loss rose", float(rises.max()))
 
 
-def per_iteration(X, record):
-    """Per-iteration times of the solver loop: ``ms`` by CUDA events,
-    differencing 110- and 10-iteration calls (init and finalize cancel), and
-    ``host_ms``, the host's time to enqueue one iteration (``update_state``
-    and, when recording, ``nll``) without waiting for the device."""
-    solver = AuxLaplaceIVA(recordable_loss=record)
+def per_iteration(X, record, make=AuxLaplaceIVA, n=100):
+    """Per-iteration times of the solver loop of ``make(recordable_loss=)``:
+    ``ms`` by CUDA events, differencing (10 + n)- and 10-iteration calls
+    (init and finalize cancel), and ``host_ms``, the host's time to enqueue
+    one iteration (``update_state`` and, when recording, ``nll``) without
+    waiting for the device."""
+    solver = make(recordable_loss=record)
 
     def run(n):
         start = torch.cuda.Event(enable_timing=True)
@@ -241,18 +268,18 @@ def per_iteration(X, record):
 
     run(10)
     short = min(run(10) for _ in range(3))
-    long_ = min(run(110) for _ in range(3))
+    long_ = min(run(10 + n) for _ in range(3))
     state = solver.init_state(X.contiguous())
     losses = []
     torch.cuda.synchronize()
     start = time.perf_counter()
-    for _ in range(100):
+    for _ in range(n):
         state = solver.update_state(state)
         if record:
             losses.append(solver.nll(state))
-    host_ms = (time.perf_counter() - start) * 10
+    host_ms = (time.perf_counter() - start) * 1e3 / n
     torch.cuda.synchronize()
-    return {"ms": (long_ - short) / 100, "host_ms": host_ms}
+    return {"ms": (long_ - short) / n, "host_ms": host_ms}
 
 
 def main_path_c2(rng):
@@ -286,7 +313,7 @@ def main_path_c2(rng):
     match = np.max(np.abs(np.asarray(solver.loss[:N_MATCH]) - reference.loss) / np.abs(reference.loss))
     assert match <= LOSS_MATCH_RTOL, ("loss vs CPU float64", match)
 
-    return X, {
+    return X, (mixture, images), {
         "iterations": ITERS_C2, "k2_launches": k2_launches, "wall_s": wall_s,
         "loss_first": solver.loss[0], "loss_last": solver.loss[-1],
         "si_sdr_before_db": before, "si_sdr_after_db": after,
@@ -353,13 +380,127 @@ def main_path_c3(rng):
     AuxLaplaceIVA(recordable_loss=False)(X, iteration=ITERS_C3)
     end.record()
     end.synchronize()
-    return {
+    return (mixture, images), {
         "iterations": ITERS_C3, "k1_launches": k1_launches,
         "loss_first": solver.loss[0], "loss_last": solver.loss[-1],
         "si_sdr_before_db": best_pairing_si_sdr(mixture, images),
         "si_sdr_after_db": best_pairing_si_sdr(y, images),
         "ms_per_call_20_iters": start.elapsed_time(end),
     }
+
+
+# --------------------------------------------------------------------------- #
+# phase 6: the rest of the IVA family
+# --------------------------------------------------------------------------- #
+def drive(make, mixture, iterations):
+    """``stft -> make() -> istft`` on the card, with both kernels' counts set
+    to 0 just before and read just after."""
+    fused_auxiva_ip_iter.launches = 0
+    weighted_covariance_planes.launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE)
+    solver = make()
+    Y = solver(X, iteration=iterations)
+    y = istft(Y, fft_size=FFT_SIZE, hop_size=HOP_SIZE, length=mixture.shape[-1])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    y = y.cpu().numpy()
+    loss = np.asarray(solver.loss)
+    assert np.isfinite(loss).all() and np.isfinite(y).all(), "non-finite loss or output"
+    return X, Y, y, loss, {
+        "iterations": iterations, "wall_s": wall_s,
+        "k1_launches": weighted_covariance_planes.launches, "k2_launches": fused_auxiva_ip_iter.launches,
+        "loss_first": float(loss[0]), "loss_last": float(loss[-1]),
+    }
+
+
+def loss_vs_cpu_f64(name, make_cpu, mixture, losses):
+    """Max relative gap of the first ``N_MATCH`` losses to the port's own
+    CPU float64 run from the same mixture, and the iteration where it is."""
+    X_cpu = stft(mixture, fft_size=FFT_SIZE, hop_size=HOP_SIZE, device="cpu")
+    reference = make_cpu()
+    reference(X_cpu, iteration=N_MATCH - 1)
+    gap = np.abs(np.asarray(losses[:N_MATCH]) - reference.loss) / np.abs(reference.loss)
+    assert gap.max() <= LOSS_MATCH_RTOL, (name, "loss vs CPU float64", gap.max(), int(gap.argmax()))
+    return float(gap.max())
+
+
+def family_c2(mixture, images):
+    """AuxGaussIVA(IP) x 100 and AuxLaplaceIVA ISS and IP2 x 50 (loss
+    non-increasing, SI-SDR up by more than 5 dB, the first 20 losses against
+    the CPU float64 run, ms per iteration), then the two gradient solvers
+    x 20, on the C = 2 main path's mixture."""
+    before = best_pairing_si_sdr(mixture, images)
+    out = {}
+    for key, cls, kw, iterations, timing_n in [
+        ("gauss_ip", AuxGaussIVA, {}, ITERS_C2, 100),
+        ("laplace_iss", AuxLaplaceIVA, {"algorithm_spatial": "ISS"}, ITERS_ISS_IP2, ITERS_SHORT),
+        ("laplace_ip2", AuxLaplaceIVA, {"algorithm_spatial": "IP2"}, ITERS_ISS_IP2, ITERS_SHORT),
+    ]:
+        X, _, y, loss, res = drive(lambda: cls(**kw), mixture, iterations)
+        if key == "gauss_ip":
+            assert res["k2_launches"] == iterations and res["k1_launches"] == 0, (key, res)
+        elif key == "laplace_ip2":
+            assert res["k1_launches"] >= iterations and res["k2_launches"] == 0, (key, res)
+        check_losses(loss, key)
+        res["si_sdr_before_db"], res["si_sdr_after_db"] = before, best_pairing_si_sdr(y, images)
+        assert res["si_sdr_after_db"] > before + 5.0, (key, "SI-SDR", res)
+        res["loss_vs_cpu_f64_max_rel"] = loss_vs_cpu_f64(key, lambda: cls(device="cpu", **kw), mixture, loss)
+        make = lambda recordable_loss: cls(recordable_loss=recordable_loss, **kw)  # noqa: E731
+        res["per_iter_loss_on"] = per_iteration(X, True, make, timing_n)
+        res["per_iter_loss_off"] = per_iteration(X, False, make, timing_n)
+        out[key] = res
+    for key, cls in [("natural_grad", NaturalGradLaplaceIVA), ("grad", GradLaplaceIVA)]:
+        X, _, y, _, res = drive(cls, mixture, ITERS_SHORT)
+        assert res["loss_last"] < res["loss_first"], (key, res)
+        res["si_sdr_before_db"], res["si_sdr_after_db"] = before, best_pairing_si_sdr(y, images)
+        res["per_iter_loss_off"] = per_iteration(X, False, cls, ITERS_SHORT)
+        out[key] = res
+    return out
+
+
+def family_c3(mixture, images):
+    """AuxLaplaceIVA IP2 and AuxGaussIVA(IP) x 20 at C = 3, through K1."""
+    out = {}
+    for key, cls, kw in [("laplace_ip2", AuxLaplaceIVA, {"algorithm_spatial": "IP2"}), ("gauss_ip", AuxGaussIVA, {})]:
+        X, _, y, _, res = drive(lambda: cls(**kw), mixture, ITERS_SHORT)
+        assert res["k1_launches"] >= ITERS_SHORT and res["k2_launches"] == 0, (key, res)
+        res["si_sdr_before_db"] = best_pairing_si_sdr(mixture, images)
+        res["si_sdr_after_db"] = best_pairing_si_sdr(y, images)
+        res["per_iter_loss_off"] = per_iteration(X, False, lambda recordable_loss: cls(recordable_loss=recordable_loss, **kw), ITERS_SHORT)
+        out[key] = res
+    return out
+
+
+def overdetermined(rng):
+    """OverAuxLaplaceIVA, 4 mics -> 2 sources x 20 (PCA, then K2 at C = 2)
+    and 4 mics -> 1 source x 20 (PCA, then K1 at C = N = 1)."""
+    mixture, images = synth_mixture(rng, 2, N_SAMPLES, n_mics=4)
+    X, Y, y, _, res = drive(lambda: OverAuxLaplaceIVA("IP", n_sources=2), mixture, ITERS_SHORT)
+    assert tuple(Y.shape) == (2,) + tuple(X.shape[1:]) and torch.isfinite(Y).all(), Y.shape
+    assert res["k2_launches"] == ITERS_SHORT, res
+    res["shape_in"], res["shape_out"] = list(X.shape), list(Y.shape)
+    res["si_sdr_before_db"] = best_pairing_si_sdr(mixture[:2], images)
+    res["si_sdr_after_db"] = best_pairing_si_sdr(y, images)
+    X, Y, _, _, one = drive(lambda: OverAuxLaplaceIVA("IP", n_sources=1), mixture, ITERS_SHORT)
+    assert tuple(Y.shape) == (1,) + tuple(X.shape[1:]) and torch.isfinite(Y).all(), Y.shape
+    assert one["k1_launches"] == ITERS_SHORT and one["k2_launches"] == 0, one
+    return res, one
+
+
+def five_channels(rng):
+    """AuxLaplaceIVA(IP) at C = 5 x 10: the matrix path, K1's any-C kernel
+    once per iteration; the loss falls, its rises are recorded."""
+    mixture, images = synth_mixture(rng, 5, N_SAMPLES)
+    X, Y, y, loss, res = drive(AuxLaplaceIVA, mixture, ITERS_C5)
+    assert res["k1_launches"] == ITERS_C5 and res["k2_launches"] == 0, res
+    assert tuple(Y.shape) == tuple(X.shape) and res["loss_last"] < res["loss_first"], res
+    res["max_rise_rel"] = float(np.max(np.diff(loss) / np.abs(loss[:-1])))
+    res["si_sdr_before_db"] = best_pairing_si_sdr(mixture, images)
+    res["si_sdr_after_db"] = best_pairing_si_sdr(y, images)
+    res["per_iter_loss_off"] = per_iteration(X, False, AuxLaplaceIVA, ITERS_C5)
+    return res
 
 
 def profile_c2(X, path):
@@ -413,44 +554,86 @@ def main():
     k2 = k2_case(gen, F, T)
     k2_long = k2_case(gen, 257, 9000)
     print(json.dumps({"k1_cases": k1, "k1_long": k1_long, "k2_case": k2, "k2_long": k2_long}), flush=True)
+    k1_pair = k1_case(gen, 3, F, T, N=2)  # IP2's pair covariances at C = 3
+    k1_any = [k1_case(gen, 5, F, T), k1_case(gen, 1, F, T)]  # the any-C kernel
+    print(json.dumps({"k1_any": k1_any}), flush=True)
+    k2_gauss = k2_case(gen, F, T, contrast="gauss")
+    k2_gauss_long = k2_case(gen, 257, 9000, contrast="gauss")
+    print(json.dumps({"k1_pair": k1_pair, "k2_gauss": k2_gauss, "k2_gauss_long": k2_gauss_long}), flush=True)
 
     rng = np.random.RandomState(SEED)
-    X2, c2 = main_path_c2(rng)
+    X2, mix2, c2 = main_path_c2(rng)
     print(json.dumps({"main_path_c2": c2}), flush=True)
     c2_long = main_path_c2_long(rng)
     print(json.dumps({"main_path_c2_long": c2_long}), flush=True)
-    c3 = main_path_c3(rng)
+    mix3, c3 = main_path_c3(rng)
     print(json.dumps({"main_path_c3": c3}), flush=True)
+
+    fam2 = family_c2(*mix2)
+    fam3 = family_c3(*mix3)
+    over, over1 = overdetermined(rng)
+    c5 = five_channels(rng)
+    print(json.dumps({
+        "family_c2": fam2, "family_c3": fam3, "overdetermined_4to2": over, "overdetermined_4to1": over1,
+        "laplace_ip_c5": c5,
+    }), flush=True)
     if args.profile:
         prof = profile_c2(X2, ROOT / "chiprun_out" / "profile_c2.txt")
         print(json.dumps({"profile_c2": prof}), flush=True)
 
     k1_main = k1[1]  # C = 3, the shape of the K1 main path
+    k1_all = k1 + [k1_long, k1_pair] + k1_any
+
+    def k2_entry(name, case, case_long, launches, launches_by_path, rtol):
+        return {
+            "name": name, "route": "cuda",
+            "source": "audio_source_separation_tpu_torch/csrc/fused_auxiva_ip.cu",
+            "replaces": "audio_source_separation_tpu/ops/pallas_fused.py:231",
+            "launches": launches, "launches_by_path": launches_by_path,
+            "max_abs_err": max(case["max_abs_err"], case_long["max_abs_err"]),
+            "max_rel_err": max(*case["rel_err"].values(), *case_long["rel_err"].values()),
+            "tolerance": "W, psum max_rel_err <= {}; NLL <= {}".format(rtol, K2_RTOL),
+            "ms": case["ms"], "plain_ms": case["plain_ms"], "ms_long": case_long["ms"],
+            "bound_ms": case["bound_ms"], "bound_us": case["bound_ms"] * 1e3, "bound_by": case["bound_by"],
+            "library_ms": None, "shape": [2, F, T],
+        }
+
     kernels = [
         {
             "name": "weighted_covariance (K1)", "route": "cuda",
             "source": "audio_source_separation_tpu_torch/csrc/weighted_covariance.cu",
             "replaces": "audio_source_separation_tpu/ops/pallas_kernels.py:96",
             "launches": c3["k1_launches"],
-            "max_abs_err": max(c["max_abs_err"] for c in k1 + [k1_long]),
-            "max_rel_err": max(c["rel_err"] for c in k1 + [k1_long]),
+            "launches_by_path": {
+                "laplace_ip_c3": c3["k1_launches"],
+                "laplace_ip2_c2": fam2["laplace_ip2"]["k1_launches"],
+                "laplace_ip2_c3": fam3["laplace_ip2"]["k1_launches"],
+                "gauss_ip_c3": fam3["gauss_ip"]["k1_launches"],
+                "laplace_ip_c5": c5["k1_launches"],
+                "over_4to1": over1["k1_launches"],
+            },
+            "max_abs_err": max(c["max_abs_err"] for c in k1_all),
+            "max_rel_err": max(c["rel_err"] for c in k1_all),
             "tolerance": "max_rel_err <= {}".format(K1_RTOL),
             "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
             "bound_ms": k1_main["bound_ms"], "bound_us": k1_main["bound_ms"] * 1e3, "bound_by": k1_main["bound_by"],
             "library_ms": k1_main["library_ms"], "shape": [3, F, T],
+            "pair_case": {key: k1_pair[key] for key in ("N", "ms", "plain_ms", "library_ms", "bound_ms", "rel_err")},
+            "any_c_cases": [
+                {key: case[key] for key in ("C", "N", "ms", "plain_ms", "library_ms", "bound_ms", "rel_err")}
+                for case in k1_any
+            ],
         },
-        {
-            "name": "fused_auxiva_ip (K2)", "route": "cuda",
-            "source": "audio_source_separation_tpu_torch/csrc/fused_auxiva_ip.cu",
-            "replaces": "audio_source_separation_tpu/ops/pallas_fused.py:231",
-            "launches": c2["k2_launches"],
-            "max_abs_err": max(k2["max_abs_err"], k2_long["max_abs_err"]),
-            "max_rel_err": max(*k2["rel_err"].values(), *k2_long["rel_err"].values()),
-            "tolerance": "max_rel_err <= {}".format(K2_RTOL),
-            "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-            "bound_ms": k2["bound_ms"], "bound_us": k2["bound_ms"] * 1e3, "bound_by": k2["bound_by"],
-            "library_ms": None, "shape": [2, F, T],
-        },
+        k2_entry(
+            "fused_auxiva_ip (K2, Laplace contrast)", k2, k2_long, c2["k2_launches"],
+            {"laplace_ip_c2": c2["k2_launches"], "laplace_ip_c2_long": c2_long["k2_launches"],
+             "over_4to2": over["k2_launches"]},
+            K2_RTOL,
+        ),
+        k2_entry(
+            "fused_auxiva_ip (K2, Gauss contrast)", k2_gauss, k2_gauss_long, fam2["gauss_ip"]["k2_launches"],
+            {"gauss_ip_c2": fam2["gauss_ip"]["k2_launches"]}, K2_GAUSS_RTOL,
+        ),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print("card: " + card, flush=True)

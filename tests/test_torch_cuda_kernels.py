@@ -15,7 +15,7 @@ from audio_source_separation_tpu_torch.ops.cov_kernel import (
     weighted_covariance_planes,
     weighted_covariance_planes_plain,
 )
-from audio_source_separation_tpu_torch import AuxLaplaceIVA
+from audio_source_separation_tpu_torch import AuxGaussIVA, AuxLaplaceIVA, OverAuxLaplaceIVA
 from audio_source_separation_tpu_torch.ops.fused_ip import (
     fused_auxiva_ip_iter,
     fused_auxiva_ip_iter_plain,
@@ -40,7 +40,12 @@ def _mixture(seed, C, F, T, device):
 
 
 @pytest.mark.parametrize(
-    "C,N,F,T", [(2, 2, 70, 33), (3, 3, 129, 100), (4, 4, 257, 469), (3, 1, 31, 7), (4, 4, 33, 16_384)]
+    "C,N,F,T",
+    [
+        (2, 2, 70, 33), (3, 3, 129, 100), (4, 4, 257, 469), (3, 1, 31, 7), (4, 4, 33, 16_384), (3, 2, 2049, 469),
+        # the any-C kernel: C = 1, C > 4, N > 4 and N past one tile of 8 rows
+        (1, 1, 70, 33), (5, 5, 2049, 469), (5, 2, 129, 100), (2, 6, 31, 7), (6, 9, 33, 3000),
+    ],
 )
 def test_k1_matches_plain(cuda, C, N, F, T):
     X = _mixture(C + N, C, F, T, cuda)
@@ -74,10 +79,10 @@ def _k2_operands(F, T, device):
     return X, W, psum
 
 
-def _check_k2(X, W, psum):
-    out = fused_auxiva_ip_iter(X, W, psum)
-    again = fused_auxiva_ip_iter(X, W, psum)
-    ref = fused_auxiva_ip_iter_plain(X, W, psum)
+def _check_k2(X, W, psum, contrast):
+    out = fused_auxiva_ip_iter(X, W, psum, contrast=contrast)
+    again = fused_auxiva_ip_iter(X, W, psum, contrast=contrast)
+    ref = fused_auxiva_ip_iter_plain(X, W, psum, contrast=contrast)
     for a, b in zip(out, again):
         assert torch.equal(a, b)
     assert torch.equal(out[0][:, :, 3], W[:, :, 3])
@@ -89,18 +94,19 @@ def _check_k2(X, W, psum):
 # every layout of the launch plan: (2049, 469) 8 bins resident; (33, 3000)
 # 4 bins resident; (33, 6145) 2 bins resident, just past the old 6144-frame
 # cap; (33, 6943) the largest resident slab; (33, 9000) streamed; (257, 469)
-# odd F T, so channel 1's runs start 8 bytes off 16
+# odd F T, so channel 1's runs start 8 bytes off 16; each for both contrasts
+@pytest.mark.parametrize("contrast", ["laplace", "gauss"])
 @pytest.mark.parametrize(
     "F,T", [(200, 37), (2049, 469), (33, 3000), (33, 6145), (33, 6943), (33, 9000), (257, 469)]
 )
-def test_k2_matches_plain_and_is_deterministic(cuda, F, T):
-    _check_k2(*_k2_operands(F, T, cuda))
+def test_k2_matches_plain_and_is_deterministic(cuda, F, T, contrast):
+    _check_k2(*_k2_operands(F, T, cuda), contrast)
 
 
-def _solver_launches(C, F, T, iterations, counter):
+def _solver_launches(C, F, T, iterations, counter, solver_cls=AuxLaplaceIVA, **kwargs):
     X = _mixture(C, C, F, T, "cuda")
     counter.launches = 0
-    solver = AuxLaplaceIVA()
+    solver = solver_cls(**kwargs)
     Y = solver(X, iteration=iterations)
     torch.cuda.synchronize()
     assert torch.isfinite(Y).all() and np.isfinite(solver.loss).all()
@@ -115,3 +121,30 @@ def test_solver_runs_long_recordings_through_the_kernels(cuda):
     assert np.all(np.diff(loss) <= 1e-5 * np.abs(loss[:-1]))
     launches, _ = _solver_launches(4, 33, 16_384, 2, weighted_covariance_planes)
     assert launches >= 2
+
+
+def test_family_runs_through_the_kernels(cuda):
+    """AuxGaussIVA at C = 2 is one K2 launch per iteration; IP2 at C = 3
+    runs K1 every iteration."""
+    launches, loss = _solver_launches(2, 257, 469, 5, fused_auxiva_ip_iter, AuxGaussIVA)
+    assert launches == 5
+    assert np.all(np.diff(loss) <= 1e-5 * np.abs(loss[:-1]))
+    launches, _ = _solver_launches(3, 257, 469, 5, weighted_covariance_planes, algorithm_spatial="IP2")
+    assert launches >= 5
+
+
+@pytest.mark.parametrize("algorithm", ["IP", "IP2"])
+def test_five_channels_run_through_k1(cuda, algorithm):
+    """C = 5 (the matrix IP and pair updates) takes K1 every iteration."""
+    launches, loss = _solver_launches(5, 257, 469, 5, weighted_covariance_planes, algorithm_spatial=algorithm)
+    assert launches == 5
+    assert loss[-1] < loss[0]
+
+
+def test_overdetermined_to_one_source_runs_through_k1(cuda):
+    X = _mixture(3, 3, 129, 200, cuda)
+    weighted_covariance_planes.launches = 0
+    Y = OverAuxLaplaceIVA("IP", n_sources=1)(X, iteration=3)
+    torch.cuda.synchronize()
+    assert weighted_covariance_planes.launches == 3
+    assert Y.shape == (1, 129, 200) and torch.isfinite(Y).all()

@@ -58,10 +58,21 @@ def test_port_imports_with_jax_blocked():
         import numpy as np
         import audio_source_separation_tpu_torch as port
         from audio_source_separation_tpu_torch.models import AuxLaplaceIVA
-        from audio_source_separation_tpu_torch.ops import cov_kernel, fused_ip, _build
+        from audio_source_separation_tpu_torch.ops import cov_kernel, eig2, fused_ip, ip, iss, _build
+        from audio_source_separation_tpu_torch.transform import pca
         X = np.random.RandomState(0).randn(2, 5, 8) + 0j
         Y = AuxLaplaceIVA(device="cpu")(X, iteration=2)
         assert Y.shape == (2, 5, 8)
+        X4 = np.random.RandomState(1).randn(4, 5, 8) + 0j
+        for solver in (
+            port.AuxGaussIVA(device="cpu"),
+            port.AuxLaplaceIVA(algorithm_spatial="ISS", device="cpu"),
+            port.AuxLaplaceIVA(algorithm_spatial="IP2", device="cpu"),
+            port.NaturalGradLaplaceIVA(device="cpu"),
+            port.GradLaplaceIVA(device="cpu"),
+        ):
+            assert solver(X, iteration=2).shape == (2, 5, 8)
+        assert port.OverAuxLaplaceIVA("IP", n_sources=2, device="cpu")(X4, iteration=2).shape == (2, 5, 8)
         assert not [m for m in sys.modules if m.startswith("jax.")]
         print("ok")
         """

@@ -1,6 +1,8 @@
 """The port's AuxLaplaceIVA-IP against the JAX package on the CPU (float64):
 whole loss trajectories, final filters and outputs, callbacks, warm starts,
-resuming a JAX checkpoint, and separation quality."""
+resuming a JAX checkpoint, and separation quality; which kernel each update
+calls (the rest of the IVA family's parity is in
+``test_torch_iva_family.py``)."""
 
 import numpy as np
 import pytest
@@ -8,7 +10,14 @@ import torch
 
 from audio_source_separation_tpu.models import AuxLaplaceIVA as JaxAuxLaplaceIVA
 from audio_source_separation_tpu.transform import stft as j_stft
-from audio_source_separation_tpu_torch import AuxLaplaceIVA, istft, state_from_jax, stft
+from audio_source_separation_tpu_torch import (
+    AuxGaussIVA,
+    AuxLaplaceIVA,
+    SparseAuxIVA,
+    istft,
+    state_from_jax,
+    stft,
+)
 from audio_source_separation_tpu_torch.ops.cov_kernel import weighted_covariance_planes
 from audio_source_separation_tpu_torch.ops.fused_ip import fused_auxiva_ip_iter
 
@@ -47,26 +56,44 @@ def test_matches_jax_past_6144_frames(rng):
     np.testing.assert_allclose(_np(Y), Y_ref, atol=1e-8)
 
 
-@pytest.mark.parametrize("n_channels,guard", [(2, "one_norm"), (3, "one_norm"), (2, "none")])
-def test_update_dispatch(rng, monkeypatch, n_channels, guard):
-    """C = 2 with the one-norm guard calls K2 once per iteration; every
-    other configuration calls K1 at least once per iteration."""
+@pytest.mark.parametrize(
+    "solver,algorithm,n_channels,guard",
+    [
+        pytest.param(AuxLaplaceIVA, "IP", 2, "one_norm", id="2-one_norm"),
+        pytest.param(AuxLaplaceIVA, "IP", 3, "one_norm", id="3-one_norm"),
+        pytest.param(AuxLaplaceIVA, "IP", 2, "none", id="2-none"),
+        pytest.param(AuxGaussIVA, "IP", 2, "one_norm", id="gauss-2-one_norm"),
+        pytest.param(AuxGaussIVA, "IP", 3, "one_norm", id="gauss-3-one_norm"),
+        pytest.param(AuxLaplaceIVA, "IP2", 2, "one_norm", id="ip2-2-one_norm"),
+        pytest.param(AuxLaplaceIVA, "IP2", 3, "one_norm", id="ip2-3-one_norm"),
+        pytest.param(AuxLaplaceIVA, "IP2", 4, "one_norm", id="ip2-4-one_norm"),
+    ],
+)
+def test_update_dispatch(rng, monkeypatch, solver, algorithm, n_channels, guard):
+    """IP at C = 2 with the one-norm guard calls K2 once per iteration, with
+    the solver's contrast, and never K1; every other IP configuration, and
+    IP2 (its pair's covariances), calls K1 at least once per iteration and
+    never K2."""
     calls = {"k1": 0, "k2": 0}
+    contrasts = set()
     import audio_source_separation_tpu_torch.models.iva as iva
     import audio_source_separation_tpu_torch.ops.covariance as cov
 
     def counted(name, fn):
         def wrapper(*args, **kwargs):
             calls[name] += 1
+            if name == "k2":
+                contrasts.add(kwargs["contrast"])
             return fn(*args, **kwargs)
         return wrapper
 
     monkeypatch.setattr(cov, "weighted_covariance_planes", counted("k1", weighted_covariance_planes))
     monkeypatch.setattr(iva, "fused_auxiva_ip_iter", counted("k2", fused_auxiva_ip_iter))
     X = make_mixture(rng, n_channels=n_channels, n_bins=9, n_frames=16)
-    AuxLaplaceIVA(guard=guard, device="cpu", recordable_loss=False)(X, iteration=4)
-    if n_channels == 2 and guard == "one_norm":
+    solver(algorithm_spatial=algorithm, guard=guard, device="cpu", recordable_loss=False)(X, iteration=4)
+    if algorithm == "IP" and n_channels == 2 and guard == "one_norm":
         assert calls == {"k1": 0, "k2": 4}
+        assert contrasts == {solver.contrast}
     else:
         assert calls["k2"] == 0 and calls["k1"] >= 4
 
@@ -157,15 +184,20 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 def test_unported_configurations_raise(rng):
-    for algorithm in ("ISS", "IP2", "pairwise"):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            AuxLaplaceIVA(algorithm_spatial=algorithm, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        AuxLaplaceIVA(guard="svd", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        AuxLaplaceIVA(device="cpu")(make_mixture(rng, n_channels=5, n_bins=5, n_frames=8), iteration=1)
+    """What the JAX package refuses, the port refuses: IPA (``ValueError``),
+    AuxGaussIVA's IP2 and the SparseAuxIVA stub (``NotImplementedError``),
+    and unknown updates or guards (``ValueError``)."""
     with pytest.raises(ValueError):
         AuxLaplaceIVA(algorithm_spatial="IPA", device="cpu")(make_mixture(rng), iteration=1)
+    for algorithm in ("IP2", "pairwise"):
+        with pytest.raises(NotImplementedError, match="In progress"):
+            AuxGaussIVA(algorithm_spatial=algorithm, device="cpu")(make_mixture(rng), iteration=1)
+    with pytest.raises(NotImplementedError, match="in progress"):
+        SparseAuxIVA(device="cpu")
+    with pytest.raises(ValueError):
+        AuxLaplaceIVA(algorithm_spatial="IP3", device="cpu")
+    with pytest.raises(ValueError):
+        AuxLaplaceIVA(guard="two_norm", device="cpu")
 
 
 def _si_sdr(estimate, target):

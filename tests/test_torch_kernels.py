@@ -2,9 +2,9 @@
 the CPU.
 
 K1 (``ops/cov_kernel.py``) against the Pallas covariance kernel in
-interpret mode and the planes contraction; K2 (``ops/fused_ip.py``) against
-the fused Pallas iteration in interpret mode and the component-layout
-AuxIVA-IP step.  The CUDA kernels against these plain versions are in
+interpret mode and the planes contraction; K2 (``ops/fused_ip.py``), with
+either contrast, against the fused Pallas iteration in interpret mode and
+the component-layout AuxIVA-IP step.  The CUDA kernels against these plain versions are in
 ``test_torch_cuda_kernels.py``, which needs a card.
 """
 
@@ -16,6 +16,7 @@ import torch
 
 from audio_source_separation_tpu.ops import ip_components as jip
 from audio_source_separation_tpu.ops.covariance import weighted_covariance as j_weighted_covariance
+from audio_source_separation_tpu.ops.pallas_fused import fused_auxiva_ip_iter as fused_auxiva_ip_iter_pallas
 from audio_source_separation_tpu.ops.pallas_fused import (
     fused_auxiva_ip_run,
     identity_w_planes,
@@ -34,6 +35,7 @@ from audio_source_separation_tpu_torch.ops.covariance import (
     weighted_covariance_auto,
 )
 from audio_source_separation_tpu_torch.ops.fused_ip import (
+    CONTRASTS,
     SMEM_LIMIT,
     STATIC_SMEM,
     fused_auxiva_ip_iter,
@@ -75,6 +77,21 @@ def test_k1_plain_matches_jax_f64(rng, C):
     U_ref = np.asarray(j_weighted_covariance(jnp.asarray(X), jnp.asarray(w)))
     np.testing.assert_allclose(weighted_covariance_auto(Xt, wt).numpy(), U_ref, rtol=1e-10)
     np.testing.assert_allclose(weighted_covariance(Xt, wt).numpy(), U_ref, rtol=1e-10)
+
+
+@pytest.mark.parametrize("C,N", [(1, 1), (5, 5), (3, 2), (2, 6), (6, 3)])
+def test_k1_plain_any_shape_matches_jax_f64(rng, C, N):
+    """K1 takes any C and N, as the Pallas kernel's loops do: the compact
+    planes and the assembled matrices against the JAX package."""
+    X = make_mixture(rng, n_channels=C, n_bins=13, n_frames=21)
+    w = _weights(rng, N, 21, np.float64)
+    Xt, wt = torch.as_tensor(X), torch.as_tensor(w)
+    compact = weighted_covariance_planes(Xt, wt)
+    assert compact.shape == (C * C, 13, N)
+    ref = jip._covariance_planes(jip.pair_products_planes(jnp.asarray(X)), jnp.asarray(w))
+    np.testing.assert_allclose(compact.numpy(), np.asarray(ref), rtol=1e-10)
+    U_ref = np.asarray(j_weighted_covariance(jnp.asarray(X), jnp.asarray(w)))
+    np.testing.assert_allclose(weighted_covariance_auto(Xt, wt).numpy(), U_ref, rtol=1e-10, atol=1e-14)
 
 
 def test_weighted_covariance_per_bin_weights(rng):
@@ -121,6 +138,45 @@ def test_k2_plain_matches_pallas_interpret_f32(rng):
     np.testing.assert_allclose(nlls, np.asarray(nlls_ref), rtol=3e-5)
     Wf = np.asarray(Wc).reshape(2, 2, 2, -1)
     np.testing.assert_allclose(W.numpy(), Wf[:, :, 0, :F] + 1j * Wf[:, :, 1, :F], atol=3e-4)
+
+
+def test_k2_gauss_plain_matches_pallas_interpret_f32(rng):
+    """The Gauss contrast: the Pallas iteration takes ``1/R`` as an input,
+    so it is driven with ``1/max(psum/F, eps)`` and the Gauss NLL is taken
+    outside it; same f32 bounds as the Laplace case above."""
+    X = _stereo(rng, 200, 37, np.complex64)
+    F, T_true = X.shape[1], X.shape[2]
+    W = _identity(F, np.complex64)
+    Xt = torch.as_tensor(X)
+    psum = torch.sum(torch.abs(Xt) ** 2, dim=1)
+    nlls = []
+    for _ in range(6):
+        W, psum, _, nll = fused_auxiva_ip_iter(Xt, W, psum, eps=EPS, contrast="gauss")
+        nlls.append(float(nll))
+
+    X4p, _ = pad_bins(pack_planes(jnp.asarray(X)), tile=128)
+    X4p, _ = pad_frames(X4p, 128)
+    step = jax.jit(lambda X4, Wc, winv: fused_auxiva_ip_iter_pallas(X4, Wc, winv, interpret=True, n_frames=T_true))
+    Wc = identity_w_planes(X4p.shape[1])
+    psum_ref = jnp.sum(X4p**2, axis=1).reshape(2, 2, -1).sum(axis=1)  # sum_f |x_n|^2 for W = I
+    nlls_ref = []
+    for _ in range(6):
+        winv = 1.0 / jnp.maximum(psum_ref / F, EPS)
+        Wc, psum_ref, logdet = step(X4p, Wc, winv)
+        p = psum_ref[:, :T_true]
+        nlls_ref.append(float(F * jnp.sum(jnp.log(jnp.maximum(p / F, EPS))) - 2.0 * T_true * logdet))
+    np.testing.assert_allclose(nlls, nlls_ref, rtol=3e-5)
+    Wf = np.asarray(Wc).reshape(2, 2, 2, -1)
+    np.testing.assert_allclose(W.numpy(), Wf[:, :, 0, :F] + 1j * Wf[:, :, 1, :F], atol=3e-4)
+    np.testing.assert_allclose(psum.numpy(), np.asarray(psum_ref)[:, :T_true], rtol=1e-4)
+
+
+def test_k2_rejects_an_unknown_contrast(rng):
+    X = torch.as_tensor(_stereo(rng, 5, 8, np.complex128))
+    psum = torch.sum(torch.abs(X) ** 2, dim=1)
+    with pytest.raises(ValueError, match="contrast"):
+        fused_auxiva_ip_iter(X, _identity(5, np.complex128), psum, contrast="cauchy")
+    assert CONTRASTS == ("laplace", "gauss")
 
 
 def test_k2_plain_matches_component_step_f64(rng):
