@@ -79,7 +79,11 @@
 
 #include <cstdint>
 
+#include "hopper_async.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -170,65 +174,7 @@ __device__ void ip_update_bin(cf w[2][2], const float u[8], float threshold) {
   }
 }
 
-// ---- bulk copies (TMA) and mbarriers --------------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(1u)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// The one arrival of the barrier's current phase, expecting `bytes` of copies.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the barrier's phase of this parity has completed (acquire: the
-// copied bytes are then visible to the calling thread).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
-// memory into this block's shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ uintptr_t up16(uintptr_t p) { return (p + 15) & ~uintptr_t(15); }
-__device__ __forceinline__ uintptr_t down16(uintptr_t p) { return p & ~uintptr_t(15); }
-
 // ---- the cross-block reduction ---------------------------------------------
-
-__device__ __forceinline__ void fence_acq_rel_gpu() {
-  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
-}
 
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   unsigned v;
@@ -259,24 +205,6 @@ __device__ __forceinline__ void grid_barrier(unsigned* count, unsigned* gen) {
     fence_acq_rel_gpu();  // acquire the others'
   }
   __syncthreads();
-}
-
-// Every thread has written its share; take a ticket.  Returns true in every
-// thread of the block that arrives last of `count`, which resets the ticket
-// and may then read what the others wrote.
-__device__ __forceinline__ bool last_to_arrive(unsigned* ticket, unsigned count, int* flag) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    fence_acq_rel_gpu();
-    const bool last = atomicAdd(ticket, 1u) == count - 1;
-    if (last) {
-      *ticket = 0;
-      fence_acq_rel_gpu();
-    }
-    *flag = last;
-  }
-  __syncthreads();
-  return *flag;
 }
 
 // sum_{r0 <= r < r1} rows[r * stride] in row order, reads past L1 (the rows
@@ -530,7 +458,7 @@ fused_ip_kernel(const float2* __restrict__ x,      // (2, F, T)
     if (tid == 0)
       for (int b = 0; b < nb; ++b) ld_block += ld_s[b];
     __syncthreads();  // the next group reuses the shared arrays
-    if (kResident && tid < B / 2) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (kResident && tid < B / 2) fence_proxy_async();
   }
   if (tid == 0) row[2 * T] = ld_block;
 

@@ -3,10 +3,11 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with ``ctypes``.  Libraries go to
 ``build/kernels/`` beside the package (listed in ``.gitignore``), named by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing is built at import time: the first CUDA
-launch of a kernel builds it, and :func:`build_all` builds every kernel at
-once, one ``nvcc`` process per source, all started together.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header is rebuilt and an unchanged one is reused.
+Nothing is built at import time: the first CUDA launch of a kernel builds
+it, and :func:`build_all` builds every kernel at once, one ``nvcc``
+process per source, all started together.
 """
 
 import ctypes
@@ -47,9 +48,13 @@ def nvcc_path():
 
 
 def library_path(name):
-    """Path of the shared library for kernel ``name`` (may not exist yet)."""
-    source = (CSRC_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Path of the shared library for kernel ``name`` (may not exist yet),
+    named by a hash of its source, every shared header and the flags."""
+    hasher = hashlib.sha256()
+    for path in [CSRC_DIR / SOURCES[name], *sorted(CSRC_DIR.glob("*.cuh"))]:
+        hasher.update(path.name.encode() + b"\0" + path.read_bytes())
+    hasher.update(" ".join(NVCC_FLAGS).encode())
+    digest = hasher.hexdigest()[:16]
     return BUILD_DIR / "lib{}-{}.so".format(name, digest)
 
 

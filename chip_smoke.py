@@ -7,12 +7,14 @@ Phases (each asserts; any failure exits non-zero):
   1. the card's name and power limit; build both CUDA kernels from
      ``audio_source_separation_tpu_torch/csrc`` with nvcc (one process per
      source, in parallel) and print the build time;
-  2. kernels: K1 (weighted covariance) at C in {2, 3, 4} x 2049 x 469 and
-     at C = 4 x 65 x 16,384, and K2 (fused C = 2 AuxIVA-IP iteration, one
-     launch) at 2 x 2049 x 469 and at 2 x 257 x 9000 (the frame axis
+  2. kernels: K1 (weighted covariance) at C in {2, 3, 4} x 2049 x 469, at
+     C = 4 x 65 x 16,384 and at C = 3 x 513 x 7501 (both with the frame
+     axis split across blocks), and K2 (fused C = 2 AuxIVA-IP iteration,
+     one launch) at 2 x 2049 x 469 and at 2 x 257 x 9000 (the frame axis
      streamed), each held against its plain PyTorch version on the same
-     inputs, K2 also bit-identical across two launches; median times of 25
-     launches by CUDA events;
+     inputs and bit-identical across two launches; median times of 25
+     launches by CUDA events, K1 also with L2 flushed before each launch,
+     and K1's launch plan;
   3. main path, C = 2: a 60 s, 16 kHz stereo convolutive mixture ->
      stft(4096, 2048) -> AuxLaplaceIVA(IP) x 100 -> projection-back -> istft
      on the card; K2 once per iteration, loss finite and non-increasing,
@@ -32,13 +34,16 @@ Phases (each asserts; any failure exits non-zero):
      (finite losses, the last below the first); OverAuxLaplaceIVA, 4 mics
      -> 2 sources x 20 (finite output of shape (2, F, T)) and 4 mics -> 1
      source x 20 (K1 at C = N = 1); AuxLaplaceIVA(IP) at C = 5 x 10, the
-     matrix path, through K1's any-C kernel every iteration;
+     matrix path, through K1's generic instance every iteration; then
+     C = 3 on a 120 s recording at stft(1024, 256), 3 x 513 x 7501, 20
+     iterations, K1 (frame axis split) once per iteration, loss
+     non-increasing, SI-SDR up by more than 5 dB;
   7. one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
      line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds K2's Gauss instance at both shapes, K1 at C = 3 with
-N = 2 weight rows (IP2's pair covariances), and K1's any-C kernel at
-C = N = 5 and C = N = 1.
+N = 2 weight rows (IP2's pair covariances), K1's generic instance at
+C = N = 5, and K1 at C = N = 1.
 
 ``--profile`` also writes a torch.profiler table of 20 C = 2 iterations to
 ``chiprun_out/profile_c2.txt``.  Exits non-zero without printing a result
@@ -69,6 +74,7 @@ from audio_source_separation_tpu_torch import (
 )
 from audio_source_separation_tpu_torch.ops import _build
 from audio_source_separation_tpu_torch.ops.cov_kernel import (
+    k1_launch_plan,
     weighted_covariance_planes,
     weighted_covariance_planes_plain,
 )
@@ -82,7 +88,7 @@ from audio_source_separation_tpu_torch.ops.ip_components import (
     pair_products_planes,
     separate_components,
 )
-from audio_source_separation_tpu_torch.tools.timing import median_ms
+from audio_source_separation_tpu_torch.tools.timing import l2_flusher, median_ms
 
 SEED = 111
 SR = 16000
@@ -176,24 +182,37 @@ def random_mixture(gen, C, F, T):
 
 
 def k1_case(gen, C, F, T, N=None):
+    """K1 against its plain version, bit-identical across two launches;
+    median times warm (X in L2 where it fits) and cold (L2 flushed before
+    each call) of the kernel, the plain version and one ``torch.matmul``
+    over precomputed planes."""
     X = random_mixture(gen, C, F, T)
     # 1/R-like weights spanning three decades, N = C rows unless given
     w = (10.0 ** (3 * torch.rand((N or C, T), generator=gen, device="cuda") - 1.5)).contiguous()
     out = weighted_covariance_planes(X, w)
+    again = weighted_covariance_planes(X, w)
     ref = weighted_covariance_planes_plain(X, w)
     torch.cuda.synchronize()
+    plan = k1_launch_plan(C, w.shape[0], F, T)
+    assert torch.equal(out, again), ("K1 not bit-identical across launches", C, F, T, plan)
     err = rel_err(out, ref)
-    assert math.isfinite(err) and err <= K1_RTOL, ("K1", C, err)
+    assert math.isfinite(err) and err <= K1_RTOL, ("K1", C, F, T, err)
     planes = pair_products_planes(X).contiguous()
-    ms = median_ms(lambda: weighted_covariance_planes(X, w))
-    plain_ms = median_ms(lambda: weighted_covariance_planes_plain(X, w))
-    library_ms = median_ms(lambda: _covariance_planes(planes, w))  # one torch.matmul
+    flush = l2_flusher()
+    times = {}
+    for prefix, fn in [
+        ("", lambda: weighted_covariance_planes(X, w)),
+        ("plain_", lambda: weighted_covariance_planes_plain(X, w)),
+        ("library_", lambda: _covariance_planes(planes, w)),  # one torch.matmul
+    ]:
+        times[prefix + "ms"] = median_ms(fn)
+        times[prefix + "cold_ms"] = median_ms(fn, before=flush)
     n_bytes = X.numel() * 8 + w.numel() * 4 + out.numel() * 4
     n_flops = F * T * (3 * C * C + 2 * C * C * w.shape[0])  # pair products + contraction
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return {
-        "C": C, "N": w.shape[0], "max_abs_err": float((out - ref).abs().max()), "rel_err": err,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "C": C, "N": w.shape[0], "F": F, "T": T, "plan": plan._asdict(),
+        "max_abs_err": float((out - ref).abs().max()), "rel_err": err, **times,
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
 
@@ -357,6 +376,43 @@ def main_path_c2_long(rng):
     }
 
 
+def main_path_c3_long(rng):
+    """C = 3 through the entry points on a 120 s recording: 3 x 513 x 7501,
+    where K1 splits the frame axis across blocks."""
+    mixture, images = synth_mixture(rng, 3, N_SAMPLES_LONG)
+    fused_auxiva_ip_iter.launches = 0
+    weighted_covariance_planes.launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE_LONG, hop_size=HOP_SIZE_LONG)
+    solver = AuxLaplaceIVA(algorithm_spatial="IP")
+    Y = solver(X, iteration=ITERS_C3)
+    y = istft(Y, fft_size=FFT_SIZE_LONG, hop_size=HOP_SIZE_LONG, length=N_SAMPLES_LONG)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    k1_launches = weighted_covariance_planes.launches
+    k2_launches = fused_auxiva_ip_iter.launches
+
+    C, F, T = X.shape
+    plan = k1_launch_plan(C, C, F, T)
+    assert (C, F, T) == (3, FFT_SIZE_LONG // 2 + 1, N_SAMPLES_LONG // HOP_SIZE_LONG + 1), X.shape
+    assert plan.splits > 1, plan
+    assert k1_launches == ITERS_C3 and k2_launches == 0, ("launches", k1_launches, k2_launches)
+    check_losses(solver.loss, "C=3 long")
+    y = y.cpu().numpy()
+    assert np.isfinite(y).all() and y.shape == mixture.shape
+    before = best_pairing_si_sdr(mixture, images)
+    after = best_pairing_si_sdr(y, images)
+    assert after > before + 5.0, ("SI-SDR", before, after)
+    return {
+        "shape": [C, F, T], "plan": plan._asdict(),
+        "iterations": ITERS_C3, "k1_launches": k1_launches, "wall_s": wall_s,
+        "loss_first": solver.loss[0], "loss_last": solver.loss[-1],
+        "si_sdr_before_db": before, "si_sdr_after_db": after,
+        "per_iter_loss_off": per_iteration(X, False, AuxLaplaceIVA, ITERS_C3),
+    }
+
+
 def main_path_c3(rng):
     mixture, images = synth_mixture(rng, 3, N_SAMPLES)
     fused_auxiva_ip_iter.launches = 0
@@ -490,7 +546,7 @@ def overdetermined(rng):
 
 
 def five_channels(rng):
-    """AuxLaplaceIVA(IP) at C = 5 x 10: the matrix path, K1's any-C kernel
+    """AuxLaplaceIVA(IP) at C = 5 x 10: the matrix path, K1's generic instance
     once per iteration; the loss falls, its rises are recorded."""
     mixture, images = synth_mixture(rng, 5, N_SAMPLES)
     X, Y, y, loss, res = drive(AuxLaplaceIVA, mixture, ITERS_C5)
@@ -551,11 +607,13 @@ def main():
     F, T = 2049, 469
     k1 = [k1_case(gen, C, F, T) for C in (2, 3, 4)]
     k1_long = k1_case(gen, 4, 65, 16_384)
+    k1_long_c3 = k1_case(gen, 3, 513, 7501)  # a 120 s recording at stft(1024, 256)
     k2 = k2_case(gen, F, T)
     k2_long = k2_case(gen, 257, 9000)
-    print(json.dumps({"k1_cases": k1, "k1_long": k1_long, "k2_case": k2, "k2_long": k2_long}), flush=True)
+    print(json.dumps({"k1_cases": k1, "k1_long": k1_long, "k1_long_c3": k1_long_c3, "k2_case": k2,
+                      "k2_long": k2_long}), flush=True)
     k1_pair = k1_case(gen, 3, F, T, N=2)  # IP2's pair covariances at C = 3
-    k1_any = [k1_case(gen, 5, F, T), k1_case(gen, 1, F, T)]  # the any-C kernel
+    k1_any = [k1_case(gen, 5, F, T), k1_case(gen, 1, F, T)]  # generic at C = 5; C = 1
     print(json.dumps({"k1_any": k1_any}), flush=True)
     k2_gauss = k2_case(gen, F, T, contrast="gauss")
     k2_gauss_long = k2_case(gen, 257, 9000, contrast="gauss")
@@ -573,6 +631,8 @@ def main():
     fam3 = family_c3(*mix3)
     over, over1 = overdetermined(rng)
     c5 = five_channels(rng)
+    c3_long = main_path_c3_long(rng)  # last: the earlier phases keep their mixtures
+    print(json.dumps({"main_path_c3_long": c3_long}), flush=True)
     print(json.dumps({
         "family_c2": fam2, "family_c3": fam3, "overdetermined_4to2": over, "overdetermined_4to1": over1,
         "laplace_ip_c5": c5,
@@ -582,7 +642,7 @@ def main():
         print(json.dumps({"profile_c2": prof}), flush=True)
 
     k1_main = k1[1]  # C = 3, the shape of the K1 main path
-    k1_all = k1 + [k1_long, k1_pair] + k1_any
+    k1_all = k1 + [k1_long, k1_long_c3, k1_pair] + k1_any
 
     def k2_entry(name, case, case_long, launches, launches_by_path, rtol):
         return {
@@ -606,6 +666,7 @@ def main():
             "launches": c3["k1_launches"],
             "launches_by_path": {
                 "laplace_ip_c3": c3["k1_launches"],
+                "laplace_ip_c3_long": c3_long["k1_launches"],
                 "laplace_ip2_c2": fam2["laplace_ip2"]["k1_launches"],
                 "laplace_ip2_c3": fam3["laplace_ip2"]["k1_launches"],
                 "gauss_ip_c3": fam3["gauss_ip"]["k1_launches"],
@@ -618,10 +679,12 @@ def main():
             "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
             "bound_ms": k1_main["bound_ms"], "bound_us": k1_main["bound_ms"] * 1e3, "bound_by": k1_main["bound_by"],
             "library_ms": k1_main["library_ms"], "shape": [3, F, T],
-            "pair_case": {key: k1_pair[key] for key in ("N", "ms", "plain_ms", "library_ms", "bound_ms", "rel_err")},
-            "any_c_cases": [
-                {key: case[key] for key in ("C", "N", "ms", "plain_ms", "library_ms", "bound_ms", "rel_err")}
-                for case in k1_any
+            "cases": [
+                {key: case[key] for key in (
+                    "C", "N", "F", "T", "ms", "cold_ms", "plain_ms", "plain_cold_ms", "library_ms",
+                    "library_cold_ms", "bound_ms", "bound_by", "rel_err",
+                )}
+                for case in k1_all
             ],
         },
         k2_entry(

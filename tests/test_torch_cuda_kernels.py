@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from audio_source_separation_tpu_torch.ops.cov_kernel import (
+    k1_launch_plan,
     weighted_covariance_planes,
     weighted_covariance_planes_plain,
 )
@@ -43,8 +44,15 @@ def _mixture(seed, C, F, T, device):
     "C,N,F,T",
     [
         (2, 2, 70, 33), (3, 3, 129, 100), (4, 4, 257, 469), (3, 1, 31, 7), (4, 4, 33, 16_384), (3, 2, 2049, 469),
-        # the any-C kernel: C = 1, C > 4, N > 4 and N past one tile of 8 rows
+        # C = 1, and the generic instance: C > 4, N > 4 and N past one unit of
+        # 8 rows; (2, 9) packs 4 bins a block; (6, 9) and (7, 9) have 12 and
+        # 14 units, so each warp walks two per chunk (frame axis split, whole)
         (1, 1, 70, 33), (5, 5, 2049, 469), (5, 2, 129, 100), (2, 6, 31, 7), (6, 9, 33, 3000),
+        (2, 9, 129, 100), (7, 9, 300, 50),
+        # the frame axis split across blocks (k1_launch_plan): a 120 s
+        # recording at stft(1024, 256), C = N = 3 and IP2's pairs; generic
+        # and split; C = N = 1 at small F; odd F T, so rows start 8 bytes off 16
+        (3, 3, 513, 7501), (2, 2, 513, 7501), (5, 5, 65, 16_384), (1, 1, 33, 20_000), (3, 3, 129, 7001),
     ],
 )
 def test_k1_matches_plain(cuda, C, N, F, T):
@@ -55,6 +63,16 @@ def test_k1_matches_plain(cuda, C, N, F, T):
     assert weighted_covariance_planes.launches == launches + 1
     ref = weighted_covariance_planes_plain(X, w)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("C,N,F,T", [(3, 3, 2049, 469), (3, 3, 513, 7501), (6, 9, 33, 3000)])
+def test_k1_is_deterministic(cuda, C, N, F, T):
+    """Two launches give the same bits: unsplit, split with a ticket per
+    group, and split with several units per warp."""
+    X = _mixture(5, C, F, T, cuda)
+    w = torch.as_tensor((np.abs(np.random.RandomState(2).randn(N, T)) + 0.1).astype(np.float32), device=cuda)
+    assert (k1_launch_plan(C, N, F, T).splits > 1) == (F < 2049)
+    assert torch.equal(weighted_covariance_planes(X, w), weighted_covariance_planes(X, w))
 
 
 def test_k1_rejects_bad_operands(cuda):
