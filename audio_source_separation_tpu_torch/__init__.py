@@ -10,7 +10,11 @@ Ported so far: the main path -- ``stft`` ->
 -- and the rest of the IVA family (``models/iva.py``): ``AuxLaplaceIVA`` and
 ``AuxGaussIVA`` with IP, ISS and IP2, ``GradLaplaceIVA``,
 ``NaturalGradLaplaceIVA``, ``OverAuxLaplaceIVA`` (with ``transform.pca``)
-and the ``SparseAuxIVA`` stub.
+and the ``SparseAuxIVA`` stub -- and the ILRMA family (``models/ilrma.py``):
+``GaussILRMA`` (IP, ISS, IP2, partitioning, ``power`` and
+``projection-back`` normalisation), ``TILRMA`` (alias ``tILRMA``),
+``ConsistentGaussILRMA`` and the ``GGDILRMA``, ``KLILRMA`` and
+``RegularizedILRMA`` stubs.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise rather than fall back.
@@ -24,12 +28,19 @@ __version__ = "0.1.0"
 
 from .algorithm import apply_projection_back, projection_back  # noqa: F401
 from .models import (  # noqa: F401
+    TILRMA,
     AuxGaussIVA,
     AuxLaplaceIVA,
+    ConsistentGaussILRMA,
+    GaussILRMA,
+    GGDILRMA,
     GradLaplaceIVA,
+    KLILRMA,
     NaturalGradLaplaceIVA,
     OverAuxLaplaceIVA,
+    RegularizedILRMA,
     SparseAuxIVA,
+    tILRMA,
 )
 from .runtime import resolve_device  # noqa: F401
 from .transform import build_optimal_window, build_window, istft, pca, stft  # noqa: F401

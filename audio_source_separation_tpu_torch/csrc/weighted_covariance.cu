@@ -1,10 +1,12 @@
 // Weighted spatial covariance in compact Hermitian planes (kernel K1).
 //
-//   out[p, f, n] = (1/T) sum_t w[n, t] * plane_p(x[:, f, t])
+//   out[p, f, n] = (1/T) sum_t w[n, (f,) t] * plane_p(x[:, f, t])
 //
 // where plane_p runs over the C^2 compact pair products of
 // ops/ip_components.py::_plane_index: C diagonal planes |x_c|^2, then for
-// each c < d the (re, im) pair of x_c conj(x_d).
+// each c < d the (re, im) pair of x_c conj(x_d).  The weights are (N, T),
+// one row per source as the Pallas kernel takes them, or per bin, (N, F,
+// T), as ILRMA's variances are (a compile-time flag of every instance).
 //
 // Replaces audio_source_separation_tpu/ops/pallas_kernels.py::_cov_kernel
 // (pallas_call in _weighted_covariance_pallas).  Unlike the TPU kernel it
@@ -15,7 +17,9 @@
 // (N, T) weights, and writes C^2*F*N floats.  At C = 3, F = 2049, T = 469
 // that is 23.1 MB, about 6.9 us at the H100's 3.35 TB/s; at C = N = 5 it
 // does about 8 flops per byte of X, against the card's 20 for f32 outside
-// the tensor cores, so it is bound by bytes at every C.
+// the tensor cores, so it is bound by bytes at every C.  Per-bin weights add
+// 4*N*F*T bytes (half of X's at N = C = 2: 23.1 MB in all at 2 x 2049 x
+// 469) and no operations.
 //
 // Design; ops/cov_kernel.py::k1_launch_plan lays out each launch:
 //  * Blocks.  A block takes a group of `bins` consecutive bins and one of
@@ -37,13 +41,17 @@
 //    (odd T, odd offsets) has at most 12 bytes at either end outside the
 //    copy; its thread loads them with plain loads and stores them into the
 //    stage.  Every element of X and of the weights is read from device
-//    memory once.
+//    memory once.  Per-bin weights are staged like X: a stage holds each
+//    bin's N weight rows beside its C rows of X, and since a weight row's
+//    bins are contiguous in (N, F, T) as a channel's are in X, a whole chunk
+//    copies each (weight row, bin group) as one run too.
 //  * Barriers.  Each stage has one `full` mbarrier per group of bins
-//    (kGroups), the weights riding on group 0's: a thread expects its
-//    copies' bytes on its run's group before it issues them, and lane 0 of
-//    each warp arrives once the warp's copies are issued and its end words
-//    stored.  A warp waits only for the weights and its own bins, so the
-//    groups asked for first are contracted while the rest land.  A stage
+//    (kGroups), (N, T) weights riding on group 0's and per-bin weights on
+//    their bins' group: a thread expects its copies' bytes on its run's
+//    group before it issues them, and lane 0 of each warp arrives once the
+//    warp's copies are issued and its end words stored.  A warp waits only
+//    for the weights and its own bins, so the groups asked for first are
+//    contracted while the rest land.  A stage
 //    is refilled after a block barrier.
 //  * Contraction in registers from shared memory.  C <= 4 with N <= 4 has
 //    its own instances: one warp per bin, 8 bins per block, each lane
@@ -112,9 +120,10 @@ __host__ __device__ __forceinline__ size_t slot_bytes(int chunk, int size) {
   return (static_cast<size_t>(chunk) * size + 15) / 16 * 16 + 16;
 }
 
-__host__ __device__ __forceinline__ size_t stage_bytes(int C, int N, int bins, int chunk) {
+// weight rows of a stage: N, or N per bin for per-bin weights
+__host__ __device__ __forceinline__ size_t stage_bytes(int C, int N, int bins, int chunk, bool per_bin) {
   return static_cast<size_t>(C) * bins * slot_bytes(chunk, 8) +
-         static_cast<size_t>(N) * slot_bytes(chunk, 4);
+         static_cast<size_t>(per_bin ? N * bins : N) * slot_bytes(chunk, 4);
 }
 
 // the block's (C^2, bins, N) sums, after the stages
@@ -139,18 +148,23 @@ struct Block {
   const float* w;
   int C, N, F, T, bins, f0, nb;
   size_t xslot, wslot;
-  bool whole;  // one chunk of all T frames: a channel's rows of a bin group are one run
-  int gb;      // bins per group: max(1, bins / kGroups)
+  bool whole;    // one chunk of all T frames: a channel's rows of a bin group are one run
+  int gb;        // bins per group: max(1, bins / kGroups)
+  bool per_bin;  // w is (N, F, T): a weight row per (n, bin), staged like X's rows
 
   __device__ const float2* x_row(int c, int b, int t0) const {
     return x + (static_cast<size_t>(c) * F + f0 + b) * T + t0;
   }
-  __device__ const float* w_row(int n, int t0) const { return w + static_cast<size_t>(n) * T + t0; }
+  // frame t0 of weight row n for bin b (b is ignored for (N, T) weights)
+  __device__ const float* w_row(int n, int b, int t0) const {
+    return w + (per_bin ? static_cast<size_t>(n) * F + f0 + b : static_cast<size_t>(n)) * T + t0;
+  }
   __device__ const unsigned char* x_slot(const unsigned char* stage, int c, int b) const {
     return stage + (static_cast<size_t>(c) * bins + b) * xslot;
   }
-  __device__ const unsigned char* w_slot(const unsigned char* stage, int n) const {
-    return stage + static_cast<size_t>(C) * bins * xslot + static_cast<size_t>(n) * wslot;
+  __device__ const unsigned char* w_slot(const unsigned char* stage, int n, int b) const {
+    return stage + static_cast<size_t>(C) * bins * xslot +
+           static_cast<size_t>(per_bin ? n * bins + b : n) * wslot;
   }
   // frame t0 of row (c, b) in the stage: its own slot, or, for a whole
   // chunk, row b of channel c's run, which starts in the channel's first slot
@@ -158,13 +172,21 @@ struct Block {
     return whole ? staged(x_slot(stage, c, 0), x_row(c, 0, 0)) + static_cast<size_t>(b) * T
                  : staged(x_slot(stage, c, b), x_row(c, b, t0));
   }
+  // the same for weight row n of bin b: per-bin rows are laid out as X's
+  __device__ const float* w_staged(const unsigned char* stage, int n, int b, int t0) const {
+    if (!per_bin) return staged(w_slot(stage, n, 0), w_row(n, 0, t0));
+    return whole ? staged(w_slot(stage, n, 0), w_row(n, 0, 0)) + static_cast<size_t>(b) * T
+                 : staged(w_slot(stage, n, b), w_row(n, b, t0));
+  }
 };
 
-// Run r of a chunk, a run being what one bulk copy brings.  Runs 0..N-1 are
-// the weights' rows (group 0); then, group by group of gb bins, X's
-// channels: for a whole chunk one run per channel of the group's rows, else
-// one run per (channel, bin).  [src, end) in device memory; dst is where src
-// lands in the stage; src == end for a bin past the last.
+// Run r of a chunk, a run being what one bulk copy brings.  For (N, T)
+// weights runs 0..N-1 are their rows (group 0).  Then, group by group of gb
+// bins, X's channels and, for per-bin weights, the weight rows after them:
+// for a whole chunk one run per channel (or weight row) of the group's
+// bins, else one run per (channel or weight row, bin).  [src, end) in
+// device memory; dst is where src lands in the stage; src == end for a bin
+// past the last.
 struct Run {
   uintptr_t src, end;
   unsigned char* dst;
@@ -173,20 +195,30 @@ struct Run {
 
 __device__ __forceinline__ int chunk_runs(const Block& blk) {
   const int groups = (blk.nb + blk.gb - 1) / blk.gb;
-  return blk.N + blk.C * groups * (blk.whole ? 1 : blk.gb);
+  const int per = blk.whole ? 1 : blk.gb;
+  return blk.per_bin ? (blk.C + blk.N) * groups * per : blk.N + blk.C * groups * per;
 }
 
 __device__ __forceinline__ Run chunk_run(const Block& blk, unsigned char* stage, int r, int t0,
                                          int len) {
-  if (r < blk.N) {
-    const uintptr_t src = reinterpret_cast<uintptr_t>(blk.w_row(r, t0));
+  if (!blk.per_bin && r < blk.N) {
+    const uintptr_t src = reinterpret_cast<uintptr_t>(blk.w_row(r, 0, t0));
     return {src, src + 4 * static_cast<uintptr_t>(len),
-            const_cast<unsigned char*>(blk.w_slot(stage, r)) + (src & 15), 0};
+            const_cast<unsigned char*>(blk.w_slot(stage, r, 0)) + (src & 15), 0};
   }
-  const int q = r - blk.N, per = blk.whole ? 1 : blk.gb;
-  const int g = q / (blk.C * per), c = q % (blk.C * per) / per;
+  const int q = r - (blk.per_bin ? 0 : blk.N), per = blk.whole ? 1 : blk.gb;
+  const int rows_of_bin = blk.C + (blk.per_bin ? blk.N : 0);  // X's, then the bin's weights'
+  const int g = q / (rows_of_bin * per), c = q % (rows_of_bin * per) / per;
   const int b = g * blk.gb + q % per;  // the run's first bin
   const int rows = blk.whole ? min(blk.gb, blk.nb - b) : (b < blk.nb ? 1 : 0);
+  if (c >= blk.C) {  // weight row c - C of the run's bins
+    const int n = c - blk.C;
+    const uintptr_t src = reinterpret_cast<uintptr_t>(blk.w_row(n, b, t0));
+    const unsigned char* dst = blk.whole
+                                   ? reinterpret_cast<const unsigned char*>(blk.w_staged(stage, n, b, t0))
+                                   : blk.w_slot(stage, n, b) + (src & 15);
+    return {src, src + 4 * static_cast<uintptr_t>(rows) * len, const_cast<unsigned char*>(dst), g};
+  }
   const uintptr_t src = reinterpret_cast<uintptr_t>(blk.x_row(c, b, t0));
   const unsigned char* dst = blk.whole
                                  ? reinterpret_cast<const unsigned char*>(blk.x_staged(stage, c, b, t0))
@@ -300,10 +332,11 @@ __device__ __forceinline__ int unit_entry(const Unit& un, int i, int C, int N, i
   return (p * bins + un.b) * N + un.n0 + kk;
 }
 
-template <int kC, int kN>  // kC = 0: the generic instance, C and N at run time
+// kC = 0: the generic instance, C and N at run time; kPerBin: w is (N, F, T)
+template <int kC, int kN, bool kPerBin>
 __global__ void __launch_bounds__(kThreads, 2)
 covariance_kernel(const float2* __restrict__ x,     // (C, F, T)
-                  const float* __restrict__ w,      // (N, T)
+                  const float* __restrict__ w,      // (N, T), or (N, F, T) with kPerBin
                   float* __restrict__ out,          // (C^2, F, N)
                   float* __restrict__ part,         // (groups, splits, C^2, bins, N) if splits > 1
                   unsigned* __restrict__ tickets,   // (groups,) if splits > 1
@@ -325,8 +358,8 @@ covariance_kernel(const float2* __restrict__ x,     // (C, F, T)
   const int t_begin = split * span, t_end = min(T, t_begin + span);
   const int n_chunks = (t_end - t_begin + chunk - 1) / chunk;  // >= 1: no split is empty
   const Block blk{x, w, C, N, F, T, bins, f0, min(bins, F - f0), slot_bytes(chunk, 8),
-                  slot_bytes(chunk, 4), splits == 1 && n_chunks == 1, max(1, bins / kGroups)};
-  const size_t sbytes = stage_bytes(C, N, bins, chunk);
+                  slot_bytes(chunk, 4), splits == 1 && n_chunks == 1, max(1, bins / kGroups), kPerBin};
+  const size_t sbytes = stage_bytes(C, N, bins, chunk, kPerBin);
   float* sums = reinterpret_cast<float*>(smem + stages * sbytes);
 
   // a warp takes a bin (specialised) or a bin's (pairs, rows) unit; past 8
@@ -358,9 +391,10 @@ covariance_kernel(const float2* __restrict__ x,     // (C, F, T)
     const int s = k % stages;
     const unsigned char* stage = smem + s * sbytes;
     const int t0 = t_begin + k * chunk, len = min(chunk, t_end - t0);
-    // a warp waits for the weights (group 0) and its own bins' group
+    // a warp waits for its own bins' group and, for (N, T) weights, for
+    // group 0, which brings them
     auto wait_for = [&](int b) {
-      mbar_wait(&full_s[s][0], (k / stages) & 1);
+      if (!kPerBin) mbar_wait(&full_s[s][0], (k / stages) & 1);
       mbar_wait(&full_s[s][b / blk.gb], (k / stages) & 1);
     };
 
@@ -375,7 +409,7 @@ covariance_kernel(const float2* __restrict__ x,     // (C, F, T)
 #pragma unroll
         for (int c = 0; c < kC; ++c) xr[c] = blk.x_staged(stage, c, b, t0);
 #pragma unroll
-        for (int n = 0; n < kN; ++n) wr[n] = staged(blk.w_slot(stage, n), blk.w_row(n, t0));
+        for (int n = 0; n < kN; ++n) wr[n] = blk.w_staged(stage, n, b, t0);
         // two frames in flight per lane where the registers allow it
         constexpr int kUnroll = kP * kN <= 36 ? 2 : 1;
 #pragma unroll kUnroll
@@ -421,7 +455,7 @@ covariance_kernel(const float2* __restrict__ x,     // (C, F, T)
 #pragma unroll
         for (int kk = 0; kk < kRows; ++kk) {
           const int n = un.n0 + (kk < un.nt ? kk : 0);
-          wr[kk] = staged(blk.w_slot(stage, n), blk.w_row(n, t0));
+          wr[kk] = blk.w_staged(stage, n, un.b, t0);
         }
         if (rounds > 1)
 #pragma unroll
@@ -511,11 +545,11 @@ covariance_kernel(const float2* __restrict__ x,     // (C, F, T)
   K1_STAMP(6);
 }
 
-template <int kC, int kN>
+template <int kC, int kN, bool kPerBin>
 cudaError_t launch(const void* x, const void* w, void* out, void* part, void* tickets, int C, int N,
                    int F, int T, int bins, int chunk, int stages, int splits, int span, size_t smem,
                    cudaStream_t stream) {
-  auto kernel = covariance_kernel<kC, kN>;
+  auto kernel = covariance_kernel<kC, kN, kPerBin>;
   // dynamic shared memory opted into, per device: static and dynamic
   // together past 48 KB need it
   static size_t allowed[kMaxDevices] = {};
@@ -538,24 +572,38 @@ cudaError_t launch(const void* x, const void* w, void* out, void* part, void* ti
   return cudaGetLastError();
 }
 
-template <int kC>
+template <int kC, bool kPerBin>
 cudaError_t launch_c(const void* x, const void* w, void* out, void* part, void* tickets, int N,
                      int F, int T, int bins, int chunk, int stages, int splits, int span,
                      size_t smem, cudaStream_t s) {
   switch (N) {
-    case 1: return launch<kC, 1>(x, w, out, part, tickets, kC, 1, F, T, bins, chunk, stages, splits, span, smem, s);
-    case 2: return launch<kC, 2>(x, w, out, part, tickets, kC, 2, F, T, bins, chunk, stages, splits, span, smem, s);
-    case 3: return launch<kC, 3>(x, w, out, part, tickets, kC, 3, F, T, bins, chunk, stages, splits, span, smem, s);
-    case 4: return launch<kC, 4>(x, w, out, part, tickets, kC, 4, F, T, bins, chunk, stages, splits, span, smem, s);
+    case 1: return launch<kC, 1, kPerBin>(x, w, out, part, tickets, kC, 1, F, T, bins, chunk, stages, splits, span, smem, s);
+    case 2: return launch<kC, 2, kPerBin>(x, w, out, part, tickets, kC, 2, F, T, bins, chunk, stages, splits, span, smem, s);
+    case 3: return launch<kC, 3, kPerBin>(x, w, out, part, tickets, kC, 3, F, T, bins, chunk, stages, splits, span, smem, s);
+    case 4: return launch<kC, 4, kPerBin>(x, w, out, part, tickets, kC, 4, F, T, bins, chunk, stages, splits, span, smem, s);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool kPerBin>
+cudaError_t launch_any(const void* x, const void* w, void* out, void* part, void* tickets, int C,
+                       int N, int F, int T, int bins, int chunk, int stages, int splits, int span,
+                       size_t smem, bool fixed, cudaStream_t s) {
+  switch (fixed ? C : 0) {
+    case 1: return launch_c<1, kPerBin>(x, w, out, part, tickets, N, F, T, bins, chunk, stages, splits, span, smem, s);
+    case 2: return launch_c<2, kPerBin>(x, w, out, part, tickets, N, F, T, bins, chunk, stages, splits, span, smem, s);
+    case 3: return launch_c<3, kPerBin>(x, w, out, part, tickets, N, F, T, bins, chunk, stages, splits, span, smem, s);
+    case 4: return launch_c<4, kPerBin>(x, w, out, part, tickets, N, F, T, bins, chunk, stages, splits, span, smem, s);
+    default: return launch<0, 0, kPerBin>(x, w, out, part, tickets, C, N, F, T, bins, chunk, stages, splits, span, smem, s);
   }
 }
 
 }  // namespace
 
-// x: (C, F, T) complex64 viewed as float2; w: (N, T) f32; out: (C^2, F, N)
-// f32; any C >= 1 and N >= 1.  bins, chunk, stages, splits, span,
-// smem_bytes and specialised come from ops/cov_kernel.py::k1_launch_plan.
+// x: (C, F, T) complex64 viewed as float2; w: (N, T) f32, or (N, F, T) f32
+// with per_bin; out: (C^2, F, N) f32; any C >= 1 and N >= 1.  bins, chunk,
+// stages, splits, span, smem_bytes, specialised and per_bin come from
+// ops/cov_kernel.py::k1_launch_plan.
 // With splits > 1, part holds ceil(F / bins) * splits * C^2 * bins * N f32
 // and tickets ceil(F / bins) unsigned, zero before the first launch (the
 // kernel leaves them zero); with splits = 1 both may be null.
@@ -563,7 +611,7 @@ cudaError_t launch_c(const void* x, const void* w, void* out, void* part, void* 
 extern "C" int weighted_covariance_f32(const void* x, const void* w, void* out, void* part,
                                        void* tickets, int C, int N, int F, int T, int bins,
                                        int chunk, int stages, int splits, int span, int smem_bytes,
-                                       int specialised, void* stream) {
+                                       int specialised, int per_bin, void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (C < 1 || N < 1 || F < 1 || T < 1 || bins < 1 || bins > kWarps || chunk < 2 || chunk % 2 ||
       stages < 1 || stages > kMaxStages || splits < 1 || span < 1 ||
@@ -574,18 +622,13 @@ extern "C" int weighted_covariance_f32(const void* x, const void* w, void* out, 
   if ((specialised != 0) != fixed) return invalid;
   // a warp per bin, or per unit of up to kWarps units in all (bins = 1 past that)
   if (bins != (fixed ? kWarps : max(1, kWarps / generic_units(C, N)))) return invalid;
-  const size_t need = stages * stage_bytes(C, N, bins, chunk) + sums_bytes(C, N, bins);
+  const size_t need = stages * stage_bytes(C, N, bins, chunk, per_bin != 0) + sums_bytes(C, N, bins);
   if (smem_bytes < 0 || static_cast<size_t>(smem_bytes) < need) return invalid;
   const size_t smem = static_cast<size_t>(smem_bytes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (fixed ? C : 0) {
-    case 1: err = launch_c<1>(x, w, out, part, tickets, N, F, T, bins, chunk, stages, splits, span, smem, s); break;
-    case 2: err = launch_c<2>(x, w, out, part, tickets, N, F, T, bins, chunk, stages, splits, span, smem, s); break;
-    case 3: err = launch_c<3>(x, w, out, part, tickets, N, F, T, bins, chunk, stages, splits, span, smem, s); break;
-    case 4: err = launch_c<4>(x, w, out, part, tickets, N, F, T, bins, chunk, stages, splits, span, smem, s); break;
-    default: err = launch<0, 0>(x, w, out, part, tickets, C, N, F, T, bins, chunk, stages, splits, span, smem, s);
-  }
+  const cudaError_t err =
+      per_bin ? launch_any<true>(x, w, out, part, tickets, C, N, F, T, bins, chunk, stages, splits, span, smem, fixed, s)
+              : launch_any<false>(x, w, out, part, tickets, C, N, F, T, bins, chunk, stages, splits, span, smem, fixed, s);
   return static_cast<int>(err);
 }
 

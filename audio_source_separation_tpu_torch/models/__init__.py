@@ -1,3 +1,12 @@
+from .ilrma import (  # noqa: F401
+    TILRMA,
+    ConsistentGaussILRMA,
+    GaussILRMA,
+    GGDILRMA,
+    KLILRMA,
+    RegularizedILRMA,
+    tILRMA,
+)
 from .iva import (  # noqa: F401
     AuxGaussIVA,
     AuxLaplaceIVA,
@@ -14,4 +23,11 @@ __all__ = [
     "AuxGaussIVA",
     "SparseAuxIVA",
     "OverAuxLaplaceIVA",
+    "GaussILRMA",
+    "TILRMA",
+    "tILRMA",
+    "ConsistentGaussILRMA",
+    "GGDILRMA",
+    "KLILRMA",
+    "RegularizedILRMA",
 ]

@@ -35,6 +35,7 @@ at init by the spatial update, the guard and the channel count C:
 import torch
 
 from ..algorithm.projection_back import projection_back
+from ..ops.cov_kernel import weighted_covariance_planes
 from ..ops.covariance import weighted_covariance_auto
 from ..ops.eig2 import generalized_eig2x2_descending
 from ..ops.fast_linalg import batched_log_abs_det
@@ -43,6 +44,8 @@ from ..ops.ip import cond_guard, ip_update, uses_component_sweep
 from ..ops.ip_components import (
     _dynamic_set_row,
     _take,
+    assemble_components,
+    assemble_matrices,
     filter_rows,
     frame_power_sums,
     ip2_pair_update_planes,
@@ -125,12 +128,17 @@ class IVABase(IterativeSolver):
         # from W, as the reference does at reset (``bss/iva.py:59``)
         return {"input": X, "demix_filter": W, "estimation": self.separate(X, W)}
 
-    def _ip_sweep(self, state, inv_weights):
-        """Weighted covariance (K1 on CUDA) and the IP row sweep on the
-        ``(F, N, C)`` filter: components for a cheap guard at C <= 4, the
-        matrix sweep otherwise (:func:`~..ops.ip.ip_update`)."""
-        U = weighted_covariance_auto(state["input"], inv_weights)
-        return ip_update(state["demix_filter"], U, threshold=self.threshold, guard=self.guard)
+    def _ip_sweep(self, state, inv_weights, denom_floor=None):
+        """Weighted covariance (K1 on CUDA, ``(N, T)`` or per-bin ``(N, F,
+        T)`` weights) and the IP row sweep on the ``(F, N, C)`` filter:
+        components straight from K1's compact output for a cheap guard at
+        C <= 4, the matrix sweep otherwise (:func:`~..ops.ip.ip_update`)."""
+        W = state["demix_filter"]
+        out = weighted_covariance_planes(state["input"], inv_weights)
+        kwargs = {"threshold": self.threshold, "guard": self.guard, "denom_floor": denom_floor}
+        if uses_component_sweep(self.guard, W.shape[-1]):
+            return stack_filter_rows(ip_update_components(filter_rows(W), assemble_components(out), **kwargs))
+        return ip_update(W, assemble_matrices(out), **kwargs)
 
     def __repr__(self):
         return "IVA()"

@@ -1,7 +1,8 @@
 """Kernel K1: weighted spatial covariance in compact Hermitian planes.
 
-``weighted_covariance_planes(X, w)[p, f, n] = (1/T) sum_t w[n, t] plane_p(f, t)``
-with the C^2 compact pair-product planes of
+``weighted_covariance_planes(X, w)[p, f, n] = (1/T) sum_t w[n, (f,) t] plane_p(f, t)``
+for ``(N, T)`` weights or per-bin ``(N, F, T)`` weights (ILRMA's), with the
+C^2 compact pair-product planes of
 :func:`~audio_source_separation_tpu_torch.ops.ip_components.pair_products_planes`.
 
 Replaces ``audio_source_separation_tpu/ops/pallas_kernels.py::_cov_kernel``.
@@ -23,9 +24,10 @@ from .ip_components import _covariance_planes, pair_products_planes
 
 
 def weighted_covariance_planes_plain(X, weights):
-    """Plain PyTorch version of K1: ``X (C, F, T)`` complex and 2-D weights
-    ``(N, T)`` -> ``(C^2, F, N)`` real, via the pair-product planes and one
-    ``(C^2 F, T) x (T, N)`` matmul."""
+    """Plain PyTorch version of K1: ``X (C, F, T)`` complex and ``(N, T)`` or
+    ``(N, F, T)`` weights -> ``(C^2, F, N)`` real, via the pair-product planes
+    and one ``(C^2 F, T) x (T, N)`` matmul (a bin-batched one for per-bin
+    weights)."""
     return _covariance_planes(pair_products_planes(X), weights)
 
 
@@ -44,7 +46,7 @@ TWO_PER_SM = (233_472 - 2 * 1024) // 2 - STATIC_SMEM
 TARGET_BLOCKS = 256  # about two blocks per SM on the H100's 132 SMs
 MIN_SPLIT_FRAMES = 256  # frames of the shortest span the frame axis is split into
 
-K1Plan = namedtuple("K1Plan", "bins chunk stages splits span groups smem_bytes specialised")
+K1Plan = namedtuple("K1Plan", "bins chunk stages splits span groups smem_bytes specialised per_bin")
 K1Plan.__doc__ = """How K1 is launched for one ``(C, N, F, T)``.
 
 A block takes ``bins`` consecutive bins (``groups`` groups in all) and one
@@ -53,7 +55,9 @@ the grid is ``groups * splits`` blocks.  It walks its span ``chunk``
 frames (even) at a time through a ring of ``stages`` shared-memory
 buffers, ``smem_bytes`` of dynamic shared memory in all.
 ``specialised``: a compile-time instance (C <= ``SPECIALISED_C``,
-N <= ``SPECIALISED_N``), else the generic one.
+N <= ``SPECIALISED_N``), else the generic one.  ``per_bin``: the weights are
+``(N, F, T)``, so a stage holds each of its bins' N weight rows beside the
+bin's C rows of X (else the N rows of ``(N, T)`` weights, once).
 """
 
 
@@ -63,21 +67,24 @@ def _slot_bytes(chunk, size):
     return -(-chunk * size // 16) * 16 + 16
 
 
-def _stage_bytes(C, N, bins, chunk):
-    return C * bins * _slot_bytes(chunk, 8) + N * _slot_bytes(chunk, 4)
+def _stage_bytes(C, N, bins, chunk, per_bin=False):
+    w_rows = N * bins if per_bin else N
+    return C * bins * _slot_bytes(chunk, 8) + w_rows * _slot_bytes(chunk, 4)
 
 
-def _fit(C, N, bins, room):
+def _fit(C, N, bins, room, per_bin):
     """The most frames (even) of a chunk whose stage fits in ``room`` bytes."""
-    chunk = max(0, (room - 32 * (C * bins + N)) // (8 * C * bins + 4 * N)) // 2 * 2
-    while _stage_bytes(C, N, bins, chunk + 2) <= room:
+    w_rows = N * bins if per_bin else N
+    chunk = max(0, (room - 32 * (C * bins + w_rows)) // (8 * C * bins + 4 * w_rows)) // 2 * 2
+    while _stage_bytes(C, N, bins, chunk + 2, per_bin) <= room:
         chunk += 2
     return chunk
 
 
 @functools.lru_cache(maxsize=256)
-def k1_launch_plan(C, N, F, T):
-    """The :class:`K1Plan` for a ``(C, F, T)`` mixture and ``(N, T)`` weights.
+def k1_launch_plan(C, N, F, T, per_bin=False):
+    """The :class:`K1Plan` for a ``(C, F, T)`` mixture and ``(N, T)``
+    weights, or ``(N, F, T)`` ones with ``per_bin``.
 
     Bins per block: 8 for the specialised instance (a warp each); for the
     generic one, 8 over the number of units a bin is cut into (at least 1).
@@ -107,13 +114,14 @@ def k1_launch_plan(C, N, F, T):
     def plan(chunk, stages):
         return K1Plan(
             bins=bins, chunk=chunk, stages=stages, splits=splits, span=span, groups=groups,
-            smem_bytes=stages * _stage_bytes(C, N, bins, chunk) + sums, specialised=specialised,
+            smem_bytes=stages * _stage_bytes(C, N, bins, chunk, per_bin) + sums, specialised=specialised,
+            per_bin=per_bin,
         )
 
-    if _stage_bytes(C, N, bins, span) <= TWO_PER_SM - sums:
+    if _stage_bytes(C, N, bins, span, per_bin) <= TWO_PER_SM - sums:
         return plan(span, 1)
     for budget in (TWO_PER_SM, SMEM_LIMIT - STATIC_SMEM):
-        ring = _fit(C, N, bins, (budget - sums) // MAX_STAGES)
+        ring = _fit(C, N, bins, (budget - sums) // MAX_STAGES, per_bin)
         if ring >= 2:
             n_chunks = max(MAX_STAGES, -(-span // ring))
             return plan(2 * -(-span // (2 * n_chunks)), MAX_STAGES)
@@ -123,7 +131,7 @@ def k1_launch_plan(C, N, F, T):
 def _entry():
     fn = _build.load("weighted_covariance").weighted_covariance_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -151,8 +159,9 @@ def weighted_covariance_planes(X, weights):
     Args:
         X: ``(C, F, T)`` complex mixture, any C >= 1.  On CUDA it must be
             contiguous complex64.
-        weights: ``(N, T)`` real weights (``1/R``), any N >= 1.  On CUDA it
-            must be contiguous float32 on the same device.
+        weights: ``(N, T)`` real weights (``1/R``), or per-bin ``(N, F, T)``
+            ones, any N >= 1.  On CUDA they must be contiguous float32 on
+            the same device.
     """
     if X.device.type == "cpu":
         return weighted_covariance_planes_plain(X, weights)
@@ -162,11 +171,12 @@ def weighted_covariance_planes(X, weights):
         raise ValueError("K1 takes a contiguous complex64 (C, F, T) mixture")
     C, F, T = X.shape
     if weights.dtype != torch.float32 or not weights.is_contiguous():
-        raise ValueError("K1 takes contiguous float32 (N, T) weights")
-    if weights.device != X.device or weights.ndim != 2 or weights.shape[1] != T:
-        raise ValueError("K1 weights must be (N, T) on the mixture's device")
+        raise ValueError("K1 takes contiguous float32 (N, T) or (N, F, T) weights")
+    per_bin = weights.ndim == 3
+    if weights.device != X.device or weights.shape[1:] not in ((T,), (F, T)):
+        raise ValueError("K1 weights must be (N, T) or (N, F, T) on the mixture's device")
     N = weights.shape[0]
-    plan = k1_launch_plan(C, N, F, T)
+    plan = k1_launch_plan(C, N, F, T, per_bin)
     out = torch.empty((C * C, F, N), dtype=torch.float32, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     part = tickets = None
@@ -176,7 +186,7 @@ def weighted_covariance_planes(X, weights):
         X.data_ptr(), weights.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(), None if tickets is None else tickets.data_ptr(),
         C, N, F, T, plan.bins, plan.chunk, plan.stages, plan.splits, plan.span, plan.smem_bytes,
-        int(plan.specialised), stream,
+        int(plan.specialised), int(plan.per_bin), stream,
     )
     _build.check(status, "weighted_covariance")
     weighted_covariance_planes.launches += 1

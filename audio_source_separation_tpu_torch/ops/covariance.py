@@ -26,13 +26,8 @@ def weighted_covariance(X, weights):
 
 
 def weighted_covariance_auto(X, weights):
-    """Weighted covariance ``(N, F, C, C)``, dispatched on the shapes.
-
-    2-D ``(N, T)`` weights go through kernel K1
+    """Weighted covariance ``(N, F, C, C)`` through kernel K1
     (:func:`~.cov_kernel.weighted_covariance_planes`: the CUDA kernel for a
-    CUDA mixture, its plain version on the CPU) at any C and N; 3-D per-bin
-    weights use :func:`weighted_covariance`.
-    """
-    if weights.ndim != 2:
-        return weighted_covariance(X, weights)
+    CUDA mixture, its plain version on the CPU) at any C and N, for ``(N,
+    T)`` and per-bin ``(N, F, T)`` weights alike."""
     return assemble_matrices(weighted_covariance_planes(X, weights))

@@ -64,9 +64,10 @@ def ip_update(W, U, threshold=1e12, guard="one_norm", denom_floor=None):
         the updated ``W`` (same shape).
 
     The IVA solvers hold the component configurations
-    (:func:`uses_component_sweep`) in component state and call this only
-    for the matrix path; the component branch serves callers that carry
-    ``W (F, N, C)`` through every sweep, as ILRMA does.
+    (:func:`uses_component_sweep`) in component state, and ILRMA takes the
+    component sweep straight from K1's compact output; both call this only
+    for the matrix path.  The component branch serves callers that hold
+    ``U`` as matrices.
     """
     n_sources, n_channels = U.shape[0], U.shape[-1]
     if uses_component_sweep(guard, n_channels):

@@ -78,16 +78,101 @@ def frame_power_sums(rows, planes):
     return torch.clamp(out, min=0.0)
 
 
+def quadratic_power_components(rows, planes):
+    """``P[n] = |sum_c rows[n][c] x_c|^2 -> (N, F, T)`` real, from the
+    compact pair-product planes; the complex estimates are never formed.
+
+    ``sum_c |w_c|^2 P_cc + sum_{c<d} 2(Re a Re P_cd - Im a Im P_cd)`` with
+    ``a = w_c w_d^*``, elementwise over ``(F, T)``.  The exact value is a sum
+    of squares, but the cross terms can cancel slightly below zero in
+    float32, so the result is clamped at 0.
+    """
+    n_channels = len(rows[0])
+    out = []
+    for row in rows:
+        acc = None
+        for c in range(n_channels):
+            term = (torch.abs(row[c]) ** 2)[:, None] * planes[c]
+            acc = term if acc is None else acc + term
+        k = n_channels
+        for c in range(n_channels):
+            for d in range(c + 1, n_channels):
+                a = row[c] * row[d].conj()
+                acc = acc + 2.0 * (a.real[:, None] * planes[k] - a.imag[:, None] * planes[k + 1])
+                k += 2
+        out.append(torch.clamp(acc, min=0.0))
+    return torch.stack(out)
+
+
+def quadratic_power_planes(W, planes):
+    """:func:`quadratic_power_components` of the ``(F, N, C)`` filter ``W``:
+    ``|separate(X, W)|^2 (N, F, T)``."""
+    return quadratic_power_components(filter_rows(W), planes)
+
+
+def gram_components(planes):
+    """Frame-summed mixture Gram ``G[c][d] = sum_t x_c x_d^* (F,)`` complex,
+    reassembled from the compact planes; invariant for a fixed mixture."""
+    C = math.isqrt(planes.shape[0])
+    sums = planes.sum(dim=-1)  # (C^2, F)
+    index, _ = _plane_index(C)
+    G = [[None] * C for _ in range(C)]
+    for c in range(C):
+        G[c][c] = torch.complex(sums[index[("re", c, c)]], torch.zeros_like(sums[0]))
+        for d in range(c + 1, C):
+            G[c][d] = torch.complex(sums[index[("re", c, d)]], sums[index[("im", c, d)]])
+            G[d][c] = G[c][d].conj_physical()
+    return G
+
+
+def projection_back_components(rows, G, reference_id=0, ridge_rel=1e-12):
+    """Per-(source, bin) projection-back scales from the filter rows and the
+    mixture Gram (:func:`gram_components`), with no ``(N, F, T)`` estimate.
+
+    ``Y Y^H (i, j) = sum_cd w_ic w_jd^* G[c][d]`` and ``x_ref Y^H (j) =
+    sum_d w_jd^* G[ref][d]`` restate the least-squares fit ``A = X Y^H (Y
+    Y^H)^{-1}`` of :func:`~..algorithm.projection_back.projection_back`
+    exactly.  The Gram is ridged by ``ridge_rel`` of its trace, as there, and
+    solved by the adjugate.  Returns a list of ``(F,)`` complex scales, one
+    per source.
+    """
+    n_sources = len(rows)
+    n_channels = len(rows[0])
+    YY = [
+        [
+            sum(rows[i][c] * rows[j][d].conj() * G[c][d] for c in range(n_channels) for d in range(n_channels))
+            for j in range(n_sources)
+        ]
+        for i in range(n_sources)
+    ]
+    xY = [sum(rows[j][d].conj() * G[reference_id][d] for d in range(n_channels)) for j in range(n_sources)]
+    trace = sum(YY[i][i].real for i in range(n_sources))
+    ridge = (ridge_rel * trace + 1e-32).to(YY[0][0].dtype)
+    for i in range(n_sources):
+        YY[i][i] = YY[i][i] + ridge
+    det = det_components(YY, n_sources)
+    scales = []
+    for s in range(n_sources):
+        # element s of the row vector xY YY^{-1}: xY against column s of the inverse
+        col = solve_column_components(YY, n_sources, s, det=det)
+        scales.append(sum(xY[j] * col[j] for j in range(n_sources)))
+    return scales
+
+
 def _covariance_planes(planes, weights):
-    """Real contraction over frames: ``(P, F, T) x (N, T) -> (P, F, N)``,
-    ``out[p, f, n] = (1/T) sum_t planes[p, f, t] w[n, t]``.
+    """Real contraction over frames: ``(P, F, T) x (N, [F,] T) -> (P, F, N)``,
+    ``out[p, f, n] = (1/T) sum_t planes[p, f, t] w[n, (f,) t]``.
 
     This is the plain version of the weighted-covariance kernel
-    (``ops/cov_kernel.py``): one ``(P F, T) x (T, N)`` matmul."""
+    (``ops/cov_kernel.py``): for 2-D ``(N, T)`` weights one ``(P F, T) x
+    (T, N)`` matmul; for 3-D ``(N, F, T)`` per-bin weights (ILRMA's
+    variances) a bin-batched contraction."""
     P, F, T = planes.shape
     w = weights.to(planes.dtype)
-    out = torch.matmul(planes.reshape(P * F, T), w.transpose(0, 1)) / T
-    return out.reshape(P, F, -1)
+    if w.ndim == 2:
+        out = torch.matmul(planes.reshape(P * F, T), w.transpose(0, 1)) / T
+        return out.reshape(P, F, -1)
+    return torch.einsum("pft,nft->pfn", planes, w) / T
 
 
 def _assemble_entry(out, index, c, d, n):
@@ -156,8 +241,9 @@ def stack_filter_rows(rows):
 
 
 def weighted_covariance_components(planes, weights):
-    """``U[n][c][d] (F,) = (1/T) sum_t w[n, t] (x_c x_d^*)(f, t)`` from the
-    planes and 2-D ``(N, T)`` weights, as a nested list of complex ``(F,)``."""
+    """``U[n][c][d] (F,) = (1/T) sum_t w[n, (f,) t] (x_c x_d^*)(f, t)`` from
+    the planes and ``(N, T)`` or ``(N, F, T)`` weights, as a nested list of
+    complex ``(F,)``."""
     return assemble_components(_covariance_planes(planes, weights))
 
 
@@ -316,14 +402,15 @@ def log_abs_det_components(W_rows, n_channels):
 
 
 def weighted_covariance_planes_array(planes, weights):
-    """``U (N, F, C, C)`` complex from the planes and 2-D ``(N, T)`` weights
-    (for matrix-layout consumers)."""
+    """``U (N, F, C, C)`` complex from the planes and ``(N, T)`` or ``(N, F,
+    T)`` weights (for matrix-layout consumers)."""
     return assemble_matrices(_covariance_planes(planes, weights))
 
 
 def weighted_covariance_planes_stack(planes, weights):
-    """``U (N, C, C, F)`` complex from the planes and 2-D ``(N, T)`` weights:
-    the small axes lead and the bins trail (for the IP2 planes update)."""
+    """``U (N, C, C, F)`` complex from the planes and ``(N, T)`` or ``(N, F,
+    T)`` weights: the small axes lead and the bins trail (for the IP2 planes
+    update)."""
     return weighted_covariance_planes_array(planes, weights).permute(0, 2, 3, 1)
 
 
@@ -333,7 +420,7 @@ def ip_sweep_from_planes(W, planes, inv_weights, threshold=1e12, guard="one_norm
     Args:
         W: demixing filters ``(F, N, C)``.
         planes: from :func:`pair_products_planes`.
-        inv_weights: ``(N, T)`` reciprocal variances.
+        inv_weights: ``(N, T)`` or ``(N, F, T)`` reciprocal variances.
         denom_floor: optional floor on the ``sqrt(w^H U w)`` normaliser.
     Returns:
         the updated ``W (F, N, C)``.

@@ -1,9 +1,10 @@
 """Where the time goes inside one launch of kernel K1, on the card.
 
-    python -m audio_source_separation_tpu_torch.tools.k1_timeline [C N F T ...] [--chunk K --stages S]
+    python -m audio_source_separation_tpu_torch.tools.k1_timeline [C N F T ...] [--chunk K --stages S] [--per-bin]
 
 For each ``(C, N, F, T)`` (default 3 3 2049 469, the C = 3 main path's
-covariance) K1 runs on seeded inputs in the layout of
+covariance) K1 runs on seeded inputs, with ``(N, T)`` weights or, with
+``--per-bin``, ``(N, F, T)`` ones (ILRMA's), in the layout of
 :func:`k1_launch_plan`, or with its chunk and stages replaced by
 ``--chunk`` and ``--stages`` (bins and splits as planned).  Each shape
 prints one JSON line:
@@ -61,7 +62,8 @@ def build_timeline():
 
 
 def launcher(entry, X, w, plan):
-    """One launch of K1's C entry ``entry`` in the layout ``plan``."""
+    """One launch of K1's C entry ``entry`` in the layout ``plan`` (whose
+    ``per_bin`` matches ``w``)."""
     C, F, T = X.shape
     N = w.shape[0]
     out = torch.empty((C * C, F, N), device=X.device)
@@ -75,7 +77,7 @@ def launcher(entry, X, w, plan):
             X.data_ptr(), w.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(), None if tickets is None else tickets.data_ptr(),
             C, N, F, T, plan.bins, plan.chunk, plan.stages, plan.splits, plan.span, plan.smem_bytes,
-            int(plan.specialised), stream,
+            int(plan.specialised), int(plan.per_bin), stream,
         )
         _build.check(status, "k1_timeline")
 
@@ -111,6 +113,7 @@ def main(argv):
     parser.add_argument("shape", nargs="*", type=int, help="C N F T, repeated")
     parser.add_argument("--chunk", type=int, help="frames per chunk instead of the plan's")
     parser.add_argument("--stages", type=int, help="stages instead of the plan's")
+    parser.add_argument("--per-bin", action="store_true", help="(N, F, T) weights instead of (N, T)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("k1_timeline: CUDA is not available", file=sys.stderr)
@@ -124,13 +127,13 @@ def main(argv):
     for C, N, F, T in zip(*[iter(values)] * 4):
         X = torch.complex(torch.randn((C, F, T), generator=gen, device="cuda"),
                           torch.randn((C, F, T), generator=gen, device="cuda"))
-        w = torch.rand((N, T), generator=gen, device="cuda") + 0.1
-        plan = k1_launch_plan(C, N, F, T)
+        w = torch.rand((N, F, T) if args.per_bin else (N, T), generator=gen, device="cuda") + 0.1
+        plan = k1_launch_plan(C, N, F, T, args.per_bin)
         if args.chunk or args.stages:
             chunk, stages = args.chunk or plan.chunk, args.stages or plan.stages
-            sums = plan.smem_bytes - plan.stages * _stage_bytes(C, N, plan.bins, plan.chunk)
+            sums = plan.smem_bytes - plan.stages * _stage_bytes(C, N, plan.bins, plan.chunk, args.per_bin)
             plan = plan._replace(chunk=chunk, stages=stages,
-                                 smem_bytes=stages * _stage_bytes(C, N, plan.bins, chunk) + sums)
+                                 smem_bytes=stages * _stage_bytes(C, N, plan.bins, chunk, args.per_bin) + sums)
         launch = launcher(_entry(), X, w, plan)
         print(json.dumps({
             "shape": [C, N, F, T], "plan": plan._asdict(),

@@ -38,12 +38,25 @@ Phases (each asserts; any failure exits non-zero):
      C = 3 on a 120 s recording at stft(1024, 256), 3 x 513 x 7501, 20
      iterations, K1 (frame axis split) once per iteration, loss
      non-increasing, SI-SDR up by more than 5 dB;
-  7. one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
+  7. ILRMA through the entry points, K1 with per-bin (N, F, T) weights: on
+     phase 3's mixture GaussILRMA(n_basis=10) IP x 50 (K1 once per
+     iteration, the loss falls, SI-SDR up by more than 5 dB -- else
+     n_basis=2 is held to that bar --, the first 20 losses against the CPU
+     float64 run from the same seed-111 init, ms per iteration); then 20
+     iterations each of IP2 (one K1 launch for the pair), ISS (no kernel),
+     projection-back normalisation, partitioning, TILRMA(nu=1000) and
+     ConsistentGaussILRMA(4096, 2048), each with falling finite losses and
+     its launch count asserted; TILRMA(nu=1) x 150 at float32 (finite);
+     and on phase 5's mixture GaussILRMA(n_basis=4) IP x 20 at C = 3;
+  8. one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
      line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds K2's Gauss instance at both shapes, K1 at C = 3 with
 N = 2 weight rows (IP2's pair covariances), K1's generic instance at
-C = N = 5, and K1 at C = N = 1.
+C = N = 5, K1 at C = N = 1, and K1 with per-bin (N, F, T) weights at
+2 x 2049 x 469 (N = 2), 3 x 2049 x 469 (N = 3 and IP2's N = 2),
+5 x 2049 x 469 (generic), 2 x 513 x 7501 (split) and 3 x 129 x 7001 (odd
+F T).
 
 ``--profile`` also writes a torch.profiler table of 20 C = 2 iterations to
 ``chiprun_out/profile_c2.txt``.  Exits non-zero without printing a result
@@ -58,14 +71,18 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from audio_source_separation_tpu_torch import (
+    TILRMA,
     AuxGaussIVA,
     AuxLaplaceIVA,
+    ConsistentGaussILRMA,
+    GaussILRMA,
     GradLaplaceIVA,
     NaturalGradLaplaceIVA,
     OverAuxLaplaceIVA,
@@ -98,6 +115,7 @@ N_SAMPLES_LONG = 1_920_000  # 120 s at 16 kHz -> 513 bins x 7501 frames
 FFT_SIZE_LONG, HOP_SIZE_LONG = 1024, 256
 ITERS_C2, ITERS_C2_LONG, ITERS_C3, N_MATCH = 100, 20, 20, 20
 ITERS_ISS_IP2, ITERS_SHORT, ITERS_C5 = 50, 20, 10
+ITERS_ILRMA, ITERS_T_NU1 = 50, 150
 EPS, THRESHOLD = 1e-12, 1e12
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 non-tensor
 HBM_BYTES_PER_S = 3.35e12
@@ -181,29 +199,36 @@ def random_mixture(gen, C, F, T):
     return torch.complex(re, im).contiguous()
 
 
-def k1_case(gen, C, F, T, N=None):
+def k1_case(gen, C, F, T, N=None, per_bin=False):
     """K1 against its plain version, bit-identical across two launches;
     median times warm (X in L2 where it fits) and cold (L2 flushed before
     each call) of the kernel, the plain version and one ``torch.matmul``
-    over precomputed planes."""
+    over precomputed planes (for per-bin weights ``(F, C^2, T) x (F, T,
+    N)``)."""
     X = random_mixture(gen, C, F, T)
-    # 1/R-like weights spanning three decades, N = C rows unless given
-    w = (10.0 ** (3 * torch.rand((N or C, T), generator=gen, device="cuda") - 1.5)).contiguous()
+    # 1/R-like weights spanning three decades, N = C rows unless given;
+    # (N, F, T) with per_bin, as ILRMA's
+    shape = (N or C, F, T) if per_bin else (N or C, T)
+    w = (10.0 ** (3 * torch.rand(shape, generator=gen, device="cuda") - 1.5)).contiguous()
     out = weighted_covariance_planes(X, w)
     again = weighted_covariance_planes(X, w)
     ref = weighted_covariance_planes_plain(X, w)
     torch.cuda.synchronize()
-    plan = k1_launch_plan(C, w.shape[0], F, T)
+    plan = k1_launch_plan(C, w.shape[0], F, T, per_bin)
     assert torch.equal(out, again), ("K1 not bit-identical across launches", C, F, T, plan)
     err = rel_err(out, ref)
-    assert math.isfinite(err) and err <= K1_RTOL, ("K1", C, F, T, err)
+    assert math.isfinite(err) and err <= K1_RTOL, ("K1", C, F, T, per_bin, err)
     planes = pair_products_planes(X).contiguous()
+    if per_bin:
+        library = lambda: torch.matmul(planes.permute(1, 0, 2), w.permute(1, 2, 0))  # noqa: E731
+    else:
+        library = lambda: _covariance_planes(planes, w)  # noqa: E731
     flush = l2_flusher()
     times = {}
     for prefix, fn in [
         ("", lambda: weighted_covariance_planes(X, w)),
         ("plain_", lambda: weighted_covariance_planes_plain(X, w)),
-        ("library_", lambda: _covariance_planes(planes, w)),  # one torch.matmul
+        ("library_", library),  # one torch.matmul
     ]:
         times[prefix + "ms"] = median_ms(fn)
         times[prefix + "cold_ms"] = median_ms(fn, before=flush)
@@ -211,7 +236,7 @@ def k1_case(gen, C, F, T, N=None):
     n_flops = F * T * (3 * C * C + 2 * C * C * w.shape[0])  # pair products + contraction
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return {
-        "C": C, "N": w.shape[0], "F": F, "T": T, "plan": plan._asdict(),
+        "C": C, "N": w.shape[0], "F": F, "T": T, "per_bin": per_bin, "plan": plan._asdict(),
         "max_abs_err": float((out - ref).abs().max()), "rel_err": err, **times,
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
@@ -288,7 +313,7 @@ def per_iteration(X, record, make=AuxLaplaceIVA, n=100):
     run(10)
     short = min(run(10) for _ in range(3))
     long_ = min(run(10 + n) for _ in range(3))
-    state = solver.init_state(X.contiguous())
+    state = solver.init_state(X.contiguous(), **solver.prepare_state_kwargs(X, {}))
     losses = []
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -559,6 +584,78 @@ def five_channels(rng):
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 7: ILRMA, K1 with per-bin weights
+# --------------------------------------------------------------------------- #
+def ilrma_drive(make, mixture, iterations):
+    """:func:`drive` from the seed-111 init (``np.random``, as the JAX
+    package draws it); ISS's "in progress" warning silenced."""
+    np.random.seed(SEED)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return drive(make, mixture, iterations)
+
+
+def ilrma_c2(mixture, images):
+    """GaussILRMA(n_basis=10) IP x 50, then the other ILRMA paths x 20 and
+    TILRMA(nu=1) x 150, on the C = 2 main path's mixture."""
+    before = best_pairing_si_sdr(mixture, images)
+
+    def gauss(**kw):
+        return lambda **more: GaussILRMA(n_basis=10, **kw, **more)
+
+    X, _, y, loss, main = ilrma_drive(gauss(), mixture, ITERS_ILRMA)
+    assert main["k1_launches"] == ITERS_ILRMA and main["k2_launches"] == 0, main
+    assert loss[-1] < loss[0], ("ILRMA IP", loss[0], loss[-1])
+    main["si_sdr_before_db"], main["si_sdr_after_db"] = before, best_pairing_si_sdr(y, images)
+    if main["si_sdr_after_db"] <= before + 5.0:  # the bar stays; n_basis = 2 is held to it
+        _, _, y2, _, two = ilrma_drive(lambda: GaussILRMA(n_basis=2), mixture, ITERS_ILRMA)
+        two["si_sdr_after_db"] = best_pairing_si_sdr(y2, images)
+        main["n_basis_2"] = two
+        assert two["si_sdr_after_db"] > before + 5.0, ("ILRMA SI-SDR", before, main["si_sdr_after_db"], two)
+    np.random.seed(SEED)
+    main["loss_vs_cpu_f64_max_rel"] = loss_vs_cpu_f64("ilrma_ip", gauss(device="cpu"), mixture, loss)
+    main["per_iter_loss_on"] = per_iteration(X, True, gauss(), ITERS_ILRMA)
+    main["per_iter_loss_off"] = per_iteration(X, False, gauss(), ITERS_ILRMA)
+    out = {"gauss_ip": main}
+    for key, make, k1 in [
+        ("gauss_ip2", gauss(algorithm_spatial="IP2"), ITERS_SHORT),  # one launch for the pair
+        ("gauss_iss", gauss(algorithm_spatial="ISS"), 0),
+        ("gauss_projection_back", gauss(normalize="projection-back"), ITERS_SHORT),
+        ("gauss_partitioning", gauss(partitioning=True), ITERS_SHORT),
+        ("t_nu1000", lambda **kw: TILRMA(n_basis=10, nu=1000, **kw), ITERS_SHORT),
+        ("consistent", lambda **kw: ConsistentGaussILRMA(n_basis=10, fft_size=FFT_SIZE, hop_size=HOP_SIZE, **kw),
+         ITERS_SHORT),
+    ]:
+        X, _, y, loss, res = ilrma_drive(make, mixture, ITERS_SHORT)
+        assert res["k1_launches"] == k1 and res["k2_launches"] == 0, (key, res)
+        assert loss[-1] < loss[0], (key, loss[0], loss[-1])
+        res["si_sdr_before_db"], res["si_sdr_after_db"] = before, best_pairing_si_sdr(y, images)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            res["per_iter_loss_off"] = per_iteration(X, False, make, ITERS_SHORT)
+        out[key] = res
+    # the JAX package's float32 regression (tests/test_ilrma.py, nu = 1):
+    # weights over about 10 decades; the guard and denom_floor keep it finite
+    _, _, y, loss, res = ilrma_drive(lambda: TILRMA(n_basis=10, nu=1), mixture, ITERS_T_NU1)
+    assert res["k1_launches"] == ITERS_T_NU1, res
+    res["si_sdr_before_db"], res["si_sdr_after_db"] = before, best_pairing_si_sdr(y, images)
+    out["t_nu1_f32"] = res
+    return out
+
+
+def ilrma_c3(mixture, images):
+    """GaussILRMA(n_basis=4) IP x 20 at C = 3: K1 per bin with N = 3."""
+    X, _, y, loss, res = ilrma_drive(lambda: GaussILRMA(n_basis=4), mixture, ITERS_SHORT)
+    assert res["k1_launches"] == ITERS_SHORT and res["k2_launches"] == 0, res
+    assert loss[-1] < loss[0], ("ILRMA C = 3", loss[0], loss[-1])
+    res["si_sdr_before_db"] = best_pairing_si_sdr(mixture, images)
+    res["si_sdr_after_db"] = best_pairing_si_sdr(y, images)
+    make = lambda recordable_loss: GaussILRMA(n_basis=4, recordable_loss=recordable_loss)  # noqa: E731
+    res["per_iter_loss_off"] = per_iteration(X, False, make, ITERS_SHORT)
+    return res
+
+
 def profile_c2(X, path):
     """torch.profiler table of a 20-iteration C = 2 solver call, and the
     device time of each kernel per iteration."""
@@ -618,6 +715,14 @@ def main():
     k2_gauss = k2_case(gen, F, T, contrast="gauss")
     k2_gauss_long = k2_case(gen, 257, 9000, contrast="gauss")
     print(json.dumps({"k1_pair": k1_pair, "k2_gauss": k2_gauss, "k2_gauss_long": k2_gauss_long}), flush=True)
+    # per-bin (N, F, T) weights, ILRMA's: IP at C = 2 and 3, IP2's pair at
+    # C = 3, the generic instance, the frame axis split, odd F T
+    k1_per_bin = [
+        k1_case(gen, C, F_, T_, N=N, per_bin=True)
+        for C, N, F_, T_ in [(2, 2, F, T), (3, 3, F, T), (3, 2, F, T), (5, 5, F, T), (2, 2, 513, 7501),
+                             (3, 3, 129, 7001)]
+    ]
+    print(json.dumps({"k1_per_bin": k1_per_bin}), flush=True)
 
     rng = np.random.RandomState(SEED)
     X2, mix2, c2 = main_path_c2(rng)
@@ -637,12 +742,15 @@ def main():
         "family_c2": fam2, "family_c3": fam3, "overdetermined_4to2": over, "overdetermined_4to1": over1,
         "laplace_ip_c5": c5,
     }), flush=True)
+    ilrma2 = ilrma_c2(*mix2)
+    ilrma3 = ilrma_c3(*mix3)
+    print(json.dumps({"ilrma_c2": ilrma2, "ilrma_c3": ilrma3}), flush=True)
     if args.profile:
         prof = profile_c2(X2, ROOT / "chiprun_out" / "profile_c2.txt")
         print(json.dumps({"profile_c2": prof}), flush=True)
 
     k1_main = k1[1]  # C = 3, the shape of the K1 main path
-    k1_all = k1 + [k1_long, k1_long_c3, k1_pair] + k1_any
+    k1_all = k1 + [k1_long, k1_long_c3, k1_pair] + k1_any + k1_per_bin
 
     def k2_entry(name, case, case_long, launches, launches_by_path, rtol):
         return {
@@ -672,6 +780,8 @@ def main():
                 "gauss_ip_c3": fam3["gauss_ip"]["k1_launches"],
                 "laplace_ip_c5": c5["k1_launches"],
                 "over_4to1": over1["k1_launches"],
+                **{"ilrma_{}_c2".format(key): res["k1_launches"] for key, res in ilrma2.items()},
+                "ilrma_gauss_ip_c3": ilrma3["k1_launches"],
             },
             "max_abs_err": max(c["max_abs_err"] for c in k1_all),
             "max_rel_err": max(c["rel_err"] for c in k1_all),
@@ -681,7 +791,7 @@ def main():
             "library_ms": k1_main["library_ms"], "shape": [3, F, T],
             "cases": [
                 {key: case[key] for key in (
-                    "C", "N", "F", "T", "ms", "cold_ms", "plain_ms", "plain_cold_ms", "library_ms",
+                    "C", "N", "F", "T", "per_bin", "ms", "cold_ms", "plain_ms", "plain_cold_ms", "library_ms",
                     "library_cold_ms", "bound_ms", "bound_by", "rel_err",
                 )}
                 for case in k1_all

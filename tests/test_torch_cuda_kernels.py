@@ -16,7 +16,14 @@ from audio_source_separation_tpu_torch.ops.cov_kernel import (
     weighted_covariance_planes,
     weighted_covariance_planes_plain,
 )
-from audio_source_separation_tpu_torch import AuxGaussIVA, AuxLaplaceIVA, OverAuxLaplaceIVA
+from audio_source_separation_tpu_torch import (
+    TILRMA,
+    AuxGaussIVA,
+    AuxLaplaceIVA,
+    ConsistentGaussILRMA,
+    GaussILRMA,
+    OverAuxLaplaceIVA,
+)
 from audio_source_separation_tpu_torch.ops.fused_ip import (
     fused_auxiva_ip_iter,
     fused_auxiva_ip_iter_plain,
@@ -75,6 +82,47 @@ def test_k1_is_deterministic(cuda, C, N, F, T):
     assert torch.equal(weighted_covariance_planes(X, w), weighted_covariance_planes(X, w))
 
 
+def _per_bin_weights(seed, N, F, T, device):
+    """1/R-like per-bin weights spanning three decades."""
+    w = 10.0 ** (3 * np.random.RandomState(seed).rand(N, F, T) - 1.5)
+    return torch.as_tensor(w.astype(np.float32), device=device)
+
+
+@pytest.mark.parametrize(
+    "C,N,F,T",
+    [
+        # ILRMA at 60 s, stft(4096, 2048): IP at C = 2 (one stage), C = 3
+        # and IP2's pair at C = 3 (the ring), the generic instance at C = 5
+        (2, 2, 2049, 469), (3, 3, 2049, 469), (3, 2, 2049, 469), (5, 5, 2049, 469),
+        # the frame axis split; odd F T (rows start off 16 bytes); C = N = 1;
+        # N past one generic unit; small odd shapes
+        (2, 2, 513, 7501), (3, 3, 129, 7001), (1, 1, 33, 2000), (2, 9, 129, 100), (4, 4, 31, 7), (3, 1, 9, 3),
+    ],
+)
+def test_k1_per_bin_matches_plain(cuda, C, N, F, T):
+    X = _mixture(C + N, C, F, T, cuda)
+    w = _per_bin_weights(C, N, F, T, cuda)
+    launches = weighted_covariance_planes.launches
+    out = weighted_covariance_planes(X, w)
+    again = weighted_covariance_planes(X, w)
+    assert weighted_covariance_planes.launches == launches + 2
+    assert torch.equal(out, again)
+    ref = weighted_covariance_planes_plain(X, w)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5 * float(ref.abs().max()))
+
+
+def test_k1_per_bin_is_not_per_frame(cuda):
+    """Per-bin weights that differ only across bins give per-bin results:
+    each bin's covariance scales with its own weight."""
+    C, N, F, T = 2, 2, 64, 300
+    X = _mixture(3, C, F, T, cuda)
+    scale = torch.arange(1, F + 1, dtype=torch.float32, device=cuda)
+    ones = torch.ones((N, T), device=cuda)
+    flat = weighted_covariance_planes(X, ones)
+    per_bin = weighted_covariance_planes(X, (scale[None, :, None] * torch.ones((N, F, T), device=cuda)).contiguous())
+    torch.testing.assert_close(per_bin, flat * scale[None, :, None], rtol=1e-5, atol=1e-6 * float(per_bin.abs().max()))
+
+
 def test_k1_rejects_bad_operands(cuda):
     X = _mixture(0, 2, 9, 16, cuda)
     w = torch.ones((2, 16), device=cuda)
@@ -84,6 +132,10 @@ def test_k1_rejects_bad_operands(cuda):
         weighted_covariance_planes(X, w.double())
     with pytest.raises(ValueError):
         weighted_covariance_planes(X, torch.ones((2, 15), device=cuda))
+    with pytest.raises(ValueError):
+        weighted_covariance_planes(X, torch.ones((2, 8, 16), device=cuda))  # F = 9
+    with pytest.raises(ValueError):
+        weighted_covariance_planes(X, torch.ones((2, 16, 9), device=cuda).transpose(1, 2))  # not contiguous
 
 
 def _k2_operands(F, T, device):
@@ -166,3 +218,47 @@ def test_overdetermined_to_one_source_runs_through_k1(cuda):
     torch.cuda.synchronize()
     assert weighted_covariance_planes.launches == 3
     assert Y.shape == (1, 129, 200) and torch.isfinite(Y).all()
+
+
+@pytest.mark.parametrize(
+    "make,C,per_iteration",
+    [
+        (lambda: GaussILRMA(n_basis=4), 2, 1),
+        (lambda: GaussILRMA(n_basis=4), 3, 1),
+        (lambda: GaussILRMA(n_basis=4, algorithm_spatial="IP2"), 3, 1),
+        (lambda: GaussILRMA(n_basis=4, guard="svd"), 2, 1),
+        (lambda: GaussILRMA(n_basis=4), 5, 1),
+        (lambda: GaussILRMA(n_basis=4, normalize="projection-back"), 2, 1),
+        (lambda: TILRMA(n_basis=4, nu=1000), 2, 1),
+        (lambda: ConsistentGaussILRMA(n_basis=4, fft_size=512), 2, 1),
+        (lambda: GaussILRMA(n_basis=4, partitioning=True), 2, 1),
+        (lambda: TILRMA(n_basis=4, nu=1000, partitioning=False, normalize=False), 3, 1),
+    ],
+    ids=["ip-c2", "ip-c3", "ip2-c3", "svd", "ip-c5", "projection-back", "t", "consistent", "partitioning",
+         "t-c3-unnormalised"],
+)
+def test_ilrma_runs_through_k1_per_bin(cuda, make, C, per_iteration):
+    """Every ILRMA iteration on the card forms its covariance by one K1
+    launch with per-bin weights (IP2's pair in one launch); the loss stays
+    finite and falls."""
+    X = _mixture(C, C, 257, 469, cuda)
+    np.random.seed(111)
+    solver = make()
+    weighted_covariance_planes.launches = 0
+    Y = solver(X, iteration=5)
+    torch.cuda.synchronize()
+    assert weighted_covariance_planes.launches == 5 * per_iteration
+    assert torch.isfinite(Y).all() and np.isfinite(solver.loss).all()
+    assert solver.loss[-1] < solver.loss[0]
+
+
+def test_ilrma_iss_launches_no_kernel(cuda):
+    X = _mixture(2, 2, 257, 469, cuda)
+    np.random.seed(111)
+    with pytest.warns(UserWarning):
+        solver = GaussILRMA(n_basis=4, algorithm_spatial="ISS")
+    weighted_covariance_planes.launches = fused_auxiva_ip_iter.launches = 0
+    solver(X, iteration=3)
+    torch.cuda.synchronize()
+    assert weighted_covariance_planes.launches == fused_auxiva_ip_iter.launches == 0
+    assert np.isfinite(solver.loss).all()

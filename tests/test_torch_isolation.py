@@ -73,6 +73,18 @@ def test_port_imports_with_jax_blocked():
         ):
             assert solver(X, iteration=2).shape == (2, 5, 8)
         assert port.OverAuxLaplaceIVA("IP", n_sources=2, device="cpu")(X4, iteration=2).shape == (2, 5, 8)
+        import warnings
+        warnings.simplefilter("ignore")
+        for solver in (
+            port.GaussILRMA(n_basis=2, device="cpu"),
+            port.GaussILRMA(n_basis=2, algorithm_spatial="ISS", device="cpu"),
+            port.GaussILRMA(n_basis=2, algorithm_spatial="IP2", device="cpu"),
+            port.GaussILRMA(n_basis=2, partitioning=True, device="cpu"),
+            port.GaussILRMA(n_basis=2, normalize="projection-back", device="cpu"),
+            port.TILRMA(n_basis=2, device="cpu"),
+            port.ConsistentGaussILRMA(n_basis=2, fft_size=8, device="cpu"),
+        ):
+            assert solver(X, iteration=2).shape == (2, 5, 8)
         assert not [m for m in sys.modules if m.startswith("jax.")]
         print("ok")
         """

@@ -1,5 +1,6 @@
-"""K1's launch plan (``ops/cov_kernel.py::k1_launch_plan``) and the kernel
-build's source hash, on the CPU: the kernel itself runs only on a card
+"""K1's launch plan (``ops/cov_kernel.py::k1_launch_plan``), for ``(N, T)``
+and per-bin ``(N, F, T)`` weights, and the kernel build's source hash, on
+the CPU: the kernel itself runs only on a card
 (``test_torch_cuda_kernels.py``)."""
 
 import numpy as np
@@ -11,6 +12,8 @@ from audio_source_separation_tpu_torch.ops.cov_kernel import (
     SMEM_LIMIT,
     STATIC_SMEM,
     TARGET_BLOCKS,
+    TWO_PER_SM,
+    _stage_bytes,
     k1_launch_plan,
 )
 
@@ -52,6 +55,56 @@ def test_k1_plan_fits_a_hopper_block(C, T):
         assert 1 <= plan.stages <= MAX_STAGES
         assert plan.span * (plan.splits - 1) < T <= plan.span * plan.splits
         assert plan.groups == -(-2049 // plan.bins)
+
+
+@pytest.mark.parametrize("T", [1, 7, 469, 7501, 100_000])
+@pytest.mark.parametrize("C", range(1, 9))
+def test_k1_per_bin_plan_fits_a_hopper_block(C, T):
+    """Per-bin ``(N, F, T)`` weights stage ``N * bins`` weight rows a
+    chunk; every C up to 8 still gets a plan within a block's shared memory,
+    and the same grid as ``(N, T)`` weights."""
+    for N in sorted({1, 2, C, 8}):
+        plan = k1_launch_plan(C, N, 2049, T, per_bin=True)
+        flat = k1_launch_plan(C, N, 2049, T)
+        assert plan.per_bin and not flat.per_bin
+        assert plan.smem_bytes + STATIC_SMEM <= SMEM_LIMIT
+        assert plan.chunk >= 2 and plan.chunk % 2 == 0 and 1 <= plan.stages <= MAX_STAGES
+        assert (plan.bins, plan.splits, plan.span, plan.groups, plan.specialised) == (
+            flat.bins, flat.splits, flat.span, flat.groups, flat.specialised
+        )
+        assert plan.chunk <= flat.chunk  # more rows a frame: never a longer chunk
+
+
+@pytest.mark.parametrize(
+    "C,N,stages",
+    [(2, 2, 1), (3, 3, 2), (3, 2, 2), (4, 4, 2), (5, 5, 1), (1, 1, 1)],
+)
+def test_k1_per_bin_plan_at_2049_bins(C, N, stages):
+    """At 2049 x 469 a stage of 470 frames of C channels and N per-bin
+    weight rows for 8 bins fits beside a second block at C = N = 2 (91 KB),
+    not at C = 3 (136 KB for N = 3, 121 KB for IP2's N = 2, against 115 KB):
+    there the plan takes the ring of two stages."""
+    plan = k1_launch_plan(C, N, 2049, 469, per_bin=True)
+    assert plan.splits == 1 and plan.stages == stages
+    assert (plan.chunk == plan.span) == (stages == 1)
+    stage = (plan.smem_bytes - -(-C * C * plan.bins * N * 4 // 16) * 16) // plan.stages
+    assert stage == _stage_bytes(C, N, plan.bins, plan.chunk, per_bin=True)
+    if stages == 2:
+        assert _stage_bytes(C, N, plan.bins, plan.span, per_bin=True) > TWO_PER_SM
+
+
+@pytest.mark.parametrize("C,N,F,T", [(2, 2, 513, 7501), (3, 3, 129, 7001), (3, 3, 513, 7501), (5, 5, 65, 16_384)])
+def test_k1_per_bin_plan_grid_covers_every_bin_and_frame_once(C, N, F, T):
+    plan = k1_launch_plan(C, N, F, T, per_bin=True)
+    assert plan.splits > 1
+    seen = np.zeros((F, T), dtype=np.int32)
+    for block in range(plan.groups * plan.splits):
+        group, split = divmod(block, plan.splits)
+        f0, f1 = group * plan.bins, min(F, (group + 1) * plan.bins)
+        t_begin, t_end = split * plan.span, min(T, (split + 1) * plan.span)
+        for t0 in range(t_begin, t_end, plan.chunk):
+            seen[f0:f1, t0:min(t0 + plan.chunk, t_end)] += 1
+    assert (seen == 1).all()
 
 
 @pytest.mark.parametrize("C,N,F,T", [(0, 1, 9, 9), (1, 0, 9, 9), (1, 1, 0, 9), (1, 1, 9, 0), (-1, 2, 9, 9)])

@@ -1,7 +1,9 @@
 """The port's spatial-update ops against the JAX package on the CPU at
 float64: the trailing-axes closed forms, ``ops/ip.py``, ``ops/iss.py``,
-``ops/eig2.py``, the IP2 and gradient-step additions to
-``ops/ip_components.py``, and ``transform/pca.py``.
+``ops/eig2.py``, the IP2, gradient-step and ILRMA additions to
+``ops/ip_components.py`` (the planes covariance helpers with ``(N, T)`` and
+per-bin ``(N, F, T)`` weights, the quadratic powers, the Gram and the
+projection-back scales), and ``transform/pca.py``.
 
 Tolerance rtol 1e-10 throughout: the port repeats the JAX package's
 formulas, so the two differ by summation order only.  The PCA is compared
@@ -233,6 +235,76 @@ def test_ip2_pair_update_planes(rng, C, m, n, guard):
     )
     ref = jic.ip2_pair_update_planes(jnp.asarray(W), jnp.asarray(U), jnp.asarray(m), jnp.asarray(n), guard=guard)
     _close(ours, ref)
+
+
+def _weights(rng, n, per_bin):
+    return np.abs(rng.randn(*((n, F, T) if per_bin else (n, T)))) + 0.1
+
+
+@pytest.mark.parametrize("per_bin", [False, True])
+@pytest.mark.parametrize("C", [1, 2, 3, 5])
+def test_planes_covariance_helpers_take_both_weight_ranks(rng, C, per_bin):
+    """``_covariance_planes`` (K1's plain version) and the three forms built
+    on it, with ``(N, T)`` and per-bin ``(N, F, T)`` weights (ILRMA's)."""
+    X = make_mixture(rng, n_channels=C, n_bins=F, n_frames=T)
+    w = _weights(rng, C, per_bin)
+    planes_t, planes_j = tic.pair_products_planes(torch.as_tensor(X)), jic.pair_products_planes(jnp.asarray(X))
+    wt, wj = torch.as_tensor(w), jnp.asarray(w)
+    compact = tic._covariance_planes(planes_t, wt)
+    assert compact.shape == (C * C, F, C)
+    _close(compact, jic._covariance_planes(planes_j, wj))
+    _close(tic.weighted_covariance_components(planes_t, wt), jic.weighted_covariance_components(planes_j, wj))
+    _close(tic.weighted_covariance_planes_array(planes_t, wt), jic.weighted_covariance_planes_array(planes_j, wj))
+    _close(tic.weighted_covariance_planes_stack(planes_t, wt), jic.weighted_covariance_planes_stack(planes_j, wj))
+
+
+@pytest.mark.parametrize("per_bin", [False, True])
+@pytest.mark.parametrize("C", [1, 2, 3, 5])
+def test_ip_sweep_from_planes_both_weight_ranks(rng, C, per_bin):
+    X = make_mixture(rng, n_channels=C, n_bins=F, n_frames=T)
+    W = np.eye(C) + 0.3 * _complex(rng, F, C, C)
+    w = _weights(rng, C, per_bin)
+    ours = tic.ip_sweep_from_planes(torch.as_tensor(W), tic.pair_products_planes(torch.as_tensor(X)), torch.as_tensor(w))
+    ref = jic.ip_sweep_from_planes(jnp.asarray(W), jic.pair_products_planes(jnp.asarray(X)), jnp.asarray(w))
+    _close(ours, ref)
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 5])
+def test_quadratic_power(rng, C):
+    """``|W X|^2`` from the planes, against JAX and the direct power."""
+    X = make_mixture(rng, n_channels=C, n_bins=F, n_frames=T)
+    W = np.eye(C) + 0.3 * _complex(rng, F, C, C)
+    planes_t, planes_j = tic.pair_products_planes(torch.as_tensor(X)), jic.pair_products_planes(jnp.asarray(X))
+    ours = tic.quadratic_power_planes(torch.as_tensor(W), planes_t)
+    _close(ours, jic.quadratic_power_planes(jnp.asarray(W), planes_j))
+    np.testing.assert_allclose(_np(ours), np.abs(np.einsum("fnc,cft->nft", W, X)) ** 2, rtol=1e-10)
+    rows = [[W[:, n, c] for c in range(C)] for n in range(C)]
+    _close(
+        tic.quadratic_power_components(_nested(torch.as_tensor, rows), planes_t),
+        jic.quadratic_power_components(_nested(jnp.asarray, rows), planes_j),
+    )
+
+
+@pytest.mark.parametrize("reference_id", [0, 1])
+@pytest.mark.parametrize("C", [1, 2, 3, 5])
+def test_gram_and_projection_back_components(rng, C, reference_id):
+    """The projection-back scales from the Gram against JAX's and against
+    the least-squares fit on the estimates themselves."""
+    from audio_source_separation_tpu_torch.algorithm.projection_back import projection_back
+
+    reference_id = min(reference_id, C - 1)
+    X = make_mixture(rng, n_channels=C, n_bins=F, n_frames=T)
+    W = np.eye(C) + 0.3 * _complex(rng, F, C, C)
+    planes_t, planes_j = tic.pair_products_planes(torch.as_tensor(X)), jic.pair_products_planes(jnp.asarray(X))
+    G = tic.gram_components(planes_t)
+    _close(G, jic.gram_components(planes_j))
+    rows = [[W[:, n, c] for c in range(C)] for n in range(C)]
+    ours = tic.projection_back_components(_nested(torch.as_tensor, rows), G, reference_id=reference_id)
+    ref = jic.projection_back_components(_nested(jnp.asarray, rows), jic.gram_components(planes_j), reference_id=reference_id)
+    _close(ours, ref)
+    Y = torch.as_tensor(np.einsum("fnc,cft->nft", W, X))
+    direct = projection_back(Y, reference=torch.as_tensor(X[reference_id]))
+    np.testing.assert_allclose(_np(torch.stack(ours)), _np(direct), rtol=1e-8)
 
 
 def test_dynamic_set_row(rng):
