@@ -14,7 +14,11 @@ and the ``SparseAuxIVA`` stub -- and the ILRMA family (``models/ilrma.py``):
 ``GaussILRMA`` (IP, ISS, IP2, partitioning, ``power`` and
 ``projection-back`` normalisation), ``TILRMA`` (alias ``tILRMA``),
 ``ConsistentGaussILRMA`` and the ``GGDILRMA``, ``KLILRMA`` and
-``RegularizedILRMA`` stubs.
+``RegularizedILRMA`` stubs -- and the single-channel factorisation models
+(``models/nmf.py``, ``models/ntf.py``): ``EUCNMF``, ``KLNMF``, ``ISNMF``,
+``TNMF`` (alias ``tNMF``), ``CauchyNMF``, ``ComplexEUCNMF``, the
+covariance-domain ``CovarianceISNMF`` and ``EUCNTF``, with the divergences
+(``criterion``) and ``solve_riccati``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise rather than fall back.
@@ -26,12 +30,20 @@ complex, demixing filters ``(n_bins, n_sources, n_channels)``, output
 
 __version__ = "0.1.0"
 
-from .algorithm import apply_projection_back, projection_back  # noqa: F401
+from .algorithm import apply_projection_back, projection_back, solve_riccati  # noqa: F401
 from .models import (  # noqa: F401
+    EUCNMF,
+    EUCNTF,
+    ISNMF,
+    KLNMF,
     TILRMA,
+    TNMF,
     AuxGaussIVA,
     AuxLaplaceIVA,
+    CauchyNMF,
+    ComplexEUCNMF,
     ConsistentGaussILRMA,
+    CovarianceISNMF,
     GaussILRMA,
     GGDILRMA,
     GradLaplaceIVA,
@@ -41,6 +53,7 @@ from .models import (  # noqa: F401
     RegularizedILRMA,
     SparseAuxIVA,
     tILRMA,
+    tNMF,
 )
 from .runtime import resolve_device  # noqa: F401
 from .transform import build_optimal_window, build_window, istft, pca, stft  # noqa: F401

@@ -15,6 +15,14 @@ from .iva import (  # noqa: F401
     OverAuxLaplaceIVA,
     SparseAuxIVA,
 )
+from .nmf import EUCNMF, ISNMF, KLNMF, TNMF, CauchyNMF, ComplexEUCNMF, tNMF  # noqa: F401
+
+# the reference has two classes named ``MultichannelISNMF``: this
+# covariance-domain factoriser and the Sawada/Ozerov BSS solver; as in the JAX
+# package, the BSS solver keeps the name and the factoriser is
+# ``CovarianceISNMF`` (or ``models.nmf.MultichannelISNMF``)
+from .nmf import MultichannelISNMF as CovarianceISNMF  # noqa: F401
+from .ntf import EUCNTF  # noqa: F401
 
 __all__ = [
     "GradLaplaceIVA",
@@ -23,6 +31,15 @@ __all__ = [
     "AuxGaussIVA",
     "SparseAuxIVA",
     "OverAuxLaplaceIVA",
+    "EUCNMF",
+    "KLNMF",
+    "ISNMF",
+    "TNMF",
+    "tNMF",
+    "CauchyNMF",
+    "ComplexEUCNMF",
+    "CovarianceISNMF",
+    "EUCNTF",
     "GaussILRMA",
     "TILRMA",
     "tILRMA",

@@ -50,14 +50,11 @@ from ..ops.ip_components import (
     quadratic_power_planes,
 )
 from ..ops.iss import iss_sweep
+from ..runtime.solver import real_tensor
 from ..utils.flooring import EPS, THRESHOLD, floor_below
 from .iva import IVABase, _pair_update_matrix
 
 __algorithms_spatial__ = ["IP", "IVA", "ISS", "IPA", "pairwise", "IP1", "IP2"]
-
-
-def _real_tensor(value, X):
-    return torch.as_tensor(value).to(device=X.device, dtype=X.real.dtype).contiguous()
 
 
 class ILRMABase(IVABase):
@@ -125,9 +122,9 @@ class ILRMABase(IVABase):
         self, X, demix_filter=None, estimation=None, basis=None, activation=None, latent=None, step_count=None
     ):
         W = self._initial_filter(X, demix_filter)
-        state = {"input": X, "basis": _real_tensor(basis, X), "activation": _real_tensor(activation, X)}
+        state = {"input": X, "basis": real_tensor(basis, X), "activation": real_tensor(activation, X)}
         if self.partitioning:
-            state["latent"] = _real_tensor(latent, X)
+            state["latent"] = real_tensor(latent, X)
         if self._is_iss:
             # ISS carries no W: a passed ``estimation`` is the state
             state["estimation"] = self.separate(X, W) if estimation is None else torch.as_tensor(estimation).to(X)

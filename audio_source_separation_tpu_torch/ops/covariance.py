@@ -31,3 +31,9 @@ def weighted_covariance_auto(X, weights):
     CUDA mixture, its plain version on the CPU) at any C and N, for ``(N,
     T)`` and per-bin ``(N, F, T)`` weights alike."""
     return assemble_matrices(weighted_covariance_planes(X, weights))
+
+
+def spatial_covariance(X):
+    """Unweighted per-bin spatial covariance ``(n_bins, C, C)``, the mean
+    over frames."""
+    return torch.einsum("cft,dft->fcd", X, X.conj()) / X.shape[-1]

@@ -6,7 +6,10 @@ warm-startable host arrays.  Its IVA solvers publish the demixing filter as
 ``demix_components (N, C, F)``; ISS publishes no filter, only
 ``estimation``; IP2 adds its pair counter ``step_count``.  The ILRMA solvers
 add their source model: ``basis``, ``activation`` and, with partitioning,
-``latent``.
+``latent``.  The factorisation models write their factors: ``basis`` and
+``activation`` (NMF; ``ComplexEUCNMF`` writes no ``phase``, its phase state
+being phasor planes), with ``spatial`` (``CovarianceISNMF``, its basis in
+the input frame) or ``partitioning`` (``EUCNTF``).
 :func:`state_from_jax` turns these into the port's warm-start kwargs, so a
 JAX run resumes in the port.
 """
@@ -18,23 +21,27 @@ import torch
 
 from ..runtime.device import resolve_device
 
+# the state arrays that carry over as they are
+STATE_ARRAYS = ("estimation", "basis", "activation", "latent", "spatial", "partitioning", "phase")
+
 
 def state_from_jax(arrays, device=None):
-    """Warm-start kwargs for the port's IVA and ILRMA solvers from JAX
-    solver state.
+    """Warm-start kwargs for the port's solvers from JAX solver state.
 
     Args:
         arrays: a mapping of numpy arrays holding any of ``demix_filter (F,
             N, C)`` or ``demix_components (N, C, F)``, ``estimation (N, F,
-            T)``, ``basis``, ``activation``, ``latent`` and ``step_count
-            ()``, or the path of an ``.npz`` written by the JAX
-            ``save_state``.
+            T)``, ``basis``, ``activation``, ``latent``, ``spatial``,
+            ``partitioning``, ``phase`` and ``step_count ()``, or the path
+            of an ``.npz`` written by the JAX ``save_state``.
         device: where the tensors go; ``None`` means ``"cuda"``.
     Returns:
         a dict with ``demix_filter`` (tensor ``(F, N, C)``), ``estimation``
         (tensor; it seeds ISS, and the other updates re-derive the
-        estimates from the filter), ``basis``, ``activation``, ``latent``
-        (tensors) and ``step_count`` (int), each where the JAX state had it.
+        estimates from the filter), the other arrays as tensors and
+        ``step_count`` (int), each where the JAX state had it.
+    Raises:
+        KeyError: the state holds none of these arrays.
     """
     if isinstance(arrays, (str, os.PathLike)):
         with np.load(arrays) as data:
@@ -45,11 +52,12 @@ def state_from_jax(arrays, device=None):
         kwargs["demix_filter"] = np.asarray(arrays["demix_filter"])
     elif "demix_components" in arrays:
         kwargs["demix_filter"] = np.transpose(np.asarray(arrays["demix_components"]), (2, 0, 1))
-    for field in ("estimation", "basis", "activation", "latent"):
+    for field in STATE_ARRAYS:
         if field in arrays:
             kwargs[field] = np.asarray(arrays[field])
-    if "demix_filter" not in kwargs and "estimation" not in kwargs:
-        raise KeyError("JAX state holds none of 'demix_filter', 'demix_components' or 'estimation'")
+    if not kwargs:
+        known = ("demix_filter", "demix_components") + STATE_ARRAYS
+        raise KeyError("JAX state holds none of {}".format(", ".join(map(repr, known))))
     kwargs = {k: torch.as_tensor(np.ascontiguousarray(v), device=device) for k, v in kwargs.items()}
     if "step_count" in arrays:
         kwargs["step_count"] = int(np.asarray(arrays["step_count"]))

@@ -48,7 +48,18 @@ Phases (each asserts; any failure exits non-zero):
      ConsistentGaussILRMA(4096, 2048), each with falling finite losses and
      its launch count asserted; TILRMA(nu=1) x 150 at float32 (finite);
      and on phase 5's mixture GaussILRMA(n_basis=4) IP x 20 at C = 3;
-  8. one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
+  8. the factorisation models through the entry points at n_basis = 10, on
+     the targets the JAX package's benchmark rows take (benchmarks/
+     run_all.py) from phase 3's mixture: |X[0]|^2 (2049 x 469) for EUCNMF,
+     KLNMF, ISNMF (mm, me), TNMF and CauchyNMF (all four rules) x 50,
+     X[0] for ComplexEUCNMF x 20, |X|^2 (2 x 2049 x 469) for EUCNTF x 50,
+     the covariances (2049 x 469 x 2 x 2) for CovarianceISNMF x 20, and
+     phase 5's C = 3 covariances through its eigh path x 20; finite
+     losses, the last below the first where tests/test_nmf.py holds it,
+     the first 20 losses against the CPU float64 run from the same
+     seed-111 init, neither kernel launched, ms and host ms per iteration,
+     and the batched eigh's time;
+  9. one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
      line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds K2's Gauss instance at both shapes, K1 at C = 3 with
@@ -78,10 +89,18 @@ import numpy as np
 import torch
 
 from audio_source_separation_tpu_torch import (
+    EUCNMF,
+    EUCNTF,
+    ISNMF,
+    KLNMF,
     TILRMA,
+    TNMF,
     AuxGaussIVA,
     AuxLaplaceIVA,
+    CauchyNMF,
+    ComplexEUCNMF,
     ConsistentGaussILRMA,
+    CovarianceISNMF,
     GaussILRMA,
     GradLaplaceIVA,
     NaturalGradLaplaceIVA,
@@ -116,6 +135,7 @@ FFT_SIZE_LONG, HOP_SIZE_LONG = 1024, 256
 ITERS_C2, ITERS_C2_LONG, ITERS_C3, N_MATCH = 100, 20, 20, 20
 ITERS_ISS_IP2, ITERS_SHORT, ITERS_C5 = 50, 20, 10
 ITERS_ILRMA, ITERS_T_NU1 = 50, 150
+ITERS_FACTOR, FACTOR_BASIS = 50, 10
 EPS, THRESHOLD = 1e-12, 1e12
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 non-tensor
 HBM_BYTES_PER_S = 3.35e12
@@ -126,6 +146,12 @@ K2_RTOL = 1e-4  # the same, for W, psum and the NLL
 K2_GAUSS_RTOL = 1e-5  # the Gauss instance's W and psum (its NLL: K2_RTOL)
 LOSS_MONOTONE_RTOL = 1e-5  # f32 loss may rise by rounding noise only
 LOSS_MATCH_RTOL = 1e-4  # card f32 vs CPU f64, first 20 losses
+# the same, by factorisation case where float32 cannot hold LOSS_MATCH_RTOL
+# (PERF.md gives each gap): the covariance model's loss holds the target's own
+# log-determinant, and a rank-1 snapshot covariance's small eigenvalue is
+# rounding noise at float32 (floored at eps at float64), about 10% (C = 2) and
+# 20% (C = 3) of the loss on this mixture
+FACTOR_MATCH_RTOL = {"covariance_isnmf_c2": 0.15, "covariance_isnmf_c3": 0.3}
 ROOT = Path(__file__).resolve().parent
 
 
@@ -656,6 +682,111 @@ def ilrma_c3(mixture, images):
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 8: the factorisation models, no kernel
+# --------------------------------------------------------------------------- #
+# key, class, kwargs, target, iterations, whether tests/test_nmf.py holds the
+# loss to fall (not CauchyNMF's naive rule; not ComplexEUCNMF at its default
+# regularizer, whose fit loss may rise)
+FACTOR_CASES = [
+    ("eucnmf", EUCNMF, {}, "power", ITERS_FACTOR, True),
+    ("klnmf", KLNMF, {}, "power", ITERS_FACTOR, True),
+    ("isnmf_mm", ISNMF, {}, "power", ITERS_FACTOR, True),
+    ("isnmf_me", ISNMF, {"algorithm": "me"}, "power", ITERS_FACTOR, True),
+    ("tnmf", TNMF, {}, "power", ITERS_FACTOR, True),
+    ("cauchy_naive", CauchyNMF, {}, "power", ITERS_FACTOR, False),
+    ("cauchy_mm", CauchyNMF, {"algorithm": "mm"}, "power", ITERS_FACTOR, True),
+    ("cauchy_me", CauchyNMF, {"algorithm": "me"}, "power", ITERS_FACTOR, True),
+    ("cauchy_mm_fast", CauchyNMF, {"algorithm": "mm_fast"}, "power", ITERS_FACTOR, True),
+    ("complex_eucnmf", ComplexEUCNMF, {}, "spectrogram", ITERS_SHORT, False),
+    ("eucntf", EUCNTF, {}, "power_tensor", ITERS_FACTOR, True),
+    ("covariance_isnmf_c2", CovarianceISNMF, {}, "covariance", ITERS_SHORT, True),
+    ("covariance_isnmf_c3", CovarianceISNMF, {}, "covariance_c3", ITERS_SHORT, True),
+]
+
+
+def with_loss(model, recordable_loss):
+    """The factorisation constructors take no ``recordable_loss``, as in the
+    JAX package: the loss is switched on the instance."""
+    model.recordable_loss = recordable_loss
+    model.loss = [] if recordable_loss else None
+    return model
+
+
+def factor_targets(X, X3):
+    """The targets of the JAX package's benchmark rows (benchmarks/
+    run_all.py) from the mixtures ``X (2, F, T)`` and ``X3 (3, F, T)``."""
+    return {
+        "power": X[0].abs() ** 2,
+        "spectrogram": X[0],
+        "power_tensor": X.abs() ** 2,
+        "covariance": torch.einsum("cft,dft->ftcd", X, X.conj()),
+        "covariance_c3": torch.einsum("cft,dft->ftcd", X3, X3.conj()),
+    }
+
+
+def factorisation(mixture, mixture3):
+    """Every case of ``FACTOR_CASES`` from the seed-111 init on the card, its
+    first ``N_MATCH`` losses against the port's CPU float64 run from the
+    same draws, then its ms and host ms per iteration.  Returns the results
+    and the list of failed checks (the caller prints, then fails)."""
+    stfts = [
+        [stft(m.astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE) for m in (mixture, mixture3)],
+        [stft(m, fft_size=FFT_SIZE, hop_size=HOP_SIZE, device="cpu") for m in (mixture, mixture3)],
+    ]
+    targets, targets_cpu = (factor_targets(*pair) for pair in stfts)
+    out, failed = {}, []
+    phase_start = time.perf_counter()
+    for key, cls, kw, target, iterations, falls in FACTOR_CASES:
+        np.random.seed(SEED)
+        fused_auxiva_ip_iter.launches = 0
+        weighted_covariance_planes.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        model = cls(n_basis=FACTOR_BASIS, **kw)
+        factors = model(targets[target], iteration=iterations)
+        torch.cuda.synchronize()
+        loss = np.asarray(model.loss)
+        res = out[key] = {
+            "target_shape": list(targets[target].shape), "iterations": iterations,
+            "wall_s": time.perf_counter() - start,
+            "k1_launches": weighted_covariance_planes.launches, "k2_launches": fused_auxiva_ip_iter.launches,
+            "loss_first": float(loss[0]), "loss_last": float(loss[-1]),
+            "factor_shapes": [list(f.shape) for f in factors],
+        }
+        np.random.seed(SEED)
+        start = time.perf_counter()
+        reference = cls(n_basis=FACTOR_BASIS, device="cpu", **kw)
+        reference(targets_cpu[target], iteration=N_MATCH)
+        gap = np.abs(loss[:N_MATCH] - reference.loss) / np.abs(reference.loss)
+        rtol = FACTOR_MATCH_RTOL.get(key, LOSS_MATCH_RTOL)
+        res.update(
+            cpu_f64_s=time.perf_counter() - start, loss_vs_cpu_f64_max_rel=float(gap.max()),
+            at_iteration=int(gap.argmax()), tolerance=rtol,
+        )
+        checks = {
+            "loss length": len(loss) == iterations,
+            "finite losses": bool(np.isfinite(loss).all()),
+            "finite factors": all(bool(torch.isfinite(f).all()) for f in factors),
+            "no kernel": res["k1_launches"] == res["k2_launches"] == 0,
+            "loss falls": loss[-1] < loss[0] or not falls,
+            "loss vs CPU float64 within {}".format(rtol): gap.max() <= rtol,
+        }
+        failed += ["{}: {}".format(key, name) for name, ok in checks.items() if not ok]
+    for key, cls, kw, target, _, _ in FACTOR_CASES:
+        make = lambda recordable_loss: with_loss(cls(n_basis=FACTOR_BASIS, **kw), recordable_loss)  # noqa: E731
+        out[key]["per_iter_loss_on"] = per_iteration(targets[target], True, make, ITERS_SHORT)
+        out[key]["per_iter_loss_off"] = per_iteration(targets[target], False, make, ITERS_SHORT)
+    # the C = 3 spatial update's batched eigh: (F, K) = 2049 x 10 Hermitian
+    # 3 x 3 complex64 matrices, three calls an iteration
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    A = torch.randn((2049, FACTOR_BASIS, 3, 3), dtype=torch.complex64, device="cuda", generator=gen)
+    A = A @ A.mH
+    out["eigh_3x3_ms"] = median_ms(lambda: torch.linalg.eigh(A))
+    out["phase_s"] = time.perf_counter() - phase_start
+    return out, failed
+
+
 def profile_c2(X, path):
     """torch.profiler table of a 20-iteration C = 2 solver call, and the
     device time of each kernel per iteration."""
@@ -745,6 +876,12 @@ def main():
     ilrma2 = ilrma_c2(*mix2)
     ilrma3 = ilrma_c3(*mix3)
     print(json.dumps({"ilrma_c2": ilrma2, "ilrma_c3": ilrma3}), flush=True)
+    factor, factor_failed = factorisation(mix2[0], mix3[0])
+    print(json.dumps({"factorisation": factor}), flush=True)
+    assert not factor_failed, factor_failed
+    factor_launches = {
+        kernel: sum(factor[key][kernel + "_launches"] for key, *_ in FACTOR_CASES) for kernel in ("k1", "k2")
+    }
     if args.profile:
         prof = profile_c2(X2, ROOT / "chiprun_out" / "profile_c2.txt")
         print(json.dumps({"profile_c2": prof}), flush=True)
@@ -782,6 +919,7 @@ def main():
                 "over_4to1": over1["k1_launches"],
                 **{"ilrma_{}_c2".format(key): res["k1_launches"] for key, res in ilrma2.items()},
                 "ilrma_gauss_ip_c3": ilrma3["k1_launches"],
+                "factorisation": factor_launches["k1"],
             },
             "max_abs_err": max(c["max_abs_err"] for c in k1_all),
             "max_rel_err": max(c["rel_err"] for c in k1_all),
@@ -800,12 +938,12 @@ def main():
         k2_entry(
             "fused_auxiva_ip (K2, Laplace contrast)", k2, k2_long, c2["k2_launches"],
             {"laplace_ip_c2": c2["k2_launches"], "laplace_ip_c2_long": c2_long["k2_launches"],
-             "over_4to2": over["k2_launches"]},
+             "over_4to2": over["k2_launches"], "factorisation": factor_launches["k2"]},
             K2_RTOL,
         ),
         k2_entry(
             "fused_auxiva_ip (K2, Gauss contrast)", k2_gauss, k2_gauss_long, fam2["gauss_ip"]["k2_launches"],
-            {"gauss_ip_c2": fam2["gauss_ip"]["k2_launches"]}, K2_GAUSS_RTOL,
+            {"gauss_ip_c2": fam2["gauss_ip"]["k2_launches"], "factorisation": factor_launches["k2"]}, K2_GAUSS_RTOL,
         ),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,10 +17,16 @@ from audio_source_separation_tpu_torch.ops.cov_kernel import (
     weighted_covariance_planes_plain,
 )
 from audio_source_separation_tpu_torch import (
+    EUCNMF,
+    EUCNTF,
+    ISNMF,
     TILRMA,
     AuxGaussIVA,
     AuxLaplaceIVA,
+    CauchyNMF,
+    ComplexEUCNMF,
     ConsistentGaussILRMA,
+    CovarianceISNMF,
     GaussILRMA,
     OverAuxLaplaceIVA,
 )
@@ -262,3 +268,52 @@ def test_ilrma_iss_launches_no_kernel(cuda):
     torch.cuda.synchronize()
     assert weighted_covariance_planes.launches == fused_auxiva_ip_iter.launches == 0
     assert np.isfinite(solver.loss).all()
+
+
+@pytest.mark.parametrize(
+    "make,target",
+    [
+        (lambda **kw: EUCNMF(n_basis=4, **kw), "power"),
+        (lambda **kw: ISNMF(n_basis=4, algorithm="me", **kw), "power"),
+        (lambda **kw: CauchyNMF(n_basis=4, algorithm="mm", **kw), "power"),
+        (lambda **kw: ComplexEUCNMF(n_basis=4, regularizer=0.0, **kw), "spectrogram"),
+        (lambda **kw: EUCNTF(n_basis=4, **kw), "power_tensor"),
+        (lambda **kw: CovarianceISNMF(n_basis=4, **kw), "covariance"),
+        (lambda **kw: CovarianceISNMF(n_basis=4, **kw), "covariance_c3"),
+    ],
+    ids=["eucnmf", "isnmf-me", "cauchy-mm", "complex", "eucntf", "covariance-c2", "covariance-c3"],
+)
+def test_factorisation_on_the_card(cuda, make, target):
+    """The factorisation models on the card: no kernel, one finite loss per
+    update, the CPU's float32 losses from the same init, and the caller's
+    TF32 setting off inside the loop and back after the call."""
+    X = _mixture(3, 3, 129, 100, cuda) + 0.1
+    # full-rank covariances: a rank-1 one's small eigenvalue is rounding
+    # noise at float32, which the card and the CPU round differently
+    eye = 0.1 * torch.eye(3, device=cuda)
+    targets = {
+        "power": X[0].abs() ** 2,
+        "spectrogram": X[0],
+        "power_tensor": X.abs() ** 2,
+        "covariance": torch.einsum("cft,dft->ftcd", X[:2], X[:2].conj()) + eye[:2, :2],
+        "covariance_c3": torch.einsum("cft,dft->ftcd", X, X.conj()) + eye,
+    }
+    Z = targets[target]
+    np.random.seed(111)
+    init = make(device="cpu").prepare_state_kwargs(Z.cpu(), {})
+    reference = make(device="cpu")
+    reference(Z.cpu(), iteration=5, **init)
+    seen = []
+    weighted_covariance_planes.launches = fused_auxiva_ip_iter.launches = 0
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        model = make()
+        out = model(Z, iteration=5, callbacks=[lambda m: seen.append(torch.backends.cuda.matmul.allow_tf32)], **init)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert seen == [False] * 6
+    assert weighted_covariance_planes.launches == fused_auxiva_ip_iter.launches == 0
+    assert all(f.device.type == "cuda" and torch.isfinite(f).all() for f in out)
+    assert len(model.loss) == 5 and np.isfinite(model.loss).all()
+    np.testing.assert_allclose(model.loss, reference.loss, rtol=1e-4)

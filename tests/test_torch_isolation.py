@@ -85,6 +85,21 @@ def test_port_imports_with_jax_blocked():
             port.ConsistentGaussILRMA(n_basis=2, fft_size=8, device="cpu"),
         ):
             assert solver(X, iteration=2).shape == (2, 5, 8)
+        from audio_source_separation_tpu_torch import criterion
+        from audio_source_separation_tpu_torch.ops import ip_update, spatial_covariance
+        P = np.abs(X[0]) ** 2
+        for solver in (
+            port.EUCNMF(device="cpu"),
+            port.KLNMF(device="cpu"),
+            port.ISNMF(algorithm="me", device="cpu"),
+            port.tNMF(device="cpu"),
+            port.CauchyNMF(algorithm="mm_fast", device="cpu"),
+        ):
+            assert solver(P, iteration=2)[0].shape == (5, 2)
+        assert port.ComplexEUCNMF(device="cpu")(X[0], iteration=2)[2].shape == (5, 2, 8)
+        assert port.EUCNTF(device="cpu")(np.abs(X) ** 2, iteration=2)[0].shape == (2, 2)
+        covariance = np.einsum("cft,dft->ftcd", X, X.conj())
+        assert port.CovarianceISNMF(n_basis=2, device="cpu")(covariance, iteration=2)[0].shape == (5, 2, 2, 2)
         assert not [m for m in sys.modules if m.startswith("jax.")]
         print("ok")
         """
