@@ -18,7 +18,15 @@ and the ``SparseAuxIVA`` stub -- and the ILRMA family (``models/ilrma.py``):
 (``models/nmf.py``, ``models/ntf.py``): ``EUCNMF``, ``KLNMF``, ``ISNMF``,
 ``TNMF`` (alias ``tNMF``), ``CauchyNMF``, ``ComplexEUCNMF``, the
 covariance-domain ``CovarianceISNMF`` and ``EUCNTF``, with the divergences
-(``criterion``) and ``solve_riccati``.
+(``criterion``) and ``solve_riccati`` -- and slice 5 with IDLMA:
+``GradLaplaceFDICA`` and ``NaturalGradLaplaceFDICA`` with the permutation
+alignment (``algorithm/permutation.py``, C through ``runtime/native.py``),
+the beamformers (``DelaySumBeamformer``, ``MVDRBeamformer``,
+``MaxSNRBeamformer`` and their functions), ``PDSBSSBase``,
+``ProxLaplaceIVA`` and the ``SparseProxIVA`` stub, ``GaussIDLMA`` with its
+variance network in the loop on the device (``torch_dnn``), ``whitening``,
+``minimum_distortion_principle``, ``FixedPointICA`` and the
+``utils/linalg.py`` helpers.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise rather than fall back.
@@ -30,7 +38,12 @@ complex, demixing filters ``(n_bins, n_sources, n_channels)``, output
 
 __version__ = "0.1.0"
 
-from .algorithm import apply_projection_back, projection_back, solve_riccati  # noqa: F401
+from .algorithm import (  # noqa: F401
+    apply_projection_back,
+    minimum_distortion_principle,
+    projection_back,
+    solve_riccati,
+)
 from .models import (  # noqa: F401
     EUCNMF,
     EUCNTF,
@@ -44,17 +57,31 @@ from .models import (  # noqa: F401
     ComplexEUCNMF,
     ConsistentGaussILRMA,
     CovarianceISNMF,
+    DelaySumBeamformer,
+    GaussIDLMA,
     GaussILRMA,
     GGDILRMA,
+    GradLaplaceFDICA,
     GradLaplaceIVA,
     KLILRMA,
+    MaxSNRBeamformer,
+    MVDRBeamformer,
+    NaturalGradLaplaceFDICA,
     NaturalGradLaplaceIVA,
     OverAuxLaplaceIVA,
+    PDSBSSBase,
+    ProxLaplaceIVA,
     RegularizedILRMA,
     SparseAuxIVA,
+    SparseProxIVA,
+    delay_sum_beamform,
+    max_snr_beamform,
+    ml_beamform,
+    mvdr_beamform,
     tILRMA,
     tNMF,
+    torch_dnn,
 )
 from .runtime import resolve_device  # noqa: F401
-from .transform import build_optimal_window, build_window, istft, pca, stft  # noqa: F401
+from .transform import build_optimal_window, build_window, istft, pca, stft, whitening  # noqa: F401
 from .utils import state_from_jax  # noqa: F401

@@ -1,3 +1,14 @@
+from .beamform import (  # noqa: F401
+    DelaySumBeamformer,
+    MaxSNRBeamformer,
+    MVDRBeamformer,
+    delay_sum_beamform,
+    max_snr_beamform,
+    ml_beamform,
+    mvdr_beamform,
+)
+from .fdica import GradLaplaceFDICA, NaturalGradLaplaceFDICA  # noqa: F401
+from .idlma import GaussIDLMA, torch_dnn  # noqa: F401
 from .ilrma import (  # noqa: F401
     TILRMA,
     ConsistentGaussILRMA,
@@ -23,6 +34,7 @@ from .nmf import EUCNMF, ISNMF, KLNMF, TNMF, CauchyNMF, ComplexEUCNMF, tNMF  # n
 # ``CovarianceISNMF`` (or ``models.nmf.MultichannelISNMF``)
 from .nmf import MultichannelISNMF as CovarianceISNMF  # noqa: F401
 from .ntf import EUCNTF  # noqa: F401
+from .prox import PDSBSSBase, ProxLaplaceIVA, SparseProxIVA  # noqa: F401
 
 __all__ = [
     "GradLaplaceIVA",
@@ -47,4 +59,18 @@ __all__ = [
     "GGDILRMA",
     "KLILRMA",
     "RegularizedILRMA",
+    "GradLaplaceFDICA",
+    "NaturalGradLaplaceFDICA",
+    "DelaySumBeamformer",
+    "MVDRBeamformer",
+    "MaxSNRBeamformer",
+    "delay_sum_beamform",
+    "ml_beamform",
+    "mvdr_beamform",
+    "max_snr_beamform",
+    "PDSBSSBase",
+    "ProxLaplaceIVA",
+    "SparseProxIVA",
+    "GaussIDLMA",
+    "torch_dnn",
 ]

@@ -1,0 +1,200 @@
+"""Independent deeply-learned matrix analysis (IDLMA) (reference
+``sss/idlma.py:10-245``, ``GaussIDLMA``).
+
+Determined separation informed by a network: each iteration feeds the
+estimates' amplitudes ``|Y|^domain`` to a user-supplied variance model
+``dnn``, takes ``R = max(dnn(.), dnn_flooring)^(2 / domain)`` as the
+sources' variances, runs the IP spatial update with per-bin weights ``1/R``
+and normalises the estimates by projection-back (``idlma.py:141-225``).
+
+The network runs in the loop on the solver's device: ``dnn`` is any torch
+callable, typically an ``nn.Module`` on that device, called under
+``torch.no_grad()`` on the ``(S, F, T)`` amplitude tensor; nothing goes to
+the host.  This is the counterpart of the JAX package's ``jax_dnn=True``
+scan; its ``jax_dnn=False`` mode, a host network between device stages, has
+no counterpart, so ``jax_dnn`` is accepted and changes nothing here.
+
+Each iteration forms the covariance by one launch of kernel K1 with the
+per-bin ``(S, F, T)`` weights (:meth:`~.iva.IVABase._ip_sweep`, as ILRMA).
+The state takes one of two forms, fixed at init:
+
+  * component form (guard ``one_norm`` or ``none``, C <= 4): ``{"input",
+    "demix_filter", "pair_products" (C^2, F, T), "gram" (C, C, F),
+    "estimation_power" (S, F, T), "dnn_output"}``.  The reference refits
+    ``W`` to the projected-back estimates by least squares
+    (``idlma.py:154-157``); since ``Y = W X`` exactly, that fit is the
+    per-row scale itself, taken from the invariant mixture Gram
+    (:func:`~..ops.ip_components.projection_back_components`), and ``|Y|^2``
+    comes from the pair-product planes;
+  * matrix form (otherwise): ``{"input", "demix_filter", "estimation",
+    "dnn_output"}``, with the projection-back and the least-squares refit
+    of ``idlma.py:141-157``.
+
+As in the JAX package the state always starts from the identity filter and
+unit variances: ``__call__`` keyword arguments become attributes, not
+state, and the singular ``callback`` (the reference's name) runs after each
+iteration only.
+"""
+
+import torch
+
+from ..algorithm.projection_back import projection_back
+from ..ops.fast_linalg import batched_log_abs_det
+from ..ops.ip import uses_component_sweep
+from ..ops.ip_components import (
+    filter_rows,
+    gram_components,
+    pair_products_planes,
+    projection_back_components,
+    quadratic_power_planes,
+)
+from ..utils.flooring import EPS, THRESHOLD, floor_below
+from .iva import IVABase
+
+
+def torch_dnn(module):
+    """A callable running ``module`` under ``no_grad`` (the reference's
+    execution mode, ``idlma.py:218-224``) on the solver's device: the input
+    is cast to the module's parameter type and the output back.  The module
+    must be on the solver's device."""
+
+    def call(amplitude):
+        param = next(module.parameters(), None)
+        x = amplitude if param is None else amplitude.to(param.dtype)
+        with torch.no_grad():
+            return module(x).to(amplitude.dtype)
+
+    return call
+
+
+class IDLMABase(IVABase):
+    """Shared IDLMA protocol (``sss/idlma.py:10-88``); the reference takes a
+    singular ``callback`` here (``idlma.py:11-13``)."""
+
+    state_fields = ("demix_filter", "estimation", "dnn_output")
+    callback_on_init = False
+
+    def __init__(self, normalize=True, callback=None, dnn_flooring=1e-5, eps=EPS, device=None):
+        super().__init__(callbacks=None, recordable_loss=True, eps=eps, device=device)
+        self.callback = callback
+        self.normalize = normalize
+        self.dnn_flooring = dnn_flooring
+
+    def __call__(self, input, iteration=100, dnn=None, **kwargs):
+        """Run ``iteration`` IDLMA iterations with the variance model ``dnn``
+        (see the module docstring); other keyword arguments become
+        attributes."""
+        self.dnn = dnn
+        self.callbacks = None if self.callback is None else [self.callback]
+        return super().__call__(input, iteration=iteration, **kwargs)
+
+    def _split_kwargs(self, kwargs):
+        # no warm start: every keyword is an attribute, as in the JAX package
+        return {}, dict(kwargs)
+
+
+class GaussIDLMA(IDLMABase):
+    """Gaussian IDLMA (``sss/idlma.py:89-245``)."""
+
+    def __init__(
+        self,
+        domain=2,
+        normalize="projection-back",
+        reference_id=0,
+        callback=None,
+        dnn_flooring=1e-5,
+        eps=EPS,
+        threshold=THRESHOLD,
+        guard="one_norm",
+        jax_dnn=False,
+        device=None,
+    ):
+        super().__init__(normalize=normalize, callback=callback, dnn_flooring=dnn_flooring, eps=eps, device=device)
+        # AssertionError, as the JAX package's assert raises, but kept under -O
+        if not 1 <= domain <= 2:
+            raise AssertionError("1 <= `domain` <= 2 is not satisfied.")
+        self.domain = domain
+        self.reference_id = reference_id
+        self.threshold = threshold
+        self.guard = guard
+        self.jax_dnn = jax_dnn
+
+    def init_state(self, X):
+        W = self._initial_filter(X, None)
+        state = {"input": X, "demix_filter": W, "dnn_output": torch.ones(X.shape, dtype=X.real.dtype, device=X.device)}
+        if uses_component_sweep(self.guard, X.shape[0]):
+            planes = pair_products_planes(X)
+            gram = gram_components(planes)
+            state.update(
+                pair_products=planes,
+                gram=torch.stack([torch.stack(row) for row in gram]),
+                estimation_power=quadratic_power_planes(W, planes),
+            )
+        else:
+            state["estimation"] = self.separate(X, W)
+        return state
+
+    def _power(self, state):
+        if "estimation_power" in state:
+            return state["estimation_power"]
+        return torch.abs(state["estimation"]) ** 2
+
+    def _apply_dnn(self, P):
+        """``max(dnn(P^(domain / 2))^(2 / domain), dnn_flooring)``
+        (``idlma.py:212-225``)."""
+        amplitude = P ** (self.domain / 2)
+        with torch.no_grad():
+            out = torch.as_tensor(self.dnn(amplitude), dtype=P.dtype, device=P.device)
+        out = out ** (2 / self.domain)
+        if self.dnn_flooring:
+            out = torch.clamp(out, min=self.dnn_flooring)
+        return out.contiguous()
+
+    def _variance(self, dnn_output):
+        return floor_below(dnn_output ** (2 / self.domain), self.eps)
+
+    def update_state(self, state):
+        if self.normalize != "projection-back" and self.normalize is not True:
+            if self.normalize:
+                raise ValueError(
+                    "Not support normalization based on {}. Choose 'power' or "
+                    "'projection-back'".format(self.normalize)
+                )
+            raise ValueError("Set normalize=True")
+        X = state["input"]
+        dnn_output = self._apply_dnn(self._power(state))
+        W = self._ip_sweep(state, 1.0 / self._variance(dnn_output))  # one K1 launch
+        if "gram" in state:
+            scale = projection_back_components(filter_rows(W), state["gram"], reference_id=self.reference_id)
+            W = W * torch.stack(scale, dim=1)[:, :, None]
+            return dict(
+                state,
+                demix_filter=W,
+                dnn_output=dnn_output,
+                estimation_power=quadratic_power_planes(W, state["pair_products"]),
+            )
+        Y = self.separate(X, W)
+        Y = Y * projection_back(Y, reference=X[self.reference_id])[..., None]
+        # refit W to the normalised estimates (``idlma.py:154-157``)
+        W = self.compute_demix_filter(Y, X)
+        return dict(state, demix_filter=W, dnn_output=dnn_output, estimation=Y)
+
+    def nll(self, state):
+        R = self._variance(state["dnn_output"])
+        n_frames = state["input"].shape[-1]
+        P = self._power(state)
+        return torch.sum(P / R + torch.log(R)) - 2 * n_frames * batched_log_abs_det(state["demix_filter"]).sum()
+
+    def finalize(self, state):
+        X = state["input"]
+        Y = self.separate(X, state["demix_filter"])
+        scale = projection_back(Y, reference=X[self.reference_id])
+        return Y * scale[..., None]
+
+    def _sync_attributes(self, state):
+        super()._sync_attributes(state)
+        if self.callbacks is not None and "estimation" not in state:
+            self.estimation = self.separate(state["input"], state["demix_filter"])
+
+    def __repr__(self):
+        return "GaussIDLMA(domain={}, normalize={})".format(self.domain, self.normalize)

@@ -109,6 +109,11 @@ class IVABase(IterativeSolver):
         W = torch.linalg.solve_ex(XXh, YXh.transpose(-2, -1).conj()).result
         return W.transpose(-2, -1).conj_physical()
 
+    @staticmethod
+    def _component_step(W):
+        """Whether a gradient step runs in component layout (square W, C <= 4)."""
+        return W.shape[1] == W.shape[2] <= 4
+
     def _default_filter(self, X):
         n_channels, n_bins, _ = X.shape
         eye = torch.eye(n_channels, dtype=X.dtype, device=X.device)
@@ -174,10 +179,6 @@ class GradIVABase(IVABase):
         """Multivariate Laplace score ``Y / sqrt(sum_f |Y|^2)`` on ``(N, F, T)``."""
         denom = floor_below(torch.sqrt(torch.sum(torch.abs(Y) ** 2, dim=1)), self.eps)  # (N, T)
         return Y / denom[:, None, :]
-
-    def _component_step(self, W):
-        """Whether a step runs in component layout (square W, C <= 4)."""
-        return W.shape[1] == W.shape[2] <= 4
 
     def nll(self, state):
         P = torch.sum(torch.abs(state["estimation"]) ** 2, dim=1)  # (N, T)

@@ -7,7 +7,9 @@ hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
 an edited source or header is rebuilt and an unchanged one is reused.
 Nothing is built at import time: the first CUDA launch of a kernel builds
 it, and :func:`build_all` builds every kernel at once, one ``nvcc``
-process per source, all started together.
+process per source, all started together.  :func:`hashed_library` and
+:func:`build_shared` serve the host-side C library of ``runtime/native.py``
+too, which ``cc`` builds into ``build/native/``.
 """
 
 import ctypes
@@ -47,15 +49,51 @@ def nvcc_path():
     raise RuntimeError("nvcc not found; the CUDA toolkit is needed to build the kernels")
 
 
-def library_path(name):
-    """Path of the shared library for kernel ``name`` (may not exist yet),
-    named by a hash of its source, every shared header and the flags."""
+def hashed_library(build_dir, name, inputs, flags):
+    """``build_dir/lib<name>-<hash>.so`` (may not exist yet), named by a hash
+    of every input file (name and bytes) and the flags."""
     hasher = hashlib.sha256()
-    for path in [CSRC_DIR / SOURCES[name], *sorted(CSRC_DIR.glob("*.cuh"))]:
+    for path in inputs:
         hasher.update(path.name.encode() + b"\0" + path.read_bytes())
-    hasher.update(" ".join(NVCC_FLAGS).encode())
-    digest = hasher.hexdigest()[:16]
-    return BUILD_DIR / "lib{}-{}.so".format(name, digest)
+    hasher.update(" ".join(flags).encode())
+    return Path(build_dir) / "lib{}-{}.so".format(name, hasher.hexdigest()[:16])
+
+
+def library_path(name):
+    """Path of the shared library for kernel ``name``, named by a hash of
+    its source, every shared header and the flags."""
+    inputs = [CSRC_DIR / SOURCES[name], *sorted(CSRC_DIR.glob("*.cuh"))]
+    return hashed_library(BUILD_DIR, name, inputs, NVCC_FLAGS)
+
+
+def build_shared(jobs):
+    """Compile each job ``name: (command, source, target)`` into a shared
+    library, one process per job, all started together: ``command`` is the
+    compiler and its flags, the source and ``-o`` are added.  Each library is
+    written to a temporary file and moved onto ``target`` once built, so a
+    reader never sees a partial one.
+
+    Returns ``({name: compiler output}, [failure report])``; a compiler that
+    cannot be started raises ``OSError``.
+    """
+    procs = {}
+    for name, (command, source, target) in jobs.items():
+        Path(target).parent.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(".so.tmp{}".format(os.getpid()))
+        cmd = [*command, "-o", str(tmp), str(source)]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp,
+            target,
+        )
+    outputs, failed = {}, []
+    for name, (proc, tmp, target) in procs.items():
+        outputs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append("{} (exit {}):\n{}".format(name, proc.returncode, outputs[name]))
+            continue
+        os.replace(tmp, target)
+    return outputs, failed
 
 
 def build_all(names=None, verbose=False):
@@ -67,29 +105,13 @@ def build_all(names=None, verbose=False):
     registers and shared memory.  Raises ``RuntimeError`` if a build fails.
     """
     names = list(SOURCES) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
-    extra = ("-Xptxas", "-v") if verbose else ()
-    procs = {}
-    for name in names:
-        target = library_path(name)
-        if target.exists():
-            continue
-        tmp = target.with_suffix(".so.tmp{}".format(os.getpid()))
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
-        procs[name] = (
-            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp,
-            target,
-        )
-    outputs, failed = {}, []
-    for name, (proc, tmp, target) in procs.items():
-        out, _ = proc.communicate()
-        outputs[name] = out
-        if proc.returncode != 0:
-            failed.append("{} (exit {}):\n{}".format(name, proc.returncode, out))
-            continue
-        os.replace(tmp, target)
+    command = [nvcc_path(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ())]
+    jobs = {
+        name: (command, CSRC_DIR / SOURCES[name], library_path(name))
+        for name in names
+        if not library_path(name).exists()
+    }
+    outputs, failed = build_shared(jobs)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return outputs

@@ -9,8 +9,8 @@ where ``state_kwargs`` warm-start the state (checkpoint / resume), any other
 kwargs become plain attributes for callbacks, ``solver.loss`` records the
 loss after every update (concatenating across calls) and, where
 ``record_initial_loss`` is set, before the first one, and callbacks run
-after init and after every iteration with the state published as
-attributes.
+after every iteration, and after init where ``callback_on_init`` is set,
+with the state published as attributes.
 """
 
 import contextlib
@@ -80,6 +80,8 @@ class IterativeSolver:
     record_initial_loss = True
     # real targets (NMF, NTF): the solver runs at a real type
     real_input = False
+    # the PDS and IDLMA solvers call callbacks only after iterations
+    callback_on_init = True
 
     def __init__(self, callbacks=None, recordable_loss=True, eps=EPS, device=None):
         if callbacks is not None and callable(callbacks):
@@ -175,7 +177,8 @@ class IterativeSolver:
 
         if self.callbacks is not None:
             self._flush_losses(losses)
-            self._on_callback()
+            if self.callback_on_init:
+                self._on_callback()
             for _ in range(iteration):
                 state = self.update_state(state)
                 if self.recordable_loss:

@@ -9,7 +9,8 @@ add their source model: ``basis``, ``activation`` and, with partitioning,
 ``latent``.  The factorisation models write their factors: ``basis`` and
 ``activation`` (NMF; ``ComplexEUCNMF`` writes no ``phase``, its phase state
 being phasor planes), with ``spatial`` (``CovarianceISNMF``, its basis in
-the input frame) or ``partitioning`` (``EUCNTF``).
+the input frame) or ``partitioning`` (``EUCNTF``).  ``ProxLaplaceIVA``
+adds its dual variable ``dual (F, N, T)``.
 :func:`state_from_jax` turns these into the port's warm-start kwargs, so a
 JAX run resumes in the port.
 """
@@ -22,7 +23,7 @@ import torch
 from ..runtime.device import resolve_device
 
 # the state arrays that carry over as they are
-STATE_ARRAYS = ("estimation", "basis", "activation", "latent", "spatial", "partitioning", "phase")
+STATE_ARRAYS = ("estimation", "basis", "activation", "latent", "spatial", "partitioning", "phase", "dual")
 
 
 def state_from_jax(arrays, device=None):
@@ -32,7 +33,7 @@ def state_from_jax(arrays, device=None):
         arrays: a mapping of numpy arrays holding any of ``demix_filter (F,
             N, C)`` or ``demix_components (N, C, F)``, ``estimation (N, F,
             T)``, ``basis``, ``activation``, ``latent``, ``spatial``,
-            ``partitioning``, ``phase`` and ``step_count ()``, or the path
+            ``partitioning``, ``phase``, ``dual`` and ``step_count ()``, or the path
             of an ``.npz`` written by the JAX ``save_state``.
         device: where the tensors go; ``None`` means ``"cuda"``.
     Returns:

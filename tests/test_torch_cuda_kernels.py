@@ -27,14 +27,26 @@ from audio_source_separation_tpu_torch import (
     ComplexEUCNMF,
     ConsistentGaussILRMA,
     CovarianceISNMF,
+    DelaySumBeamformer,
+    GaussIDLMA,
     GaussILRMA,
+    GradLaplaceFDICA,
+    MaxSNRBeamformer,
+    MVDRBeamformer,
+    NaturalGradLaplaceFDICA,
     OverAuxLaplaceIVA,
+    ProxLaplaceIVA,
+    torch_dnn,
+    whitening,
 )
+from audio_source_separation_tpu_torch.algorithm.permutation import solve_permutation
 from audio_source_separation_tpu_torch.ops.fused_ip import (
     fused_auxiva_ip_iter,
     fused_auxiva_ip_iter_plain,
 )
 from audio_source_separation_tpu_torch.ops.ip_components import separate_components
+
+from chip_smoke import VarianceMLP
 
 pytestmark = pytest.mark.cuda
 
@@ -317,3 +329,71 @@ def test_factorisation_on_the_card(cuda, make, target):
     assert all(f.device.type == "cuda" and torch.isfinite(f).all() for f in out)
     assert len(model.loss) == 5 and np.isfinite(model.loss).all()
     np.testing.assert_allclose(model.loss, reference.loss, rtol=1e-4)
+
+
+@pytest.mark.parametrize("C", [2, 3, 5])
+def test_idlma_runs_through_k1_per_bin(cuda, C):
+    """Every GaussIDLMA iteration on the card runs its network and forms its
+    covariance by one K1 launch with per-bin ``(S, F, T)`` weights (the
+    component form at C <= 4, the matrix form at C = 5); the losses track
+    the CPU float32 run from the same network."""
+    X = _mixture(C, C, 257, 469, cuda)
+    r = np.random.RandomState(3)
+    W1, W2 = (r.randn(32, 257) * 0.01).astype(np.float32), (r.randn(257, 32) * 0.01).astype(np.float32)
+    weighted_covariance_planes.launches = fused_auxiva_ip_iter.launches = 0
+    solver = GaussIDLMA()
+    Y = solver(X, iteration=5, dnn=torch_dnn(VarianceMLP(W1, W2).to(cuda)))
+    torch.cuda.synchronize()
+    assert weighted_covariance_planes.launches == 5 and fused_auxiva_ip_iter.launches == 0
+    assert Y.device.type == "cuda" and torch.isfinite(Y).all() and np.isfinite(solver.loss).all()
+    reference = GaussIDLMA(device="cpu")
+    reference(X.cpu(), iteration=5, dnn=torch_dnn(VarianceMLP(W1, W2)))
+    np.testing.assert_allclose(solver.loss, reference.loss, rtol=1e-3)
+
+
+@pytest.mark.parametrize(
+    "make,C",
+    [(NaturalGradLaplaceFDICA, 2), (GradLaplaceFDICA, 3), (GradLaplaceFDICA, 5), (ProxLaplaceIVA, 2),
+     (ProxLaplaceIVA, 3)],
+)
+def test_fdica_and_prox_launch_no_kernel(cuda, make, C):
+    X = _mixture(C + 7, C, 257, 469, cuda)
+    weighted_covariance_planes.launches = fused_auxiva_ip_iter.launches = 0
+    solve_permutation.route = None
+    solver = make()
+    Y = solver(X, iteration=5)
+    torch.cuda.synchronize()
+    assert weighted_covariance_planes.launches == fused_auxiva_ip_iter.launches == 0
+    assert Y.device.type == "cuda" and torch.isfinite(Y).all() and np.isfinite(solver.loss).all()
+    if make is not ProxLaplaceIVA:
+        assert solve_permutation.route == "native"
+
+
+def test_whitening_numpy_input_runs_on_the_card(cuda):
+    x = np.random.RandomState(13).randn(3, 4000)
+    out = whitening(x.astype(np.float32))
+    assert out.device.type == "cuda" and out.dtype == torch.float32
+    eye = (out @ out.T).cpu().numpy()
+    np.testing.assert_allclose(eye, np.eye(3), atol=1e-4)
+
+
+def test_beamformers_on_the_card(cuda):
+    """Each beamformer on the card against its CPU float64 run, no kernel."""
+    X = _mixture(11, 3, 129, 200, cuda)
+    r = np.random.RandomState(12)
+    A = np.exp(2j * np.pi * r.rand(129, 3, 2)) / np.sqrt(3)
+    Rs = np.einsum("fc,fd->fcd", A[..., 0], A[..., 0].conj())
+    Rn = np.einsum("fc,fd->fcd", A[..., 1], A[..., 1].conj()) + 0.1 * np.eye(3)
+    cases = [
+        (lambda d: DelaySumBeamformer(steering_vector=A, device=d), {}),
+        (lambda d: MVDRBeamformer(steering_vector=A, device=d), {}),
+        (lambda d: MaxSNRBeamformer(device=d), {"signal_covariance": Rs, "noise_covariance": Rn}),
+    ]
+    weighted_covariance_planes.launches = fused_auxiva_ip_iter.launches = 0
+    for make, kwargs in cases:
+        Y = make(None)(X, **kwargs)
+        assert Y.device.type == "cuda" and Y.dtype == torch.complex64
+        expected = make("cpu")(X.cpu().to(torch.complex128), **kwargs)
+        err = (Y.cpu().to(torch.complex128) - expected).abs().max() / expected.abs().max()
+        assert err <= 1e-4, err
+    assert weighted_covariance_planes.launches == fused_auxiva_ip_iter.launches == 0

@@ -100,6 +100,30 @@ def test_port_imports_with_jax_blocked():
         assert port.EUCNTF(device="cpu")(np.abs(X) ** 2, iteration=2)[0].shape == (2, 2)
         covariance = np.einsum("cft,dft->ftcd", X, X.conj())
         assert port.CovarianceISNMF(n_basis=2, device="cpu")(covariance, iteration=2)[0].shape == (5, 2, 2, 2)
+        import torch
+        from audio_source_separation_tpu_torch.algorithm import permutation
+        for solver in (
+            port.GradLaplaceFDICA(device="cpu"),
+            port.NaturalGradLaplaceFDICA(device="cpu"),
+            port.ProxLaplaceIVA(device="cpu"),
+        ):
+            assert solver(X, iteration=2).shape == (2, 5, 8)
+        assert permutation.solve_permutation.route in ("native", "numpy")
+
+        class Net(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.linear = torch.nn.Linear(5, 5)
+
+            def forward(self, amplitude):
+                return torch.nn.functional.softplus(self.linear(amplitude.transpose(1, 2))).transpose(1, 2)
+
+        assert port.GaussIDLMA(device="cpu")(X, iteration=2, dnn=port.torch_dnn(Net())).shape == (2, 5, 8)
+        A = np.ones((5, 2, 2), dtype=complex)
+        assert port.DelaySumBeamformer(steering_vector=A, device="cpu")(X).shape == (2, 5, 8)
+        assert port.MVDRBeamformer(steering_vector=A + np.eye(2), device="cpu")(X).shape == (2, 5, 8)
+        R = np.tile(np.eye(2, dtype=complex), (5, 1, 1))
+        assert port.MaxSNRBeamformer(device="cpu")(X, signal_covariance=R, noise_covariance=R).shape == (1, 5, 8)
         assert not [m for m in sys.modules if m.startswith("jax.")]
         print("ok")
         """
