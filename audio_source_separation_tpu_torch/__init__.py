@@ -26,7 +26,10 @@ the beamformers (``DelaySumBeamformer``, ``MVDRBeamformer``,
 ``ProxLaplaceIVA`` and the ``SparseProxIVA`` stub, ``GaussIDLMA`` with its
 variance network in the loop on the device (``torch_dnn``), ``whitening``,
 ``minimum_distortion_principle``, ``FixedPointICA`` and the
-``utils/linalg.py`` helpers.
+``utils/linalg.py`` helpers -- and the MNMF family (``models/mnmf.py``):
+``MultichannelISNMF`` (the Sawada and Ozerov solvers), ``FastMultichannelISNMF``
+with its diagonaliser covariances through K1 per bin, and the
+``MultichanneltNMF`` stub.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise rather than fall back.
@@ -58,6 +61,7 @@ from .models import (  # noqa: F401
     ConsistentGaussILRMA,
     CovarianceISNMF,
     DelaySumBeamformer,
+    FastMultichannelISNMF,
     GaussIDLMA,
     GaussILRMA,
     GGDILRMA,
@@ -65,6 +69,8 @@ from .models import (  # noqa: F401
     GradLaplaceIVA,
     KLILRMA,
     MaxSNRBeamformer,
+    MultichannelISNMF,
+    MultichanneltNMF,
     MVDRBeamformer,
     NaturalGradLaplaceFDICA,
     NaturalGradLaplaceIVA,

@@ -26,6 +26,7 @@ from .iva import (  # noqa: F401
     OverAuxLaplaceIVA,
     SparseAuxIVA,
 )
+from .mnmf import FastMultichannelISNMF, MultichannelISNMF, MultichanneltNMF  # noqa: F401
 from .nmf import EUCNMF, ISNMF, KLNMF, TNMF, CauchyNMF, ComplexEUCNMF, tNMF  # noqa: F401
 
 # the reference has two classes named ``MultichannelISNMF``: this
@@ -71,6 +72,9 @@ __all__ = [
     "PDSBSSBase",
     "ProxLaplaceIVA",
     "SparseProxIVA",
+    "MultichannelISNMF",
+    "MultichanneltNMF",
+    "FastMultichannelISNMF",
     "GaussIDLMA",
     "torch_dnn",
 ]

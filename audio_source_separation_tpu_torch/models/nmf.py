@@ -30,10 +30,12 @@ from ..algorithm.linalg import solve_riccati
 from ..criterion.divergence import generalized_kl_divergence, is_divergence
 from ..ops.fast_linalg import (
     add_diag_planes,
+    compact_pair_weights,
     expand_hermitian_compact,
     expand_hermitian_compact_trailing,
     herm_planes,
     hermitian_compact_from_entries,
+    hermitian_compact_from_trailing,
     hermitian_eigvalsh_planes,
     inv_hermitian_compact,
     inv_planes,
@@ -417,20 +419,13 @@ class MultichannelISNMF(IterativeSolver):
             state_kwargs["activation"] = np.random.rand(self.n_basis, n_frames)
         return state_kwargs
 
-    @staticmethod
-    def _compact(M):
-        """Compact real planes ``(C^2, ...)`` of the upper triangle of a
-        complex ``(..., C, C)`` field."""
-        _, order = _plane_index(M.shape[-1])
-        return torch.stack([M[..., c, d].real if kind == "re" else M[..., c, d].imag for kind, c, d in order])
-
     def init_state(self, target, spatial=None, basis=None, activation=None):
         C = target.shape[-1]
         # compact Hermitian planes of the upper triangle: the observed
         # covariance is Hermitian by construction (a non-Hermitian target's
         # lower triangle is ignored, a documented divergence from the
         # reference)
-        target_planes = self._compact(target)  # (C^2, F, T) real
+        target_planes = hermitian_compact_from_trailing(target)  # (C^2, F, T) real
         # per-bin power equilibration: real spectrogram covariances span
         # about 24 decades across bins, past float32's range in the adjugate
         # and Riccati chains.  The MU ratios, the Riccati solution and the
@@ -450,15 +445,7 @@ class MultichannelISNMF(IterativeSolver):
     def _spatial_coeffs(self, state):
         """Compact-plane coefficients ``(C^2, F, K)`` of the Hermitian spatial
         templates."""
-        return self._compact(state["spatial"])
-
-    @staticmethod
-    def _pair_weights(C, like):
-        """``tr(A B) = sum_p w_p A_p B_p`` for compact Hermitian A, B: the
-        diagonal planes weigh 1, each off-diagonal (re, im) plane 2."""
-        w = torch.full((C * C,), 2.0, dtype=like.dtype, device=like.device)
-        w[:C] = 1.0
-        return w
+        return hermitian_compact_from_trailing(state["spatial"])
 
     def _xhat_compact(self, state):
         """``X^ = sum_k H_k T_k V_k`` as compact planes ``(C^2, F, T)``: the
@@ -494,7 +481,7 @@ class MultichannelISNMF(IterativeSolver):
         # basis.  The traces of PSD x PSD products are >= 0, but at float32
         # the pair-weighted sums round slightly negative near zero: floor 0
         inv, XXX = self._mu_operands(state)
-        wc = self._spatial_coeffs(state) * self._pair_weights(n_channels, T)[:, None, None]  # (C^2, F, K)
+        wc = self._spatial_coeffs(state) * compact_pair_weights(n_channels, T)[:, None, None]  # (C^2, F, K)
         num = floor_below((wc * torch.einsum("pft,kt->pfk", XXX, V)).sum(dim=0), 0.0)  # (F, K)
         den = (wc * torch.einsum("pft,kt->pfk", inv, V)).sum(dim=0)
         T = T * torch.sqrt(num / floor_below(den, eps))

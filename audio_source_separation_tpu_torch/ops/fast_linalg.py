@@ -115,6 +115,17 @@ def trace_planes(P):
     return tr
 
 
+def psd_parts_planes(P, eps=1e-12):
+    """The reference's ``to_psd`` on planes ``P (n, n, ...)``, n <= 3, and
+    the eigenvalues of the result: hermitise, shift by the most negative
+    eigenvalue (closed-form eigvalsh), add the ``eps trace`` ridge.  Returns
+    ``(psd (n, n, ...), eigenvalues (n, ...))``."""
+    H = herm_planes(P)
+    w = hermitian_eigvalsh_planes(H)
+    shift = eps * trace_planes(H) - torch.clamp(w.amin(dim=0), max=0.0)
+    return add_diag_planes(H, shift), w + shift[None]
+
+
 # Trailing-axes forms: the matrix axes are the last two (``A (..., n, n)``),
 # as in ``torch.linalg``.  Closed forms up to 3 x 3, ``torch.linalg`` above.
 
@@ -388,6 +399,21 @@ def solve_riccati_hermitian_compact(A_planes, B_planes, eps=1e-12):
     M = sandwich_hermitian_compact(A_sqrt, B_planes)
     M_sqrt = power_hermitian_compact(M, 0.5, eps=0.0)
     return sandwich_hermitian_compact(A_invsqrt, M_sqrt)
+
+
+def hermitian_compact_from_trailing(M):
+    """Compact real planes ``(n^2, ...)`` of the upper triangle of a
+    Hermitian field with trailing matrix axes ``M (..., n, n)``."""
+    return hermitian_compact_from_planes(M.movedim((-2, -1), (0, 1)))
+
+
+def compact_pair_weights(n, like):
+    """``w (n^2,)`` with ``tr(A B) = sum_p w_p A_p B_p`` for compact
+    Hermitian A, B: the diagonal planes weigh 1, each off-diagonal (re, im)
+    plane 2."""
+    w = torch.full((n * n,), 2.0, dtype=like.dtype, device=like.device)
+    w[:n] = 1.0
+    return w
 
 
 def expand_hermitian_compact_trailing(small, n):

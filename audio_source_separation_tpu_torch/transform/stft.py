@@ -25,8 +25,9 @@ import torch.nn.functional as F
 from ..runtime.device import resolve_device
 
 
-def build_window(fft_size, window_fn="hann", dtype=torch.float64, device="cpu"):
-    """Periodic (DFT-even) analysis window."""
+def build_window(fft_size, window_fn="hann", dtype=torch.float64, device=None):
+    """Periodic (DFT-even) analysis window on ``device`` (``None`` means
+    ``"cuda"``)."""
     n = np.arange(fft_size)
     if window_fn == "hann":
         window = 0.5 - 0.5 * np.cos(2 * np.pi * n / fft_size)
@@ -36,12 +37,13 @@ def build_window(fft_size, window_fn="hann", dtype=torch.float64, device="cpu"):
         window = np.ones(fft_size)
     else:
         raise ValueError("Not support {} window.".format(window_fn))
-    return torch.as_tensor(window, dtype=dtype, device=device)
+    return torch.as_tensor(window, dtype=dtype, device=resolve_device(device))
 
 
-def build_optimal_window(window, hop_size=None):
-    """COLA-normalised synthesis window."""
-    window = torch.as_tensor(window)
+def build_optimal_window(window, hop_size=None, device=None):
+    """COLA-normalised synthesis window.  A tensor ``window`` stays on its
+    device; anything else goes to ``device`` (``None`` means ``"cuda"``)."""
+    window = window if isinstance(window, torch.Tensor) else _as_tensor(window, resolve_device(device))
     window_length = window.shape[0]
     if hop_size is None:
         hop_size = window_length // 2

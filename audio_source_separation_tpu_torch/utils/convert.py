@@ -10,7 +10,12 @@ add their source model: ``basis``, ``activation`` and, with partitioning,
 ``activation`` (NMF; ``ComplexEUCNMF`` writes no ``phase``, its phase state
 being phasor planes), with ``spatial`` (``CovarianceISNMF``, its basis in
 the input frame) or ``partitioning`` (``EUCNTF``).  ``ProxLaplaceIVA``
-adds its dual variable ``dual (F, N, T)``.
+adds its dual variable ``dual (F, N, T)``.  The MNMF solvers write
+``latent``, ``spatial``, ``basis`` and ``activation`` (Sawada),
+``mix_filter (F, C, S)``, ``noise_covariance (F, C)``, ``basis`` and
+``activation`` (Ozerov, basis and noise in the input frame), or
+``diagonalizer (F, C, C)``, ``spatial_covariance (S, F, C)``, ``basis``
+and ``activation`` (``FastMultichannelISNMF``).
 :func:`state_from_jax` turns these into the port's warm-start kwargs, so a
 JAX run resumes in the port.
 """
@@ -23,7 +28,10 @@ import torch
 from ..runtime.device import resolve_device
 
 # the state arrays that carry over as they are
-STATE_ARRAYS = ("estimation", "basis", "activation", "latent", "spatial", "partitioning", "phase", "dual")
+STATE_ARRAYS = (
+    "estimation", "basis", "activation", "latent", "spatial", "partitioning", "phase", "dual",
+    "mix_filter", "noise_covariance", "diagonalizer", "spatial_covariance",
+)  # fmt: skip
 
 
 def state_from_jax(arrays, device=None):
@@ -33,7 +41,9 @@ def state_from_jax(arrays, device=None):
         arrays: a mapping of numpy arrays holding any of ``demix_filter (F,
             N, C)`` or ``demix_components (N, C, F)``, ``estimation (N, F,
             T)``, ``basis``, ``activation``, ``latent``, ``spatial``,
-            ``partitioning``, ``phase``, ``dual`` and ``step_count ()``, or the path
+            ``partitioning``, ``phase``, ``dual``, ``mix_filter``,
+            ``noise_covariance``, ``diagonalizer``, ``spatial_covariance``
+            and ``step_count ()``, or the path
             of an ``.npz`` written by the JAX ``save_state``.
         device: where the tensors go; ``None`` means ``"cuda"``.
     Returns:

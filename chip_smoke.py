@@ -75,7 +75,18 @@ Phases (each asserts; any failure exits non-zero):
      to the image than the mixture is; no kernel launched
      by FDICA, Prox or the beamformers; ms, host ms and the device's busy
      time per iteration (IDLMA against GaussILRMA IP);
- 10. one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
+ 10. MNMF through the entry points at n_basis = 10 from the seed-111 init, on
+     phase 3's mixture: FastMultichannelISNMF x 100 (K1 per bin, N = 2, once
+     per iteration, SI-SDR up by more than 5 dB), MultichannelISNMF Sawada x
+     100 and Ozerov x 50 (no kernel, SI-SDR within 0.1 dB of the port's CPU
+     float64 run); for each, finite losses, the last below the first, the
+     first 20 losses against the CPU float64 run (Sawada: the increments
+     L_k - L_0 at 1e-4, its first loss and its output apart; Ozerov at its
+     float32 tolerance) with a CPU float32 run's gaps beside, ms and host ms
+     per iteration, the device's busy time (FastMNMF, Sawada); then on phase
+     5's mixture FastMNMF x 20 (K1 per bin, N = 3), Sawada x 10 (the matrix
+     Riccati) and Ozerov x 10, finite;
+ 11. one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
      line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds K2's Gauss instance at both shapes, K1 at C = 3 with
@@ -91,6 +102,7 @@ when CUDA is not available.
 """
 
 import argparse
+import functools
 import itertools
 import json
 import math
@@ -118,11 +130,13 @@ from audio_source_separation_tpu_torch import (
     ConsistentGaussILRMA,
     CovarianceISNMF,
     DelaySumBeamformer,
+    FastMultichannelISNMF,
     GaussIDLMA,
     GaussILRMA,
     GradLaplaceFDICA,
     GradLaplaceIVA,
     MaxSNRBeamformer,
+    MultichannelISNMF,
     MVDRBeamformer,
     NaturalGradLaplaceFDICA,
     NaturalGradLaplaceIVA,
@@ -162,6 +176,7 @@ ITERS_ISS_IP2, ITERS_SHORT, ITERS_C5 = 50, 20, 10
 ITERS_ILRMA, ITERS_T_NU1 = 50, 150
 ITERS_FACTOR, FACTOR_BASIS = 50, 10
 ITERS_IDLMA, ITERS_SLICE5, IDLMA_HIDDEN = 20, 100, 512
+ITERS_MNMF, ITERS_OZEROV, ITERS_MNMF_C3 = 100, 50, 10
 EPS, THRESHOLD = 1e-12, 1e12
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 non-tensor
 HBM_BYTES_PER_S = 3.35e12
@@ -644,9 +659,10 @@ def five_channels(rng):
 # --------------------------------------------------------------------------- #
 # phase 7: ILRMA, K1 with per-bin weights
 # --------------------------------------------------------------------------- #
-def ilrma_drive(make, mixture, iterations):
+def seeded_drive(make, mixture, iterations):
     """:func:`drive` from the seed-111 init (``np.random``, as the JAX
-    package draws it); ISS's "in progress" warning silenced."""
+    package draws it); the "in progress" warnings (ILRMA ISS, Ozerov MNMF)
+    silenced."""
     np.random.seed(SEED)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
@@ -661,12 +677,12 @@ def ilrma_c2(mixture, images):
     def gauss(**kw):
         return lambda **more: GaussILRMA(n_basis=10, **kw, **more)
 
-    X, _, y, loss, main = ilrma_drive(gauss(), mixture, ITERS_ILRMA)
+    X, _, y, loss, main = seeded_drive(gauss(), mixture, ITERS_ILRMA)
     assert main["k1_launches"] == ITERS_ILRMA and main["k2_launches"] == 0, main
     assert loss[-1] < loss[0], ("ILRMA IP", loss[0], loss[-1])
     main["si_sdr_before_db"], main["si_sdr_after_db"] = before, best_pairing_si_sdr(y, images)
     if main["si_sdr_after_db"] <= before + 5.0:  # the bar stays; n_basis = 2 is held to it
-        _, _, y2, _, two = ilrma_drive(lambda: GaussILRMA(n_basis=2), mixture, ITERS_ILRMA)
+        _, _, y2, _, two = seeded_drive(lambda: GaussILRMA(n_basis=2), mixture, ITERS_ILRMA)
         two["si_sdr_after_db"] = best_pairing_si_sdr(y2, images)
         main["n_basis_2"] = two
         assert two["si_sdr_after_db"] > before + 5.0, ("ILRMA SI-SDR", before, main["si_sdr_after_db"], two)
@@ -684,7 +700,7 @@ def ilrma_c2(mixture, images):
         ("consistent", lambda **kw: ConsistentGaussILRMA(n_basis=10, fft_size=FFT_SIZE, hop_size=HOP_SIZE, **kw),
          ITERS_SHORT),
     ]:
-        X, _, y, loss, res = ilrma_drive(make, mixture, ITERS_SHORT)
+        X, _, y, loss, res = seeded_drive(make, mixture, ITERS_SHORT)
         assert res["k1_launches"] == k1 and res["k2_launches"] == 0, (key, res)
         assert loss[-1] < loss[0], (key, loss[0], loss[-1])
         res["si_sdr_before_db"], res["si_sdr_after_db"] = before, best_pairing_si_sdr(y, images)
@@ -694,7 +710,7 @@ def ilrma_c2(mixture, images):
         out[key] = res
     # the JAX package's float32 regression (tests/test_ilrma.py, nu = 1):
     # weights over about 10 decades; the guard and denom_floor keep it finite
-    _, _, y, loss, res = ilrma_drive(lambda: TILRMA(n_basis=10, nu=1), mixture, ITERS_T_NU1)
+    _, _, y, loss, res = seeded_drive(lambda: TILRMA(n_basis=10, nu=1), mixture, ITERS_T_NU1)
     assert res["k1_launches"] == ITERS_T_NU1, res
     res["si_sdr_before_db"], res["si_sdr_after_db"] = before, best_pairing_si_sdr(y, images)
     out["t_nu1_f32"] = res
@@ -703,7 +719,7 @@ def ilrma_c2(mixture, images):
 
 def ilrma_c3(mixture, images):
     """GaussILRMA(n_basis=4) IP x 20 at C = 3: K1 per bin with N = 3."""
-    X, _, y, loss, res = ilrma_drive(lambda: GaussILRMA(n_basis=4), mixture, ITERS_SHORT)
+    X, _, y, loss, res = seeded_drive(lambda: GaussILRMA(n_basis=4), mixture, ITERS_SHORT)
     assert res["k1_launches"] == ITERS_SHORT and res["k2_launches"] == 0, res
     assert loss[-1] < loss[0], ("ILRMA C = 3", loss[0], loss[-1])
     res["si_sdr_before_db"] = best_pairing_si_sdr(mixture, images)
@@ -1075,6 +1091,144 @@ def beamformers(rng, failed):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 10: MNMF
+# --------------------------------------------------------------------------- #
+# key, class, kwargs, iterations on the card, K1 launches per iteration, the
+# SI-SDR's hold (None: up by more than 5 dB; else within that many dB of the
+# port's CPU float64 run, as Sawada separates slowly from the seed-111 init
+# and Ozerov's posterior mean from a random init scores far below the mixture,
+# benchmarks/QUALITY.md), the tolerance of the first N_MATCH losses against the
+# CPU float64 run, then, where not None, the tolerance of the first loss alone
+# (the row then holds the increments L_k - L_0 relative to |L_0| at the one
+# before) and of the output against the CPU float64 run's, relative to its
+# largest entry.  Sawada's loss holds the log-determinant of the rank-1
+# observed covariance, whose small eigenvalue is rounding noise at float32: a
+# constant of the data, 1.8e-2 of the first loss on this mixture in a CPU
+# float32 run.  Its output leaves float64 in a few bins where float32's
+# Riccati solve is ill-conditioned (2.6e-3 of the largest entry after 10
+# iterations in a CPU float32 run), and Ozerov's losses leave it by 2.8e-4
+# through its float32 guards (the noise floor at 100 eps_machine, not 1e-12)
+# and the EM's growth of rounding (tests/check_mnmf_float32.py; the CPU
+# float32 gaps move with the CPU's thread count).  Ozerov's output at -36 dB
+# barely correlates with the sources, so its SI-SDR moves by tenths of a dB
+# with that drift (0.16 dB apart on an H100 at float32).  This run reads
+# each CPU float32 gap again, beside the card's (PERF.md)
+MNMF_CASES = [
+    ("fast_mnmf", FastMultichannelISNMF, {}, ITERS_MNMF, 1, None, LOSS_MATCH_RTOL, None, None),
+    ("sawada", MultichannelISNMF, {"author": "Sawada"}, ITERS_MNMF, 0, 0.1, LOSS_MATCH_RTOL, 0.1, 0.05),
+    ("ozerov", MultichannelISNMF, {"author": "Ozerov"}, ITERS_OZEROV, 0, 0.5, 1e-3, None, None),
+]
+
+
+def loss_gaps(loss, reference, first_rtol):
+    """Relative gaps of ``loss`` to ``reference`` over its length: of the
+    losses, or where ``first_rtol`` is given, of the increments ``L_k - L_0``
+    relative to ``|L_0|``, with the first loss's gap apart."""
+    b = np.asarray(reference)
+    a = np.asarray(loss[: len(b)])
+    if first_rtol is None:
+        return np.abs(a - b) / np.abs(b), None
+    return np.abs((a - a[0]) - (b - b[0])) / abs(b[0]), float(abs(a[0] - b[0]) / abs(b[0]))
+
+
+def mnmf(mixture, images, mixture3, images3, failed):
+    """Every case of ``MNMF_CASES`` on the C = 2 mixture from the seed-111
+    init: K1 launches, falling finite losses, the SI-SDR, the first
+    ``N_MATCH`` losses against the port's CPU float64 run (and a CPU float32
+    run's gap beside), ms and host ms per iteration, the device's busy time
+    (FastMNMF, Sawada); then FastMNMF, Sawada (the matrix Riccati) and Ozerov
+    on the C = 3 mixture, finite."""
+    before = best_pairing_si_sdr(mixture, images)
+    X_cpu = stft(mixture, fft_size=FFT_SIZE, hop_size=HOP_SIZE, device="cpu")
+    X_cpu32 = stft(mixture.astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE, device="cpu")
+    out = {}
+    for key, cls, kw, iterations, k1_per_iteration, si_sdr_db, rtol, first_rtol, output_rtol in MNMF_CASES:
+
+        def make(cls=cls, kw=kw, **more):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                return cls(n_basis=FACTOR_BASIS, **kw, **more)
+
+        X, Y, y, loss, res = seeded_drive(make, mixture, iterations)
+        res["si_sdr_before_db"], res["si_sdr_after_db"] = before, best_pairing_si_sdr(y, images)
+        # the CPU float64 run from the same draws, and a CPU float32 run for
+        # float32's share of the gaps: the losses, and where the SI-SDR is
+        # held to float64's, the outputs at the card's count
+        start = time.perf_counter()
+        cpu_iterations = N_MATCH - 1 if si_sdr_db is None else iterations
+        references, Y_cpu = {}, {}
+        for precision, X_ in (("f64", X_cpu), ("f32", X_cpu32)):
+            np.random.seed(SEED)
+            references[precision] = make(device="cpu")
+            Y_cpu[precision] = references[precision](X_, iteration=cpu_iterations)
+        res["cpu_s"] = time.perf_counter() - start
+        expected = references["f64"].loss[:N_MATCH]
+        gaps, first_gap = loss_gaps(loss, expected, first_rtol)
+        gaps32, first_gap32 = loss_gaps(references["f32"].loss, expected, first_rtol)
+        res.update(
+            loss_vs_cpu_f64_max_rel=float(gaps.max()), at_iteration=int(gaps.argmax()), tolerance=rtol,
+            cpu_f32_vs_cpu_f64_max_rel=float(gaps32.max()), cpu_f32_at_iteration=int(gaps32.argmax()),
+        )
+        checks = {
+            "K1 launches": res["k1_launches"] == iterations * k1_per_iteration and res["k2_launches"] == 0,
+            "loss length": len(loss) == iterations + 1,
+            "loss falls": loss[-1] < loss[0],
+            "loss vs CPU float64 within {}".format(rtol): gaps.max() <= rtol,
+        }
+        if first_rtol is not None:
+            res.update(
+                held="increments L_k - L_0 over |L_0|; the first loss apart",
+                first_loss_vs_cpu_f64_rel=first_gap, first_tolerance=first_rtol,
+                cpu_f32_first_loss_vs_cpu_f64_rel=first_gap32,
+            )
+            checks["first loss vs CPU float64 within {}".format(first_rtol)] = first_gap <= first_rtol
+        if si_sdr_db is None:
+            checks["SI-SDR up by more than 5 dB"] = res["si_sdr_after_db"] > before + 5.0
+        else:
+            y_cpu = {
+                precision: istft(Y_, fft_size=FFT_SIZE, hop_size=HOP_SIZE, length=mixture.shape[-1], device="cpu")
+                for precision, Y_ in Y_cpu.items()
+            }
+            res["si_sdr_cpu_f64_db"] = best_pairing_si_sdr(y_cpu["f64"].numpy(), images)
+            res["si_sdr_cpu_f32_db"] = best_pairing_si_sdr(y_cpu["f32"].numpy(), images)
+            res["output_vs_cpu_f64_max_rel"] = rel_gap(Y, Y_cpu["f64"])
+            res["cpu_f32_output_vs_cpu_f64_max_rel"] = rel_gap(Y_cpu["f32"], Y_cpu["f64"])
+            res["si_sdr_tolerance_db"] = si_sdr_db
+            checks["SI-SDR within {} dB of CPU float64".format(si_sdr_db)] = (
+                abs(res["si_sdr_after_db"] - res["si_sdr_cpu_f64_db"]) <= si_sdr_db
+            )
+        if output_rtol is not None:
+            res["output_tolerance"] = output_rtol
+            output_ok = res["output_vs_cpu_f64_max_rel"] <= output_rtol
+            checks["output vs CPU float64 within {}".format(output_rtol)] = output_ok
+        record_checks(failed, key, checks)
+        timed = lambda recordable_loss, make=make: make(recordable_loss=recordable_loss)  # noqa: E731
+        res["per_iter_loss_on"] = per_iteration(X, True, timed, ITERS_SHORT)
+        res["per_iter_loss_off"] = per_iteration(X, False, timed, ITERS_SHORT)
+        if key != "ozerov":
+            res["device_ms_per_iter"] = device_ms_per_iteration(timed, X)
+        out[key] = res
+
+    before3 = best_pairing_si_sdr(mixture3, images3)
+    for key, make, iterations, k1_per_iteration in [
+        ("fast_mnmf_c3", functools.partial(FastMultichannelISNMF, n_basis=FACTOR_BASIS), ITERS_SHORT, 1),  # N = 3
+        ("sawada_c3", functools.partial(MultichannelISNMF, n_basis=FACTOR_BASIS), ITERS_MNMF_C3, 0),  # matrix Riccati
+        ("ozerov_c3", functools.partial(MultichannelISNMF, n_basis=FACTOR_BASIS, author="Ozerov"), ITERS_MNMF_C3, 0),
+    ]:
+        X, Y, y, loss, res = seeded_drive(make, mixture3, iterations)
+        res["si_sdr_before_db"], res["si_sdr_after_db"] = before3, best_pairing_si_sdr(y, images3)
+        record_checks(failed, key, {
+            "K1 launches": res["k1_launches"] == iterations * k1_per_iteration and res["k2_launches"] == 0,
+            "loss length": len(loss) == iterations + 1,
+            "output shape": tuple(Y.shape) == tuple(X.shape),
+        })
+        if key == "fast_mnmf_c3":
+            res["per_iter_loss_off"] = per_iteration(X, False, make, ITERS_SHORT)
+        out[key] = res
+    return out
+
+
 def profile_c2(X, path):
     """torch.profiler table of a 20-iteration C = 2 solver call, and the
     device time of each kernel per iteration."""
@@ -1182,6 +1336,15 @@ def main():
     slice5_launches = {
         kernel: sum(slice5[key][kernel + "_launches"] for key in no_kernel_paths) for kernel in ("k1", "k2")
     }
+    start = time.perf_counter()
+    mnmf_failed = []
+    mnmf_runs = mnmf(*mix2, *mix3, mnmf_failed)
+    mnmf_runs["phase_s"] = time.perf_counter() - start
+    print(json.dumps({"mnmf": mnmf_runs}), flush=True)
+    assert not mnmf_failed, mnmf_failed
+    mnmf_keys = [key for key in mnmf_runs if key != "phase_s"]
+    mnmf_k1_no_kernel = sum(mnmf_runs[key]["k1_launches"] for key in mnmf_keys if not key.startswith("fast"))
+    mnmf_k2 = sum(mnmf_runs[key]["k2_launches"] for key in mnmf_keys)
     if args.profile:
         prof = profile_c2(X2, ROOT / "chiprun_out" / "profile_c2.txt")
         print(json.dumps({"profile_c2": prof}), flush=True)
@@ -1223,6 +1386,9 @@ def main():
                 "idlma_mlp_c2": slice5["idlma_mlp"]["k1_launches"],
                 "idlma_oracle_c2": slice5["idlma_oracle"]["k1_launches"],
                 "fdica_prox_beamformers": slice5_launches["k1"],
+                "fast_mnmf_c2": mnmf_runs["fast_mnmf"]["k1_launches"],
+                "fast_mnmf_c3": mnmf_runs["fast_mnmf_c3"]["k1_launches"],
+                "sawada_ozerov": mnmf_k1_no_kernel,
             },
             "max_abs_err": max(c["max_abs_err"] for c in k1_all),
             "max_rel_err": max(c["rel_err"] for c in k1_all),
@@ -1242,13 +1408,13 @@ def main():
             "fused_auxiva_ip (K2, Laplace contrast)", k2, k2_long, c2["k2_launches"],
             {"laplace_ip_c2": c2["k2_launches"], "laplace_ip_c2_long": c2_long["k2_launches"],
              "over_4to2": over["k2_launches"], "factorisation": factor_launches["k2"],
-             "fdica_prox_beamformers": slice5_launches["k2"]},
+             "fdica_prox_beamformers": slice5_launches["k2"], "mnmf": mnmf_k2},
             K2_RTOL,
         ),
         k2_entry(
             "fused_auxiva_ip (K2, Gauss contrast)", k2_gauss, k2_gauss_long, fam2["gauss_ip"]["k2_launches"],
             {"gauss_ip_c2": fam2["gauss_ip"]["k2_launches"], "factorisation": factor_launches["k2"],
-             "fdica_prox_beamformers": slice5_launches["k2"]}, K2_GAUSS_RTOL,
+             "fdica_prox_beamformers": slice5_launches["k2"], "mnmf": mnmf_k2}, K2_GAUSS_RTOL,
         ),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,6 @@
 """Shared inputs for the port's factorisation tests: seeded targets of each
 model's kind and seeded initial factors, the same NumPy arrays for the JAX
-package and the port."""
+package and the port; and the loss comparison of the MNMF tests."""
 
 import numpy as np
 import torch
@@ -77,3 +77,17 @@ def make_target(kind, rng, n_channels=2):
     if kind == "ntf":
         return tensor_target(rng)
     return covariance_target(rng, n_channels=n_channels)
+
+
+def assert_losses_match(ours, ref, rtol=1e-9, first_rtol=None):
+    """Loss trajectories at ``rtol``.  Where ``first_rtol`` is given, the
+    loss holds a constant of the data whose value is rounding noise (Sawada
+    MNMF's rank-1 log-determinant): the increments ``L_k - L_0`` are held at
+    ``rtol`` of ``|L_0|`` and ``L_0`` at ``first_rtol``."""
+    ours, ref = np.asarray(ours), np.asarray(ref)
+    assert ours.shape == ref.shape
+    if first_rtol is None:
+        np.testing.assert_allclose(ours, ref, rtol=rtol)
+        return
+    np.testing.assert_allclose(ours[0], ref[0], rtol=first_rtol)
+    np.testing.assert_allclose(ours - ours[0], ref - ref[0], rtol=0, atol=rtol * abs(ref[0]))

@@ -7,6 +7,8 @@ on its own:
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -28,14 +30,18 @@ from audio_source_separation_tpu_torch import (
     ConsistentGaussILRMA,
     CovarianceISNMF,
     DelaySumBeamformer,
+    FastMultichannelISNMF,
     GaussIDLMA,
     GaussILRMA,
     GradLaplaceFDICA,
     MaxSNRBeamformer,
+    MultichannelISNMF,
     MVDRBeamformer,
     NaturalGradLaplaceFDICA,
     OverAuxLaplaceIVA,
     ProxLaplaceIVA,
+    build_optimal_window,
+    build_window,
     torch_dnn,
     whitening,
 )
@@ -397,3 +403,51 @@ def test_beamformers_on_the_card(cuda):
         err = (Y.cpu().to(torch.complex128) - expected).abs().max() / expected.abs().max()
         assert err <= 1e-4, err
     assert weighted_covariance_planes.launches == fused_auxiva_ip_iter.launches == 0
+
+
+@pytest.mark.parametrize("C", [2, 3])
+def test_fast_mnmf_runs_through_k1_per_bin(cuda, C):
+    """Every FastMNMF iteration on the card forms its diagonaliser
+    covariances by one K1 launch with per-bin ``(C, F, T)`` weights; the
+    losses hold the port's CPU float64 run from the same draws at 1e-4."""
+    X = _mixture(C + 20, C, 129, 300, cuda)
+    weighted_covariance_planes.launches = fused_auxiva_ip_iter.launches = 0
+    np.random.seed(111)
+    solver = FastMultichannelISNMF(n_basis=4)
+    Y = solver(X, iteration=10)
+    torch.cuda.synchronize()
+    assert weighted_covariance_planes.launches == 10 and fused_auxiva_ip_iter.launches == 0
+    assert Y.device.type == "cuda" and torch.isfinite(Y).all() and np.isfinite(solver.loss).all()
+    np.random.seed(111)
+    reference = FastMultichannelISNMF(n_basis=4, device="cpu")
+    reference(X.cpu().to(torch.complex128), iteration=10)
+    np.testing.assert_allclose(solver.loss, reference.loss, rtol=1e-4)
+
+
+@pytest.mark.parametrize("author", ["Sawada", "Ozerov"])
+def test_mnmf_on_the_card(cuda, author):
+    """Sawada and Ozerov at C = 2 on the card: finite, the loss falls, no
+    kernel launched."""
+    X = _mixture(23, 2, 129, 300, cuda)
+    weighted_covariance_planes.launches = fused_auxiva_ip_iter.launches = 0
+    np.random.seed(111)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # Ozerov's "in progress"
+        solver = MultichannelISNMF(n_basis=4, author=author)
+    Y = solver(X, iteration=10)
+    torch.cuda.synchronize()
+    assert weighted_covariance_planes.launches == fused_auxiva_ip_iter.launches == 0
+    assert Y.device.type == "cuda" and tuple(Y.shape) == tuple(X.shape) and torch.isfinite(Y).all()
+    assert np.isfinite(solver.loss).all() and solver.loss[-1] < solver.loss[0]
+
+
+def test_build_window_runs_on_the_card(cuda):
+    w = build_window(64)
+    assert w.device.type == "cuda" and w.dtype == torch.float64
+    optimal = build_optimal_window(np.hanning(64), hop_size=16)
+    assert optimal.device.type == "cuda"
+    np.testing.assert_allclose(
+        build_optimal_window(w, hop_size=16).cpu().numpy(),
+        build_optimal_window(w.cpu(), hop_size=16).numpy(),
+        rtol=1e-12,
+    )

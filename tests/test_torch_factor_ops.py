@@ -119,6 +119,14 @@ def test_planes_helpers(rng, n):
 
 
 @pytest.mark.parametrize("n", [1, 2, 3])
+def test_psd_parts_planes(rng, n):
+    """The ``to_psd`` projection and its eigenvalues on indefinite,
+    non-Hermitian planes (the shift is taken), at two ridges."""
+    A = _planes(rng.randn(4, 5, n, n) + 1j * rng.randn(4, 5, n, n))
+    same(lambda lib, A: [lib.fl.psd_parts_planes(A), lib.fl.psd_parts_planes(A, eps=1e-3)], A)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
 def test_compact_hermitian_helpers(rng, n):
     """Every compact helper, with and without a ridge, against JAX."""
     M, X = _psd(rng, (4, 5), n), _psd(rng, (4, 5), n)

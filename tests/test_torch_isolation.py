@@ -100,6 +100,13 @@ def test_port_imports_with_jax_blocked():
         assert port.EUCNTF(device="cpu")(np.abs(X) ** 2, iteration=2)[0].shape == (2, 2)
         covariance = np.einsum("cft,dft->ftcd", X, X.conj())
         assert port.CovarianceISNMF(n_basis=2, device="cpu")(covariance, iteration=2)[0].shape == (5, 2, 2, 2)
+        for solver in (
+            port.MultichannelISNMF(n_basis=2, device="cpu"),
+            port.MultichannelISNMF(n_basis=2, author="Ozerov", device="cpu"),
+            port.FastMultichannelISNMF(n_basis=2, device="cpu"),
+        ):
+            assert solver(X, iteration=2).shape == (2, 5, 8)
+        port.MultichanneltNMF(device="cpu")
         import torch
         from audio_source_separation_tpu_torch.algorithm import permutation
         for solver in (

@@ -15,6 +15,7 @@ import torch
 import audio_source_separation_tpu.models as jax_models
 import audio_source_separation_tpu_torch as port
 import audio_source_separation_tpu_torch.models as port_models
+from audio_source_separation_tpu_torch.models import mnmf as port_mnmf
 from audio_source_separation_tpu_torch.models import nmf as port_nmf
 
 from _torch_port import ITERATIONS, N_BASIS, covariance_target, factors, make_target, to_np
@@ -95,11 +96,12 @@ def test_covariance_isnmf_float32_dynamic_range(rng):
 
 def test_exports_match_jax():
     """The JAX names of slice 4: ``tNMF`` is ``TNMF``; ``CovarianceISNMF``
-    is ``models.nmf.MultichannelISNMF``, and the top-level
-    ``MultichannelISNMF`` stays free for the BSS solver."""
+    is ``models.nmf.MultichannelISNMF``, and the top-level and ``models``
+    ``MultichannelISNMF`` is the BSS solver, ``models.mnmf``'s, as in the
+    JAX package."""
     for name in ("EUCNMF", "KLNMF", "ISNMF", "TNMF", "tNMF", "CauchyNMF", "ComplexEUCNMF", "CovarianceISNMF", "EUCNTF"):
         assert hasattr(jax_models, name) and name in port_models.__all__ and hasattr(port, name), name
     assert port.tNMF is port.TNMF
-    assert port.CovarianceISNMF is port_nmf.MultichannelISNMF
-    assert not hasattr(port, "MultichannelISNMF") and not hasattr(port_models, "MultichannelISNMF")
+    assert port.CovarianceISNMF is port_models.CovarianceISNMF is port_nmf.MultichannelISNMF
+    assert port.MultichannelISNMF is port_models.MultichannelISNMF is port_mnmf.MultichannelISNMF
     assert callable(port.solve_riccati)

@@ -27,11 +27,8 @@ from audio_source_separation_tpu_torch.utils import linalg, eye_like_filter, par
 from _torch_port import to_np
 from conftest import make_mixture
 
-# the names of slices 6 (MNMF) and 7 (IPSDTA, PSDTF), not ported yet
+# the names of slice 7 (IPSDTA, PSDTF), not ported yet
 DEFERRED_MODELS = {
-    "MultichannelISNMF",
-    "MultichanneltNMF",
-    "FastMultichannelISNMF",
     "GaussIPSDTA",
     "TIPSDTA",
     "tIPSDTA",

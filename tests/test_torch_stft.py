@@ -54,16 +54,29 @@ def test_round_trip_with_length(rng):
     np.testing.assert_allclose(y.numpy(), x, atol=1e-10)
 
 
-def test_windows():
+@pytest.mark.parametrize("device", ["cpu"])
+def test_windows(device):
     for fn in ("hann", "hamming", "boxcar"):
-        w = build_window(64, window_fn=fn).numpy()
+        w = build_window(64, window_fn=fn, device=device).numpy()
         np.testing.assert_allclose(w, scipy.signal.get_window(fn, 64), rtol=1e-12, atol=1e-15)
-    w = build_window(64)
-    np.testing.assert_allclose(
-        build_optimal_window(w, hop_size=16).numpy(),
-        np.asarray(j_build_optimal_window(jnp.asarray(w.numpy()), hop_size=16)),
-        rtol=1e-12,
-    )
+    w = build_window(64, device=device)
+    expected = np.asarray(j_build_optimal_window(jnp.asarray(w.numpy()), hop_size=16))
+    np.testing.assert_allclose(build_optimal_window(w, hop_size=16).numpy(), expected, rtol=1e-12)
+    # a NumPy window goes to ``device``; a tensor stays where it is
+    optimal = build_optimal_window(w.numpy(), hop_size=16, device=device)
+    assert optimal.device.type == device
+    np.testing.assert_allclose(optimal.numpy(), expected, rtol=1e-12)
+
+
+def test_build_window_defaults_to_cuda(monkeypatch):
+    """``build_window`` and ``build_optimal_window`` of a NumPy window run on
+    the card unless asked for the CPU, and raise without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_window(64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_optimal_window(np.hanning(64), hop_size=16)
+    assert build_optimal_window(build_window(64, device="cpu"), hop_size=16).device.type == "cpu"
 
 
 @pytest.mark.parametrize("n_sources", [2, 3, 4])
