@@ -29,7 +29,11 @@ variance network in the loop on the device (``torch_dnn``), ``whitening``,
 ``utils/linalg.py`` helpers -- and the MNMF family (``models/mnmf.py``):
 ``MultichannelISNMF`` (the Sawada and Ozerov solvers), ``FastMultichannelISNMF``
 with its diagonaliser covariances through K1 per bin, and the
-``MultichanneltNMF`` stub.
+``MultichanneltNMF`` stub -- and the block-PSD models (``models/ipsdta.py``,
+``models/psdtf.py``): ``GaussIPSDTA`` (Kondo's MM and VCD, with the VCD
+covariances through K1 per bin; Ikeshita's EM and fixed point), ``TIPSDTA``
+(alias ``tIPSDTA``) and ``LDPSDTF``, on the padded block layout
+``ops.BlockLayout``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise rather than fall back.
@@ -53,6 +57,7 @@ from .models import (  # noqa: F401
     ISNMF,
     KLNMF,
     TILRMA,
+    TIPSDTA,
     TNMF,
     AuxGaussIVA,
     AuxLaplaceIVA,
@@ -64,10 +69,12 @@ from .models import (  # noqa: F401
     FastMultichannelISNMF,
     GaussIDLMA,
     GaussILRMA,
+    GaussIPSDTA,
     GGDILRMA,
     GradLaplaceFDICA,
     GradLaplaceIVA,
     KLILRMA,
+    LDPSDTF,
     MaxSNRBeamformer,
     MultichannelISNMF,
     MultichanneltNMF,
@@ -85,6 +92,7 @@ from .models import (  # noqa: F401
     ml_beamform,
     mvdr_beamform,
     tILRMA,
+    tIPSDTA,
     tNMF,
     torch_dnn,
 )

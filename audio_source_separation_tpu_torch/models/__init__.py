@@ -18,6 +18,7 @@ from .ilrma import (  # noqa: F401
     RegularizedILRMA,
     tILRMA,
 )
+from .ipsdta import TIPSDTA, GaussIPSDTA, tIPSDTA  # noqa: F401
 from .iva import (  # noqa: F401
     AuxGaussIVA,
     AuxLaplaceIVA,
@@ -36,6 +37,7 @@ from .nmf import EUCNMF, ISNMF, KLNMF, TNMF, CauchyNMF, ComplexEUCNMF, tNMF  # n
 from .nmf import MultichannelISNMF as CovarianceISNMF  # noqa: F401
 from .ntf import EUCNTF  # noqa: F401
 from .prox import PDSBSSBase, ProxLaplaceIVA, SparseProxIVA  # noqa: F401
+from .psdtf import LDPSDTF  # noqa: F401
 
 __all__ = [
     "GradLaplaceIVA",
@@ -77,4 +79,8 @@ __all__ = [
     "FastMultichannelISNMF",
     "GaussIDLMA",
     "torch_dnn",
+    "GaussIPSDTA",
+    "TIPSDTA",
+    "tIPSDTA",
+    "LDPSDTF",
 ]

@@ -1,6 +1,8 @@
-"""Per-bin C x C math and the two hand-written kernels (K1 in
-``cov_kernel.py``, K2 in ``fused_ip.py``; sources in ``../csrc``)."""
+"""Per-bin C x C math, the padded block layout of the block-PSD models
+(``blocks.py``) and the two hand-written kernels (K1 in ``cov_kernel.py``,
+K2 in ``fused_ip.py``; sources in ``../csrc``)."""
 
+from .blocks import BlockLayout
 from .covariance import spatial_covariance, weighted_covariance, weighted_covariance_auto
 from .eig2 import eig2x2, generalized_eig2x2_descending
 from .fast_linalg import batched_det, batched_inv, batched_log_abs_det
@@ -23,4 +25,5 @@ __all__ = [
     "batched_det",
     "batched_inv",
     "batched_log_abs_det",
+    "BlockLayout",
 ]

@@ -2,8 +2,8 @@
 
 Planes layout: the matrix axes lead (``P (n, n, ...batch)``), so every slice
 ``P[i, j]`` is a whole plane over the batch axes (bins, in practice).
-Projection-back, the IP2 planes update and the covariance-domain NMF use
-these.  The trailing-axes forms (``A (..., n, n)``) serve the matrix-layout
+Projection-back, the IP2 planes update, the covariance-domain NMF and
+IPSDTA's VCD use these.  The trailing-axes forms (``A (..., n, n)``) serve the matrix-layout
 IP, IP2 and NLL paths and the divergences.  Compact Hermitian planes (the
 last section) store a Hermitian field as ``n^2`` real planes.
 """
@@ -230,12 +230,47 @@ def batched_log_abs_det(A):
     return torch.linalg.slogdet(A).logabsdet
 
 
+def matmul_small(A, B):
+    """Batched matmul on trailing ``n x n`` axes as unrolled products of
+    entries for n <= 3; ``@`` otherwise."""
+    n = A.shape[-1]
+    if n > 3 or B.shape[-2] != n:
+        return A @ B
+    rows = [
+        torch.stack([_sum(A[..., i, k] * B[..., k, j] for k in range(n)) for j in range(B.shape[-1])], dim=-1)
+        for i in range(n)
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def blockwise_inv(A):
+    """Inverse of batched ``(..., n, n)`` matrices with even ``n`` and ``n / 2
+    <= 3`` by the 2 x 2-block Schur complement, each half-size block by its
+    closed form; ``torch.linalg.inv`` otherwise.  The leading ``n / 2``
+    block must be invertible."""
+    n = A.shape[-1]
+    h = n // 2
+    if n % 2 != 0 or h > 3:
+        return torch.linalg.inv_ex(A).inverse
+    A11, A12 = A[..., :h, :h], A[..., :h, h:]
+    A21, A22 = A[..., h:, :h], A[..., h:, h:]
+    inv11 = batched_inv(A11)
+    B = inv11 @ A12  # A11^-1 A12
+    invS = batched_inv(A22 - A21 @ B)  # the Schur complement's inverse
+    C = A21 @ inv11  # A21 A11^-1
+    top_right = -B @ invS
+    bottom_left = -invS @ C
+    top_left = inv11 - top_right @ C
+    return torch.cat([torch.cat([top_left, top_right], dim=-1), torch.cat([bottom_left, invS], dim=-1)], dim=-2)
+
+
 # Compact Hermitian planes: a Hermitian (n, n, ...) field stored as n^2 real
 # planes -- the n diagonal planes, then an (re, im) pair per off-diagonal
 # c < d (the ``ops.ip_components._plane_index`` order, the layout of the
 # solvers' pair-product planes).  Half the memory traffic of complex
 # (n, n, ...) planes for every Hermitian intermediate of the covariance-domain
-# chains (X^, X^-1 and X^-1 X X^-1 in ``models/nmf.py``).
+# chains (X^, X^-1 and X^-1 X X^-1 in ``models/nmf.py``; IPSDTA's R, R^-1 and
+# R^-2 in ``models/ipsdta.py``).
 
 
 def _n_of(planes):
@@ -420,3 +455,74 @@ def expand_hermitian_compact_trailing(small, n):
     """Trailing-compact real ``(..., n^2)`` -> complex ``(..., n, n)`` (the
     small per-(bin, basis) matrices of a frame contraction)."""
     return expand_hermitian_compact(small.movedim(-1, 0)).movedim((0, 1), (-2, -1))
+
+
+def trace_hermitian_compact(planes):
+    """Real trace of a compact Hermitian field ``(n^2, ...) -> (...)``: the
+    sum of its ``n`` diagonal planes."""
+    tr = planes[0]
+    for i in range(1, _n_of(planes)):
+        tr = tr + planes[i]
+    return tr
+
+
+def eigvalsh_hermitian_compact(planes):
+    """Eigenvalues (ascending, stacked leading) of a compact Hermitian field
+    ``(n^2, ...) -> (n, ...)``, n <= 3: :func:`hermitian_eigvalsh_planes`'
+    closed forms, ``|b|^2`` read from the (re, im) planes."""
+    n = _n_of(planes)
+    if n == 1:
+        return planes[:1]
+    if n == 2:
+        a, d, br, bi = planes[0], planes[1], planes[2], planes[3]
+        mean = (a + d) / 2
+        rad = torch.sqrt(((a - d) / 2) ** 2 + br * br + bi * bi)
+        return torch.stack([mean - rad, mean + rad])
+    if n != 3:
+        raise ValueError("eigvalsh_hermitian_compact: closed forms cover n <= 3, got {}".format(n))
+    q = (planes[0] + planes[1] + planes[2]) / 3
+    p1 = _sum(planes[i] ** 2 for i in range(3, 9))
+    p2 = _sum((planes[i] - q) ** 2 for i in range(3)) + 2 * p1
+    degenerate = p2 <= 0
+    p = torch.sqrt(torch.where(degenerate, 1.0, p2) / 6)
+    # det((M - q I) / p) = det(M - q I) / p^3, real for a Hermitian M
+    r = torch.clamp(det_hermitian_compact(planes, ridge=-q) / (2 * p**3), -1.0, 1.0)
+    phi = torch.arccos(r) / 3
+    e_hi = q + 2 * p * torch.cos(phi)
+    e_lo = q + 2 * p * torch.cos(phi + 2 * math.pi / 3)
+    e_mid = 3 * q - e_hi - e_lo
+    return torch.where(degenerate, q, torch.stack([e_lo, e_mid, e_hi]))
+
+
+def add_diag_hermitian_compact(planes, s):
+    """The real plane ``s (...)`` added to the diagonal planes of a compact
+    Hermitian field ``(n^2, ...)``."""
+    n = _n_of(planes)
+    return torch.cat([planes[:n] + s[None], planes[n:]])
+
+
+def psd_parts_hermitian_compact(planes, eps=1e-12):
+    """:func:`psd_parts_planes` on a compact Hermitian field (hermitisation
+    is implicit in the storage): ``(to_psd(M), eigenvalues of to_psd(M))``."""
+    w = eigvalsh_hermitian_compact(planes)
+    shift = eps * trace_hermitian_compact(planes) - torch.clamp(w.amin(dim=0), max=0.0)
+    return add_diag_hermitian_compact(planes, shift), w + shift[None]
+
+
+def psd_inv_hermitian_compact(planes, eps=1e-12, psd=True):
+    """Adjugate inverse of a compact Hermitian field over its real
+    determinant, with the reference's trailing ``to_psd`` of the inverse
+    where ``psd`` is set (the input is PSD already, so that is the ``eps
+    trace`` ridge)."""
+    inv = inv_hermitian_compact(planes)
+    if psd:
+        inv = add_diag_hermitian_compact(inv, eps * trace_hermitian_compact(inv))
+    return inv
+
+
+def square_hermitian_compact(planes):
+    """Compact planes of ``M M`` for a compact Hermitian ``M`` (Hermitian:
+    ``(M M)^H = M M``)."""
+    n = _n_of(planes)
+    E = _entries(planes)
+    return hermitian_compact_from_entries(lambda c, d: _sum(E[c][k] * E[k][d] for k in range(n)), n)

@@ -30,7 +30,7 @@ from ..runtime.device import resolve_device
 # the state arrays that carry over as they are
 STATE_ARRAYS = (
     "estimation", "basis", "activation", "latent", "spatial", "partitioning", "phase", "dual",
-    "mix_filter", "noise_covariance", "diagonalizer", "spatial_covariance",
+    "mix_filter", "noise_covariance", "diagonalizer", "spatial_covariance", "fixed_point",
 )  # fmt: skip
 
 
@@ -42,8 +42,8 @@ def state_from_jax(arrays, device=None):
             N, C)`` or ``demix_components (N, C, F)``, ``estimation (N, F,
             T)``, ``basis``, ``activation``, ``latent``, ``spatial``,
             ``partitioning``, ``phase``, ``dual``, ``mix_filter``,
-            ``noise_covariance``, ``diagonalizer``, ``spatial_covariance``
-            and ``step_count ()``, or the path
+            ``noise_covariance``, ``diagonalizer``, ``spatial_covariance``,
+            ``fixed_point`` and ``step_count ()``, or the path
             of an ``.npz`` written by the JAX ``save_state``.
         device: where the tensors go; ``None`` means ``"cuda"``.
     Returns:

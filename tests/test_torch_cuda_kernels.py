@@ -33,26 +33,30 @@ from audio_source_separation_tpu_torch import (
     FastMultichannelISNMF,
     GaussIDLMA,
     GaussILRMA,
+    GaussIPSDTA,
     GradLaplaceFDICA,
+    LDPSDTF,
     MaxSNRBeamformer,
     MultichannelISNMF,
     MVDRBeamformer,
     NaturalGradLaplaceFDICA,
     OverAuxLaplaceIVA,
     ProxLaplaceIVA,
+    TIPSDTA,
     build_optimal_window,
     build_window,
     torch_dnn,
     whitening,
 )
 from audio_source_separation_tpu_torch.algorithm.permutation import solve_permutation
+from audio_source_separation_tpu_torch.models.psdtf import nonparallel_inv
 from audio_source_separation_tpu_torch.ops.fused_ip import (
     fused_auxiva_ip_iter,
     fused_auxiva_ip_iter_plain,
 )
 from audio_source_separation_tpu_torch.ops.ip_components import separate_components
 
-from chip_smoke import VarianceMLP
+from chip_smoke import VarianceMLP, at_complex128
 
 pytestmark = pytest.mark.cuda
 
@@ -451,3 +455,102 @@ def test_build_window_runs_on_the_card(cuda):
         build_optimal_window(w.cpu(), hop_size=16).numpy(),
         rtol=1e-12,
     )
+
+
+@pytest.mark.parametrize("C,n_blocks", [(2, 64), (2, 16), (3, 64)])  # B = 3 (compact), B = 9 (matrix), C = 3
+def test_ipsdta_kondo_runs_through_k1_per_bin(cuda, C, n_blocks):
+    """Every Kondo iteration on the card forms its VCD covariances by one K1
+    launch with per-bin ``(S, F, T)`` weights; K1's ``Q`` on the solver's
+    weights matches the plain version at 1e-4 of the largest entry, and the
+    losses hold the port's CPU float64 run from the same draws at 1e-4."""
+    X = _mixture(C + 30, C, 129, 300, cuda)
+    weighted_covariance_planes.launches = fused_auxiva_ip_iter.launches = 0
+    np.random.seed(111)
+    solver = GaussIPSDTA(n_basis=2, n_blocks=n_blocks)
+    Y = solver(X, iteration=5)
+    torch.cuda.synchronize()
+    assert weighted_covariance_planes.launches == 5 and fused_auxiva_ip_iter.launches == 0
+    assert Y.device.type == "cuda" and torch.isfinite(Y).all() and np.isfinite(solver.loss).all()
+    np.random.seed(111)
+    reference = GaussIPSDTA(n_basis=2, n_blocks=n_blocks, device="cpu")
+    reference(X.cpu().to(torch.complex128), iteration=5)
+    np.testing.assert_allclose(solver.loss, reference.loss, rtol=1e-4)
+
+    state = solver.init_state(X, **solver.prepare_state_kwargs(X, {}))
+    layout = solver._layout(X.shape[1])
+    inv_R = solver._source_inverse_matrix(state, layout)
+    weights = layout.scatter(torch.diagonal(inv_R, dim1=-2, dim2=-1).real).transpose(1, 2).contiguous()
+    plain = weighted_covariance_planes_plain(X, weights)
+    err = (weighted_covariance_planes(X, weights) - plain).abs().max() / plain.abs().max()
+    assert err <= 1e-4, err
+
+
+@pytest.mark.parametrize("make", [
+    lambda: GaussIPSDTA(n_basis=2, author="Ikeshita", n_blocks=64),
+    lambda: TIPSDTA(n_basis=2, nu=1000, n_blocks=64),
+], ids=["ikeshita", "t"])  # fmt: skip
+def test_other_block_psd_solvers_launch_no_kernel(cuda, make):
+    X = _mixture(33, 2, 129, 300, cuda)
+    weighted_covariance_planes.launches = fused_auxiva_ip_iter.launches = 0
+    np.random.seed(111)
+    solver = make()
+    Y = solver(X, iteration=5)
+    torch.cuda.synchronize()
+    assert weighted_covariance_planes.launches == fused_auxiva_ip_iter.launches == 0
+    assert torch.isfinite(Y).all() and np.isfinite(solver.loss).all()
+
+
+def test_ikeshita_at_float64_on_the_card_matches_the_cpu(cuda):
+    """Ikeshita's EM and fixed-point steps at float64: the card's loss
+    trajectory through its transient, and its output, hold the CPU's at
+    1e-9 (at float32 the transient amplifies rounding past any useful
+    tolerance)."""
+    X = _mixture(33, 2, 129, 300, cuda).to(torch.complex128)
+    outputs, losses = [], []
+    for device in ("cuda", "cpu"):
+        np.random.seed(111)
+        solver = GaussIPSDTA(n_basis=2, author="Ikeshita", n_blocks=64, device=device)
+        solver = at_complex128(solver) if device == "cuda" else solver
+        outputs.append(solver(X.to(device), iteration=8).cpu().numpy())
+        losses.append(np.asarray(solver.loss))
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-9)
+    np.testing.assert_allclose(outputs[0], outputs[1], rtol=0, atol=1e-9 * np.abs(outputs[1]).max())
+
+
+@pytest.mark.parametrize("n_basis", [2, 3])
+def test_ldpsdtf_on_the_card(cuda, n_basis):
+    """LDPSDTF at float32 on the card: finite, falling, no kernel launched;
+    the first losses within 1e-4 of the CPU float32 run and within 1e-2 of
+    the CPU float64 one (the float32 ridges, 100 eps_machine, move the loss
+    by about 2e-3 at float32 on either)."""
+    rng = np.random.RandomState(7)
+    bases = [rng.randn(16, 16) for _ in range(n_basis)]
+    target = np.einsum("kij,kt->ijt", np.stack([a @ a.T + 0.5 * np.eye(16) for a in bases]),
+                       np.abs(rng.randn(n_basis, 200)) + 0.2)  # fmt: skip
+    weighted_covariance_planes.launches = fused_auxiva_ip_iter.launches = 0
+    np.random.seed(111)
+    model = LDPSDTF(n_basis=n_basis)
+    V, H = model(target, iteration=10)
+    torch.cuda.synchronize()
+    assert weighted_covariance_planes.launches == fused_auxiva_ip_iter.launches == 0
+    assert V.device.type == "cuda" and V.dtype == torch.float32 and torch.isfinite(V).all()
+    for dtype, rtol in ((np.float32, 1e-4), (np.float64, 1e-2)):
+        np.random.seed(111)
+        reference = LDPSDTF(n_basis=n_basis, device="cpu")
+        reference(target.astype(dtype), iteration=10)
+        np.testing.assert_allclose(model.loss[:5], reference.loss[:5], rtol=rtol)
+    assert model.loss[-1] < model.loss[0]
+
+
+@pytest.mark.parametrize("use_cholesky", [True, False])
+def test_nonparallel_inv_runs_on_the_card(cuda, use_cholesky):
+    """NumPy input goes to the card by default, a card tensor stays there;
+    both match the CPU float64 loop at 1e-10."""
+    rng = np.random.RandomState(5)
+    A = rng.randn(3, 2, 6, 6) + 1j * rng.randn(3, 2, 6, 6)
+    X = A @ np.conj(np.swapaxes(A, -1, -2)) + np.eye(6)
+    expected = nonparallel_inv(X, use_cholesky=use_cholesky, device="cpu").numpy()
+    for X_ in (X, torch.as_tensor(X, device=cuda)):
+        ours = nonparallel_inv(X_, use_cholesky=use_cholesky)
+        assert ours.device.type == "cuda" and ours.dtype == torch.complex128
+        np.testing.assert_allclose(ours.cpu().numpy(), expected, rtol=1e-10, atol=1e-12)

@@ -28,7 +28,6 @@ PORT = SimpleNamespace(fl=port_fl, linalg=port_linalg, div=port_div, ops=port_op
 DEFERRED_OPS = {
     # the port keeps complex tensors: no real-pair boundary
     "Pair", "jit_complex", "pack", "realify", "to_host", "unpack",
-    "BlockLayout",  # slice 7 (block-PSD)
     "pair_products", "weighted_covariance_from_pairs",  # slice 10 (sharded.py is their only caller)
     "auxiva_ip_step_components",  # the port bench's headline step
 }  # fmt: skip

@@ -2,7 +2,7 @@
 float64 (atol 1e-10): ``utils/linalg.py``, ``minimum_distortion_principle``,
 ``whitening`` (up to each row's sign), ``FixedPointICA`` and the
 ``algorithm/stft.py`` alias; then the ``models`` and top-level export lists
-against the JAX package's, less the slices still to port."""
+against the JAX package's."""
 
 import importlib
 import types
@@ -26,15 +26,6 @@ from audio_source_separation_tpu_torch.utils import linalg, eye_like_filter, par
 
 from _torch_port import to_np
 from conftest import make_mixture
-
-# the names of slice 7 (IPSDTA, PSDTF), not ported yet
-DEFERRED_MODELS = {
-    "GaussIPSDTA",
-    "TIPSDTA",
-    "tIPSDTA",
-    "LDPSDTF",
-}
-
 
 def _matrices(rng, shape, n):
     return rng.randn(*shape, n, n) + 1j * rng.randn(*shape, n, n)
@@ -148,10 +139,9 @@ def test_fixed_point_ica_and_stft_alias():
 
 
 def test_models_export_what_jax_exports():
-    """The port's ``models`` exports the JAX ``models`` names less the
-    deferred slices, each importable."""
-    assert set(port_models.__all__) == set(jax_models.__all__) - DEFERRED_MODELS
-    assert DEFERRED_MODELS <= set(jax_models.__all__)
+    """The port's ``models`` exports the JAX ``models`` names, each
+    importable."""
+    assert set(port_models.__all__) == set(jax_models.__all__)
     assert all(callable(getattr(port_models, name)) for name in port_models.__all__)
 
 
@@ -163,5 +153,5 @@ def test_package_exports_what_jax_exports():
         return {k for k, v in vars(module).items() if not k.startswith("_") and not isinstance(v, types.ModuleType)}
 
     assert {"whitening", "minimum_distortion_principle"} <= public(jax_pkg)
-    assert public(jax_pkg) - DEFERRED_MODELS <= public(port)
+    assert public(jax_pkg) <= public(port)
     assert set(port_models.__all__) <= public(port)
