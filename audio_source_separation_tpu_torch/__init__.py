@@ -33,7 +33,12 @@ with its diagonaliser covariances through K1 per bin, and the
 ``models/psdtf.py``): ``GaussIPSDTA`` (Kondo's MM and VCD, with the VCD
 covariances through K1 per bin; Ikeshita's EM and fixed point), ``TIPSDTA``
 (alias ``tIPSDTA``) and ``LDPSDTF``, on the padded block layout
-``ops.BlockLayout``.
+``ops.BlockLayout`` -- and the harness (``utils``: SI-SDR, PIT and BSS
+Eval at float64 on the input's device, the callbacks, the mixture
+synthesis, WAV I/O) with the example scripts (``examples``, run with
+``python -m audio_source_separation_tpu_torch.examples.<name>``), and
+``parallel``: ``batch_separate`` and the AuxIVA-IP steps of
+``parallel.sharded``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise rather than fall back.
@@ -96,6 +101,7 @@ from .models import (  # noqa: F401
     tNMF,
     torch_dnn,
 )
+from . import parallel, utils  # noqa: F401
 from .runtime import resolve_device  # noqa: F401
 from .transform import build_optimal_window, build_window, istft, pca, stft, whitening  # noqa: F401
 from .utils import state_from_jax  # noqa: F401

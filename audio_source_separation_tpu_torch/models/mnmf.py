@@ -93,6 +93,14 @@ class MultichannelNMFBase(IterativeSolver):
         self.n_basis = n_basis
         self.n_sources = n_sources
 
+    def _sync_attributes(self, state):
+        super()._sync_attributes(state)
+        if self.callbacks is not None:
+            # the state holds no estimates; the ground-truth callbacks read
+            # this iteration's separated output (the JAX package publishes
+            # none, so its callbacks record nothing for MNMF)
+            self.estimation = self.finalize(state)
+
 
 class MultichannelISNMF(MultichannelNMFBase):
     """Sawada / Ozerov multichannel IS-NMF (``bss/mnmf.py:115-617``).

@@ -3,7 +3,13 @@
 K2 in ``fused_ip.py``; sources in ``../csrc``)."""
 
 from .blocks import BlockLayout
-from .covariance import spatial_covariance, weighted_covariance, weighted_covariance_auto
+from .covariance import (
+    pair_products,
+    spatial_covariance,
+    weighted_covariance,
+    weighted_covariance_auto,
+    weighted_covariance_from_pairs,
+)
 from .eig2 import eig2x2, generalized_eig2x2_descending
 from .fast_linalg import batched_det, batched_inv, batched_log_abs_det
 from .ip import cond_guard, ip_update
@@ -14,6 +20,8 @@ __all__ = [
     "spatial_covariance",
     "weighted_covariance",
     "weighted_covariance_auto",
+    "pair_products",
+    "weighted_covariance_from_pairs",
     "ip_update",
     "cond_guard",
     "ip_sweep_from_planes",

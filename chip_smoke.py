@@ -101,7 +101,26 @@ Phases (each asserts; any failure exits non-zero):
      the JAX benchmark's Gram targets (64 taps x 469 frames), the first 20
      losses against CPU float64 (at float32's gap), no kernel, ms per
      iteration;
- 12. one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
+ 12. the harness, batch_separate and the sharded steps at full width, on
+     eight seeded 60 s two-source mixtures (8 x 2 x 2049 x 469, drawn after
+     every other phase's): batch_separate over AuxLaplaceIVA IP (K2 240 in
+     240), GaussILRMA(10) and FastMultichannelISNMF(10) (K1 per bin 240 in
+     240 each) x 30, each member against its own call (1e-6), the (8, 30)
+     losses finite, SI-SDR up by more than 5 dB on every member for IVA and
+     ILRMA, ms per iteration and mixtures/s; auxiva_ip_step(use_pallas=True)
+     x 100 (K1 100 in 100) and auxiva_ip_step_binsmajor x 100 on pair
+     products, their first 20 NLLs against the port's CPU float64 run (the
+     reference cut to 20 steps); batched_auxiva_ip_step on (8, 2, 2, 2049,
+     469) against the eight single steps; the port's convolutive_mixture
+     with synthetic_room_impulse_responses(2, 2, taps=64) on the card
+     against the CPU (1e-12); AuxLaplaceIVA IP x 50 with
+     SDRImprovementCallback and BSSEvalCallback(stride=10) (K2 50 in 50),
+     its histories against a CPU float64 run's (0.1 dB); bss_eval_sources
+     on the separated 60 s signals on the card and the CPU (1e-4 dB), both
+     times; the example scripts ``examples.separate --method auxiva`` and
+     ``examples.walkthrough`` on the card, their artefacts in
+     ``build/phase12``;
+ 13. one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
      line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds K2's Gauss instance at both shapes, K1 at C = 3 with
@@ -165,7 +184,9 @@ from audio_source_separation_tpu_torch import (
     torch_dnn,
 )
 from audio_source_separation_tpu_torch.algorithm.permutation import solve_permutation
+from audio_source_separation_tpu_torch.examples import separate, walkthrough
 from audio_source_separation_tpu_torch.ops import _build
+from audio_source_separation_tpu_torch.ops.covariance import pair_products
 from audio_source_separation_tpu_torch.ops.cov_kernel import (
     k1_launch_plan,
     weighted_covariance_planes,
@@ -181,7 +202,22 @@ from audio_source_separation_tpu_torch.ops.ip_components import (
     pair_products_planes,
     separate_components,
 )
+from audio_source_separation_tpu_torch.parallel import (
+    auxiva_ip_step,
+    auxiva_ip_step_binsmajor,
+    auxiva_ip_step_stacked,
+    batch_separate,
+    batched_auxiva_ip_step,
+)
 from audio_source_separation_tpu_torch.tools.timing import l2_flusher, median_ms
+from audio_source_separation_tpu_torch.utils import (
+    BSSEvalCallback,
+    SDRImprovementCallback,
+    bss_eval_sources,
+    convolutive_mixture,
+    synthetic_room_impulse_responses,
+    write_wav,
+)
 
 SEED = 111
 SR = 16000
@@ -1469,6 +1505,306 @@ def block_psd(mixture, images, mixture3, images3, failed):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: the harness, batch_separate and the sharded steps at full width
+# --------------------------------------------------------------------------- #
+BATCH, ITERS_BATCH, BATCH_BASIS = 8, 30, 10  # benchmarks/throughput.py's N_ITER
+ITERS_STEP, ITERS_STEP_CPU = 100, N_MATCH  # sharded steps on the card; the CPU float64 reference's
+ITERS_HARNESS, BSS_STRIDE = 50, 10
+HARNESS_DB_TOL = 0.1  # card f32 callbacks vs the CPU f64 run's, dB (phase 9's FDICA hold)
+BSS_DB_TOL = 1e-4  # bss_eval_sources on the card vs the CPU, both f64, dB
+MEMBER_RTOL = 1e-6  # a batch member vs its own call (both kernels reduce in a fixed order)
+
+
+def counts_zero():
+    fused_auxiva_ip_iter.launches = 0
+    weighted_covariance_planes.launches = 0
+    torch.cuda.synchronize()
+
+
+def counts():
+    return {"k1_launches": weighted_covariance_planes.launches, "k2_launches": fused_auxiva_ip_iter.launches}
+
+
+def batch_rows(Xs, mixtures, images, failed):
+    """batch_separate over AuxLaplaceIVA IP, GaussILRMA(10) and
+    FastMultichannelISNMF(10) x 30 on the (8, 2, 2049, 469) batch: launch
+    counts, each member against its own call, losses, SI-SDR, times."""
+    out = {}
+    rows = [
+        ("batch_laplace_ip_c2", lambda: AuxLaplaceIVA(), "k2_launches", True),
+        ("batch_ilrma_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS), "k1_launches", True),
+        ("batch_fast_mnmf_c2", lambda: FastMultichannelISNMF(n_basis=BATCH_BASIS), "k1_launches", False),
+    ]
+    for key, make, kernel, sdr_bar in rows:
+        np.random.seed(SEED)
+        solver = make()
+        counts_zero()
+        start = time.perf_counter()
+        outputs, losses = batch_separate(solver, Xs, iteration=ITERS_BATCH, host=False)
+        torch.cuda.synchronize()
+        device_s = time.perf_counter() - start
+        launched = counts()
+        host_start = time.perf_counter()
+        outputs_host, losses_host = outputs.cpu().numpy(), losses.cpu().numpy()
+        host_s = time.perf_counter() - host_start
+        # each member against its own call, from the same draws in example order
+        np.random.seed(SEED)
+        single = make()
+        member_err, loss_err = [], []
+        for b in range(BATCH):
+            single.loss = []
+            Y = single(Xs[b], iteration=ITERS_BATCH)
+            member_err.append(rel_err(outputs[b], Y))
+            ref = np.asarray(single.loss[-ITERS_BATCH:])
+            loss_err.append(float(np.max(np.abs(losses_host[b] - ref) / np.abs(ref))))
+        y = istft(outputs, fft_size=FFT_SIZE, hop_size=HOP_SIZE, length=N_SAMPLES).cpu().numpy()
+        gains = [best_pairing_si_sdr(y[b], images[b]) - best_pairing_si_sdr(mixtures[b], images[b]) for b in range(BATCH)]
+        res = out[key] = {
+            "batch": BATCH, "iterations": ITERS_BATCH, **launched, "wall_s": device_s + host_s,
+            "ms_per_iteration": device_s * 1e3 / (BATCH * ITERS_BATCH), "host_transfer_ms": host_s * 1e3,
+            "mixtures_per_s": BATCH / (device_s + host_s), "member_max_rel_err": max(member_err),
+            "member_loss_max_rel_err": max(loss_err), "si_sdr_gain_db_min": min(gains), "si_sdr_gain_db": gains,
+            "losses_shape": list(losses_host.shape), "outputs_shape": list(outputs_host.shape),
+        }
+        checks = {
+            "{} {} in {}".format(kernel, BATCH * ITERS_BATCH, BATCH * ITERS_BATCH): res[kernel] == BATCH * ITERS_BATCH,
+            "the other kernel 0": res["k1_launches" if kernel == "k2_launches" else "k2_launches"] == 0,
+            "members equal their calls": max(member_err) <= MEMBER_RTOL and max(loss_err) <= MEMBER_RTOL,
+            "losses (8, 30) finite": losses_host.shape == (BATCH, ITERS_BATCH) and bool(np.isfinite(losses_host).all()),
+            "outputs finite": bool(np.isfinite(outputs_host).all()),
+        }
+        if sdr_bar:
+            checks["SI-SDR up by more than 5 dB on every member"] = min(gains) > 5.0
+        record_checks(failed, key, checks)
+    return out
+
+
+def step_nlls(step, carry, n):
+    """``n`` steps of ``step(carry) -> (carry, nll)``; the NLLs and the
+    time per step (host clock, synchronised)."""
+    nlls = []
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(n):
+        carry, nll = step(carry)
+        nlls.append(nll)
+    nlls = torch.stack(nlls).cpu().numpy()
+    return carry, nlls, (time.perf_counter() - start) * 1e3 / n
+
+
+def sharded_rows(Xs, X_cpu, failed):
+    """The sharded steps at 2 x 2049 x 469: auxiva_ip_step(use_pallas=True)
+    and auxiva_ip_step_binsmajor x 100 with their first 20 NLLs against the
+    port's CPU float64 run, and batched_auxiva_ip_step on (8, 2, 2, 2049,
+    469) against the eight single steps."""
+    X = Xs[0].contiguous()
+    F = X.shape[1]
+    eye = torch.eye(2, dtype=X.dtype, device=X.device).expand(F, 2, 2).contiguous()
+    eye_cpu = torch.eye(2, dtype=X_cpu.dtype).expand(F, 2, 2).contiguous()
+    out = {}
+
+    counts_zero()
+    _, nlls, ms = step_nlls(lambda W: auxiva_ip_step(X, W, use_pallas=True), eye, ITERS_STEP)
+    res = out["sharded_auxiva_ip_step"] = {"steps": ITERS_STEP, **counts(), "ms_per_step": ms}
+    _, ref, cpu_ms = step_nlls(lambda W: auxiva_ip_step(X_cpu, W, use_pallas=True), eye_cpu, ITERS_STEP_CPU)
+    gap = np.abs(nlls[:ITERS_STEP_CPU] - ref) / np.abs(ref)
+    res.update(nll_vs_cpu_f64_max_rel=float(gap.max()), nlls_compared=ITERS_STEP_CPU, cpu_ms_per_step=cpu_ms,
+               nll_first=float(nlls[0]), nll_last=float(nlls[-1]))
+    record_checks(failed, "sharded_auxiva_ip_step", {
+        "K1 {} in {}".format(ITERS_STEP, ITERS_STEP): res["k1_launches"] == ITERS_STEP and res["k2_launches"] == 0,
+        "finite": bool(np.isfinite(nlls).all()), "NLL vs CPU float64 within {}".format(LOSS_MATCH_RTOL):
+        gap.max() <= LOSS_MATCH_RTOL,
+    })
+
+    def binsmajor(Xf, PP):
+        def step(carry):
+            W, Yf, nll = auxiva_ip_step_binsmajor(Xf, *carry, PP)
+            return (W, Yf), nll
+
+        return step
+
+    Xf, Xf_cpu = X.permute(1, 0, 2).contiguous(), X_cpu.permute(1, 0, 2).contiguous()
+    counts_zero()
+    _, nlls, ms = step_nlls(binsmajor(Xf, pair_products(X)), (eye, eye @ Xf), ITERS_STEP)
+    res = out["sharded_binsmajor"] = {"steps": ITERS_STEP, **counts(), "ms_per_step": ms}
+    _, ref, _ = step_nlls(binsmajor(Xf_cpu, pair_products(X_cpu)), (eye_cpu, eye_cpu @ Xf_cpu), ITERS_STEP_CPU)
+    gap = np.abs(nlls[:ITERS_STEP_CPU] - ref) / np.abs(ref)
+    res.update(nll_vs_cpu_f64_max_rel=float(gap.max()), nlls_compared=ITERS_STEP_CPU)
+    record_checks(failed, "sharded_binsmajor", {
+        "no kernel": res["k1_launches"] == res["k2_launches"] == 0, "finite": bool(np.isfinite(nlls).all()),
+        "NLL vs CPU float64 within {}".format(LOSS_MATCH_RTOL): gap.max() <= LOSS_MATCH_RTOL,
+    })
+
+    X2 = torch.stack([Xs.real, Xs.imag], dim=1).contiguous()  # (8, 2, 2, F, T)
+    W2 = torch.stack([eye.real, eye.imag]).expand(BATCH, 2, F, 2, 2).contiguous()
+    counts_zero()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    W2_out, nll_out = batched_auxiva_ip_step(X2, W2)
+    torch.cuda.synchronize()
+    batched_ms = (time.perf_counter() - start) * 1e3
+    # float32 rounding of the two contractions' orders, amplified by each
+    # bin's IP solve, parts the batched step from the single ones; it is
+    # held to the single step's own distance from CPU float64, twice over
+    w_errs, nll_errs, f32_errs, nll_f32_errs = [], [], [], []
+    for b in range(BATCH):
+        W_b, nll_b = auxiva_ip_step_stacked(X2[b], W2[b])
+        W64, nll64 = auxiva_ip_step_stacked(X2[b].cpu().double(), W2[b].cpu().double())
+        w_errs.append(rel_err(W2_out[b], W_b))
+        nll_errs.append(abs(float(nll_out[b]) - float(nll_b)) / abs(float(nll_b)))
+        f32_errs.append(rel_err(W_b.cpu().double(), W64))
+        nll_f32_errs.append(abs(float(nll_b) - float(nll64)) / abs(float(nll64)))
+    per_bin = (W2_out - torch.stack([auxiva_ip_step_stacked(X2[b], W2[b])[0] for b in range(BATCH)])).abs()
+    worst_bins = per_bin.amax(dim=(0, 1, 3, 4)).topk(3).indices.tolist()
+    res = out["sharded_batched"] = {
+        "batch": BATCH, **counts(), "ms_per_step": batched_ms, "w_max_rel_err": max(w_errs),
+        "nll_max_rel_err": max(nll_errs), "single_w_vs_cpu_f64_max_rel_err": max(f32_errs),
+        "single_nll_vs_cpu_f64_max_rel_err": max(nll_f32_errs), "worst_bins": worst_bins,
+    }
+    record_checks(failed, "sharded_batched", {
+        "W and NLL within twice the single step's float32 error": all(
+            e <= max(MEMBER_RTOL, 2 * f) for e, f in zip(w_errs + nll_errs, f32_errs + nll_f32_errs)
+        ),
+        "no kernel": res["k1_launches"] == res["k2_launches"] == 0,
+    })
+    return out
+
+
+def harness_rows(rng, failed, workdir):
+    """The port's synthesis on the card against the CPU at float64;
+    AuxLaplaceIVA IP x 50 with SDRImprovementCallback and
+    BSSEvalCallback(stride=10) against the CPU float64 run's histories;
+    bss_eval_sources on the separated signals on the card and the CPU; the
+    example scripts ``separate --method auxiva`` and ``walkthrough`` on the card."""
+    out = {}
+    t = np.arange(N_SAMPLES) / SR
+    env = np.stack([0.5 * (1 + np.sign(np.sin(2 * np.pi * f * t + 0.7 * n))) for n, f in enumerate((3.0, 5.0))])
+    sources = np.stack([np.convolve(e, np.ones(64) / 64, mode="same") for e in env]) * rng.randn(2, N_SAMPLES)
+    start = time.perf_counter()
+    rirs = synthetic_room_impulse_responses(2, 2, taps=64)
+    mixture, images = convolutive_mixture(sources, rirs)  # on the card, where the RIRs are
+    torch.cuda.synchronize()
+    synthesis_ms = (time.perf_counter() - start) * 1e3
+    mixture_cpu, images_cpu = convolutive_mixture(sources, synthetic_room_impulse_responses(2, 2, taps=64, device="cpu"))
+    synth_err = max(rel_err(mixture.cpu(), mixture_cpu), rel_err(images.cpu(), images_cpu))
+    out["synthesis"] = {"shape": list(mixture.shape), "max_rel_err_vs_cpu_f64": synth_err, "ms": synthesis_ms}
+    record_checks(failed, "synthesis", {"card vs CPU float64 within 1e-12": synth_err <= 1e-12})
+
+    targets = images[:, 0]
+    runs = {}
+    for device, mix, tgt in (("cuda", mixture, targets), ("cpu", mixture_cpu, images_cpu[:, 0])):
+        callbacks = [
+            SDRImprovementCallback(tgt, fft_size=FFT_SIZE, hop_size=HOP_SIZE),
+            BSSEvalCallback(tgt, fft_size=FFT_SIZE, hop_size=HOP_SIZE, stride=BSS_STRIDE),
+        ]
+        X = stft(mix.to(torch.float32) if device == "cuda" else mix, fft_size=FFT_SIZE, hop_size=HOP_SIZE,
+                 device=device)
+        counts_zero()
+        start = time.perf_counter()
+        solver = AuxLaplaceIVA(callbacks=callbacks, device=device)
+        Y = solver(X, iteration=ITERS_HARNESS)
+        y = istft(Y, fft_size=FFT_SIZE, hop_size=HOP_SIZE, length=N_SAMPLES, device=device)
+        torch.cuda.synchronize()
+        runs[device] = (callbacks, y, time.perf_counter() - start, counts())
+    (sdr_cb, bss_cb), y, wall_s, launched = runs["cuda"]
+    (sdr_ref, bss_ref), _, cpu_s, _ = runs["cpu"]
+    # the init's entry is held apart: with W = I each estimate is a filtered
+    # mixture inside the references' span, so its SAR and the SI-SDR of a
+    # near-orthogonal estimate sit at rounding noise, float32 and float64
+    # apart by dB there (tests/test_torch_utils_harness.py holds it so)
+    si_gap = float(np.max(np.abs(np.asarray(sdr_cb.history[1:]) - sdr_ref.history[1:])))
+    bss_gap = max(float((a - b.to(a.device)).abs().max()) for t1, t2 in zip(bss_cb.history[1:], bss_ref.history[1:])
+                  for a, b in zip(t1, t2))
+    sdri_gap = float(np.max(np.abs(np.asarray(bss_cb.sdri_history[1:]) - bss_ref.sdri_history[1:])))
+    res = out["harness_laplace_ip_c2"] = {
+        "iterations": ITERS_HARNESS, **launched, "wall_s": wall_s, "cpu_f64_wall_s": cpu_s,
+        "si_sdr_history_len": len(sdr_cb.history), "bss_history_len": len(bss_cb.history),
+        "si_sdr_first_db": sdr_cb.history[0], "si_sdr_last_db": sdr_cb.history[-1],
+        "sdri_last_db": bss_cb.sdri_history[-1], "si_sdr_max_gap_db": si_gap, "bss_max_gap_db": bss_gap,
+        "sdri_max_gap_db": sdri_gap, "init_entry_si_sdr_gap_db": sdr_cb.history[0] - sdr_ref.history[0],
+    }
+    record_checks(failed, "harness_laplace_ip_c2", {
+        "K2 {} in {} with callbacks".format(ITERS_HARNESS, ITERS_HARNESS):
+        launched["k2_launches"] == ITERS_HARNESS and launched["k1_launches"] == 0,
+        "one SI-SDR entry per iteration and init": len(sdr_cb.history) == ITERS_HARNESS + 1 == len(sdr_ref.history),
+        "BSS entries every 10": len(bss_cb.history) == ITERS_HARNESS // BSS_STRIDE + 1 == len(bss_ref.history),
+        "histories after init vs CPU float64 within {} dB".format(HARNESS_DB_TOL):
+        max(si_gap, bss_gap, sdri_gap) <= HARNESS_DB_TOL,
+    })
+
+    # the separated 60 s signals on the card and the same signals on the CPU
+    y64 = y.to(torch.float64)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    card = bss_eval_sources(targets, y64)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - start) * 1e3
+    start = time.perf_counter()
+    cpu = bss_eval_sources(targets.cpu(), y64.cpu())
+    cpu_ms = (time.perf_counter() - start) * 1e3
+    gap = max(float((a.cpu() - b).abs().max()) for a, b in zip(card[:3], cpu[:3]))
+    out["bss_eval_sources_60s"] = {
+        "n_samples": N_SAMPLES, "filter_length": 512, "card_ms": card_ms, "cpu_f64_ms": cpu_ms, "max_gap_db": gap,
+        "sdr": card[0].tolist(), "sir": card[1].tolist(), "sar": card[2].tolist(), "perm": card[3].tolist(),
+    }
+    record_checks(failed, "bss_eval_sources_60s", {
+        "card vs CPU float64 within {} dB".format(BSS_DB_TOL): gap <= BSS_DB_TOL,
+        "same permutation": list(card[3]) == list(cpu[3]),
+    })
+
+    wav = str(workdir / "mixture.wav")
+    excerpt = mixture[:, : 20 * SR]
+    write_wav(wav, (excerpt / (1.1 * excerpt.abs().max())).T, SR)
+    counts_zero()
+    start = time.perf_counter()
+    summary = separate.main(["--input", wav, "--method", "auxiva", "--iterations", "50", "--out",
+                             str(workdir / "separated")])
+    res = out["examples_separate_auxiva"] = {**summary, **counts(), "wall_s": time.perf_counter() - start}
+    record_checks(failed, "examples_separate_auxiva", {
+        "K2 50 in 50": res["k2_launches"] == 50,
+        "sources written": all((workdir / "separated" / "source_{}.wav".format(n)).exists() for n in range(2)),
+        "summary on the card": summary["device"] == "cuda" and np.isfinite(summary["loss_last"]),
+    })
+    counts_zero()
+    start = time.perf_counter()
+    summary = walkthrough.main(["--out", str(workdir / "walkthrough")])
+    res = out["examples_walkthrough"] = {**summary, **counts(), "wall_s": time.perf_counter() - start}
+    artefacts = ["loss_curve.csv", "sdri_curve.csv", "source_0.wav", "source_1.wav", "summary.json"]
+    record_checks(failed, "examples_walkthrough", {
+        "K1 per bin 50 in 50": res["k1_launches"] == 50,
+        "artefacts": all((workdir / "walkthrough" / name).exists() for name in artefacts),
+        "snapshots": len(list((workdir / "walkthrough" / "state").glob("state_*.npz"))) == 51,
+        "finite": np.isfinite(summary["si_sdr_improvement_db"]) and np.isfinite(summary["loss_last"]),
+    })
+    return out
+
+
+def harness_and_batch(failed):
+    """Phase 12: eight seeded 60 s mixtures through batch_separate, the
+    sharded steps, the harness and the example scripts."""
+    rng = np.random.RandomState(SEED + 12)  # its own draws: the earlier phases keep their mixtures
+    pairs = [synth_mixture(rng, 2, N_SAMPLES) for _ in range(BATCH)]
+    mixtures = np.stack([m for m, _ in pairs])
+    images = np.stack([i for _, i in pairs])
+    Xs = stft(mixtures.astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE).contiguous()  # (8, 2, F, T)
+    assert tuple(Xs.shape) == (BATCH, 2, FFT_SIZE // 2 + 1, -(-N_SAMPLES // HOP_SIZE) + 1), Xs.shape
+    out = {"input_mb": Xs.numel() * Xs.element_size() / 1e6}
+    start = time.perf_counter()
+    out.update(batch_rows(Xs, mixtures, images, failed))
+    out["batch_s"] = time.perf_counter() - start
+    start = time.perf_counter()
+    X_cpu = stft(mixtures[0], fft_size=FFT_SIZE, hop_size=HOP_SIZE, device="cpu")
+    out.update(sharded_rows(Xs, X_cpu, failed))
+    out["sharded_s"] = time.perf_counter() - start
+    start = time.perf_counter()
+    workdir = ROOT / "build" / "phase12"
+    workdir.mkdir(parents=True, exist_ok=True)
+    out.update(harness_rows(rng, failed, workdir))
+    out["harness_s"] = time.perf_counter() - start
+    return out
+
+
 def profile_c2(X, path):
     """torch.profiler table of a 20-iteration C = 2 solver call, and the
     device time of each kernel per iteration."""
@@ -1594,6 +1930,12 @@ def main():
     block_keys = [key for key in block if key != "phase_s"]
     block_k1_no_kernel = sum(block[key]["k1_launches"] for key in block_keys if not key.startswith("kondo"))
     block_k2 = sum(block[key]["k2_launches"] for key in block_keys)
+    start = time.perf_counter()
+    phase12_failed = []
+    phase12 = harness_and_batch(phase12_failed)
+    phase12["phase_s"] = time.perf_counter() - start
+    print(json.dumps({"harness_and_batch": phase12}), flush=True)
+    assert not phase12_failed, phase12_failed
     if args.profile:
         prof = profile_c2(X2, ROOT / "chiprun_out" / "profile_c2.txt")
         print(json.dumps({"profile_c2": prof}), flush=True)
@@ -1642,6 +1984,12 @@ def main():
                 "ipsdta_kondo_b9_c2": block["kondo_b9"]["k1_launches"],
                 "ipsdta_kondo_c3": block["kondo_c3"]["k1_launches"],
                 "ipsdta_ikeshita_t_psdtf": block_k1_no_kernel,
+                "batch_ilrma_c2": phase12["batch_ilrma_c2"]["k1_launches"],
+                "batch_fast_mnmf_c2": phase12["batch_fast_mnmf_c2"]["k1_launches"],
+                "sharded_auxiva_ip_step": phase12["sharded_auxiva_ip_step"]["k1_launches"],
+                "examples_walkthrough_ilrma": phase12["examples_walkthrough"]["k1_launches"],
+                "batch_laplace_ip_c2": phase12["batch_laplace_ip_c2"]["k1_launches"],
+                "harness_laplace_ip_c2": phase12["harness_laplace_ip_c2"]["k1_launches"],
             },
             "max_abs_err": max(c["max_abs_err"] for c in k1_all),
             "max_rel_err": max(c["rel_err"] for c in k1_all),
@@ -1661,7 +2009,13 @@ def main():
             "fused_auxiva_ip (K2, Laplace contrast)", k2, k2_long, c2["k2_launches"],
             {"laplace_ip_c2": c2["k2_launches"], "laplace_ip_c2_long": c2_long["k2_launches"],
              "over_4to2": over["k2_launches"], "factorisation": factor_launches["k2"],
-             "fdica_prox_beamformers": slice5_launches["k2"], "mnmf": mnmf_k2, "block_psd": block_k2},
+             "fdica_prox_beamformers": slice5_launches["k2"], "mnmf": mnmf_k2, "block_psd": block_k2,
+             "batch_laplace_ip_c2": phase12["batch_laplace_ip_c2"]["k2_launches"],
+             "harness_laplace_ip_c2": phase12["harness_laplace_ip_c2"]["k2_launches"],
+             "examples_separate_auxiva": phase12["examples_separate_auxiva"]["k2_launches"],
+             "batch_ilrma_c2": phase12["batch_ilrma_c2"]["k2_launches"],
+             "batch_fast_mnmf_c2": phase12["batch_fast_mnmf_c2"]["k2_launches"],
+             "sharded_auxiva_ip_step": phase12["sharded_auxiva_ip_step"]["k2_launches"]},
             K2_RTOL,
         ),
         k2_entry(

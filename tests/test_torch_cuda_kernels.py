@@ -554,3 +554,83 @@ def test_nonparallel_inv_runs_on_the_card(cuda, use_cholesky):
         ours = nonparallel_inv(X_, use_cholesky=use_cholesky)
         assert ours.device.type == "cuda" and ours.dtype == torch.complex128
         np.testing.assert_allclose(ours.cpu().numpy(), expected, rtol=1e-10, atol=1e-12)
+
+
+# --------------------------------------------------------------------------- #
+# slices 9 and 10a: the harness, batch_separate and the sharded steps
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("make,counter", [
+    (lambda: AuxLaplaceIVA(), fused_auxiva_ip_iter),
+    (lambda: GaussILRMA(n_basis=2), weighted_covariance_planes),
+    (lambda: FastMultichannelISNMF(n_basis=2), weighted_covariance_planes),
+])  # fmt: skip
+def test_batch_separate_launches_what_each_call_launches(cuda, make, counter):
+    """3 mixtures x 4 iterations: K2 (IVA IP, C = 2) or K1 per bin (ILRMA,
+    FastMNMF) once an iteration for each member, and each member equals its
+    own call."""
+    from audio_source_separation_tpu_torch.parallel import batch_separate
+
+    Xs = torch.stack([_mixture(seed, 2, 129, 100, cuda) for seed in range(3)])
+    np.random.seed(111)
+    counter.launches = 0
+    outputs, losses = batch_separate(make(), Xs, iteration=4, host=False)
+    torch.cuda.synchronize()
+    assert counter.launches == 12
+    assert outputs.device.type == "cuda" and outputs.shape == (3, 2, 129, 100) and losses.shape == (3, 4)
+    np.random.seed(111)
+    single = make()
+    for b in range(3):
+        single.loss = []
+        Y = single(Xs[b], iteration=4)
+        torch.testing.assert_close(outputs[b], Y, rtol=0, atol=1e-6 * float(Y.abs().max()))
+        np.testing.assert_allclose(losses[b].cpu().numpy(), single.loss[-4:], rtol=1e-6)
+
+
+def test_auxiva_ip_step_with_use_pallas_runs_through_k1(cuda):
+    from audio_source_separation_tpu_torch.parallel import auxiva_ip_step
+
+    X = _mixture(4, 2, 2049, 469, cuda)
+    W = torch.eye(2, dtype=torch.complex64, device=cuda).expand(2049, 2, 2).contiguous()
+    W_cpu = W.cpu().to(torch.complex128)
+    weighted_covariance_planes.launches = 0
+    for _ in range(3):
+        W, nll = auxiva_ip_step(X, W, use_pallas=True)
+        W_cpu, nll_cpu = auxiva_ip_step(X.cpu().to(torch.complex128), W_cpu, use_pallas=True)
+        np.testing.assert_allclose(float(nll), float(nll_cpu), rtol=1e-4)
+    assert weighted_covariance_planes.launches == 3
+
+
+def test_bss_eval_sources_on_the_card_matches_the_cpu(cuda):
+    from audio_source_separation_tpu_torch.utils import bss_eval_sources
+
+    rng = np.random.RandomState(6)
+    refs = rng.randn(2, 16000)
+    ests = refs[::-1] + 0.2 * refs + 0.3 * rng.randn(2, 16000)
+    card = bss_eval_sources(refs, ests)
+    cpu = bss_eval_sources(refs, ests, device="cpu")
+    assert all(a.device.type == "cuda" and a.dtype == torch.float64 for a in card[:3])
+    for a, b in zip(card[:3], cpu[:3]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=1e-4)
+    assert list(card[3]) == list(cpu[3]) == [1, 0]
+
+
+def test_new_entry_points_default_to_the_card(cuda, tmp_path):
+    from audio_source_separation_tpu_torch import utils
+    from audio_source_separation_tpu_torch.examples import separate
+    from audio_source_separation_tpu_torch.parallel import batch_separate
+    from audio_source_separation_tpu_torch.utils.synthesis import mird_geometry_rirs
+
+    rng = np.random.RandomState(7)
+    refs, ests = rng.randn(2, 500), rng.randn(2, 500)
+    assert utils.si_sdr(ests, refs).device.type == "cuda"
+    assert utils.pairwise_si_sdr(ests, refs).device.type == "cuda"
+    rirs = utils.synthetic_room_impulse_responses(2, 2, taps=16)
+    assert rirs.device.type == "cuda" and mird_geometry_rirs(45, samples=800).device.type == "cuda"
+    mixture, images = utils.convolutive_mixture(refs, rirs.cpu().numpy())
+    assert mixture.device.type == "cuda" and images.device.type == "cuda"
+    outputs, _ = batch_separate(AuxLaplaceIVA(), rng.randn(2, 2, 9, 16) + 0j, iteration=2, host=False)
+    assert outputs.device.type == "cuda" and outputs.dtype == torch.complex64
+    wav = str(tmp_path / "mix.wav")
+    utils.write_wav(wav, 0.1 * rng.randn(2, 6000), 16000, channel_last=False)
+    summary = separate.main(["--input", wav, "--iterations", "2", "--fft-size", "256", "--out", str(tmp_path / "sep")])
+    assert summary["device"] == "cuda"

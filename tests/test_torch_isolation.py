@@ -131,6 +131,18 @@ def test_port_imports_with_jax_blocked():
         assert port.MVDRBeamformer(steering_vector=A + np.eye(2), device="cpu")(X).shape == (2, 5, 8)
         R = np.tile(np.eye(2, dtype=complex), (5, 1, 1))
         assert port.MaxSNRBeamformer(device="cpu")(X, signal_covariance=R, noise_covariance=R).shape == (1, 5, 8)
+        from audio_source_separation_tpu_torch import parallel, utils
+        from audio_source_separation_tpu_torch.examples import beamform, decompose_nmf, prepare_mixture, separate, walkthrough
+        from audio_source_separation_tpu_torch.ops import pair_products, weighted_covariance_from_pairs
+        outputs, losses = parallel.batch_separate(AuxLaplaceIVA(device="cpu"), np.stack([X, X]), iteration=2)
+        assert outputs.shape == (2, 2, 5, 8) and losses.shape == (2, 2)
+        X2 = np.stack([X.real, X.imag])
+        W2 = np.stack([np.tile(np.eye(2), (5, 1, 1)), np.zeros((5, 2, 2))])
+        assert parallel.auxiva_ip_step_stacked(torch.as_tensor(X2), torch.as_tensor(W2))[0].shape == (2, 5, 2, 2)
+        refs = np.random.RandomState(2).randn(2, 300)
+        assert utils.bss_eval_sources(refs, refs[::-1] + 0.1, filter_length=8, device="cpu")[0].shape == (2,)
+        rirs = utils.synthetic_room_impulse_responses(2, 2, taps=8, device="cpu")
+        assert utils.convolutive_mixture(refs, rirs)[0].shape == (2, 300)
         assert not [m for m in sys.modules if m.startswith("jax.")]
         print("ok")
         """
