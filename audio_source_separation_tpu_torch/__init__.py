@@ -38,7 +38,11 @@ Eval at float64 on the input's device, the callbacks, the mixture
 synthesis, WAV I/O) with the example scripts (``examples``, run with
 ``python -m audio_source_separation_tpu_torch.examples.<name>``), and
 ``parallel``: ``batch_separate`` and the AuxIVA-IP steps of
-``parallel.sharded``.
+``parallel.sharded`` -- and the mesh on ``torch.distributed``, one rank per
+device (``IterativeSolver.use_mesh`` for the IVA, ILRMA and IPSDTA
+families, ``parallel.make_mesh``, ``make_mesh_2d``,
+``make_sharded_train_step``, ``batch_separate(mesh=...)``) and the
+profiling tools of ``runtime`` (``benchmark_solver``, ``trace``, ...).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise rather than fall back.

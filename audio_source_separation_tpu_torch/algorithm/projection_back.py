@@ -8,11 +8,13 @@ import torch
 from ..ops.fast_linalg import inv_planes
 
 
-def projection_back(Y, reference):
+def projection_back(Y, reference, frames_sum=None):
     """Args:
         Y: separated sources ``(n_sources, n_bins, n_frames)``.
         reference: mixture at the reference mic ``(n_bins, n_frames)`` or the
             full mixture ``(n_channels, n_bins, n_frames)``.
+        frames_sum: a frame-sharded caller's sum over the shards, applied
+            once to the packed frame sums (``None``: the frames are whole).
     Returns:
         scale ``(n_sources, n_bins)`` (2-D reference) or
         ``(n_channels, n_sources, n_bins)`` (3-D reference).
@@ -38,15 +40,16 @@ def projection_back(Y, reference):
                 for i in range(n_sources)
             ]
         )  # (N, N, F)
+        XY = torch.stack(
+            [torch.stack([(X[c] * Y[j].conj()).sum(dim=-1) for j in range(n_sources)]) for c in range(n_channels)]
+        )  # (C, N, F)
+        if frames_sum is not None:
+            YY, XY = frames_sum(torch.cat([YY, XY])).split([n_sources, n_channels])
         trace = sum(YY[i, i].real for i in range(n_sources))
         ridge = (1e-12 * trace + 1e-32).to(YY.dtype)
         eye = torch.eye(n_sources, dtype=YY.dtype, device=YY.device)[..., None]
         YY = YY + eye * ridge
         inv = inv_planes(YY)
-        XY = [
-            [(X[c] * Y[j].conj()).sum(dim=-1) for j in range(n_sources)]
-            for c in range(n_channels)
-        ]
         A = torch.stack(
             [
                 torch.stack(
@@ -62,6 +65,8 @@ def projection_back(Y, reference):
     Y_hermite = Yb.transpose(-2, -1).conj()  # (F, T, N)
     YYH = Yb @ Y_hermite  # (F, N, N), Hermitian
     XYH = Xb @ Y_hermite  # (F, C, N)
+    if frames_sum is not None:
+        YYH, XYH = frames_sum(torch.cat([YYH, XYH], dim=1)).split([n_sources, n_channels], dim=1)
     # A = XYH inv(YYH)  <=>  YYH^H A^H = XYH^H
     A = torch.linalg.solve(YYH.transpose(-2, -1).conj(), XYH.transpose(-2, -1).conj())
     A = A.transpose(-2, -1).conj_physical()  # (F, C, N)

@@ -273,7 +273,7 @@ fused_ip_kernel(const float2* __restrict__ x,      // (2, F, T)
                 unsigned* __restrict__ tickets,    // [barrier count, barrier gen, ticket]
                 float* __restrict__ psum_out,      // (2, T)
                 float* __restrict__ stats,         // [logdet, nll]
-                int F, int T, float eps, float threshold) {
+                int F, int T, int n_bins, float eps, float threshold) {
   static_assert(B == 2 || B == 4 || B == 8, "B must be 2, 4 or 8");
   constexpr int S = kWarps / B;  // warps per bin
 
@@ -287,7 +287,7 @@ fused_ip_kernel(const float2* __restrict__ x,      // (2, F, T)
   __shared__ int flag_s;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float bins_f = static_cast<float>(F);
+  const float bins_f = static_cast<float>(n_bins);  // the Gauss contrast's F
   K2_STAMP(0);  // block started
   const int groups = (F + B - 1) / B;  // groups of B bins; this block takes every gridDim-th
   const int wstride = T < kChunk ? T : kChunk;
@@ -544,7 +544,7 @@ cudaError_t resident_blocks(int device, size_t smem, int* out) {
 template <int B, bool kResident, int kContrast>
 cudaError_t launch(const void* x, const void* w_in, const void* psum_in, void* w_out,
                    void* psum_out, void* stats, void* part, void* tickets, int F, int T,
-                   size_t smem, float eps, float threshold, cudaStream_t stream) {
+                   int n_bins, size_t smem, float eps, float threshold, cudaStream_t stream) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -562,7 +562,7 @@ cudaError_t launch(const void* x, const void* w_in, const void* psum_in, void* w
   unsigned* tk = static_cast<unsigned*>(tickets);
   float* po = static_cast<float*>(psum_out);
   float* st = static_cast<float*>(stats);
-  void* args[] = {&xp, &wp, &pp, &wo, &pa, &tk, &po, &st, &F, &T, &eps, &threshold};
+  void* args[] = {&xp, &wp, &pp, &wo, &pa, &tk, &po, &st, &F, &T, &n_bins, &eps, &threshold};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fused_ip_kernel<B, kResident, kContrast>),
                                     dim3(blocks), dim3(kThreads), args, smem, stream);
   if (err != cudaSuccess) return err;
@@ -573,16 +573,16 @@ cudaError_t launch(const void* x, const void* w_in, const void* psum_in, void* w
 template <int kContrast>
 cudaError_t launch_plan(const void* x, const void* w_in, const void* psum_in, void* w_out,
                         void* psum_out, void* stats, void* part, void* tickets, int F, int T,
-                        int bins, bool resident, size_t smem, float eps, float threshold,
+                        int n_bins, int bins, bool resident, size_t smem, float eps, float threshold,
                         cudaStream_t s) {
   if (!resident && bins == 8)
-    return launch<8, false, kContrast>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, smem, eps, threshold, s);
+    return launch<8, false, kContrast>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, n_bins, smem, eps, threshold, s);
   if (resident && bins == 8)
-    return launch<8, true, kContrast>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, smem, eps, threshold, s);
+    return launch<8, true, kContrast>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, n_bins, smem, eps, threshold, s);
   if (resident && bins == 4)
-    return launch<4, true, kContrast>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, smem, eps, threshold, s);
+    return launch<4, true, kContrast>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, n_bins, smem, eps, threshold, s);
   if (resident && bins == 2)
-    return launch<2, true, kContrast>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, smem, eps, threshold, s);
+    return launch<2, true, kContrast>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, n_bins, smem, eps, threshold, s);
   return cudaErrorInvalidValue;
 }
 
@@ -594,23 +594,25 @@ cudaError_t launch_plan(const void* x, const void* w_in, const void* psum_in, vo
 // 4); tickets: 3 unsigned, zero before the first launch (the kernel leaves
 // the counters zero).  bins, resident and smem_bytes come from
 // ops/fused_ip.py::k2_launch_plan: a resident slab of 2, 4 or 8 bins, or
-// the frame axis streamed in groups of 8.  contrast: 0 Laplace, 1 Gauss.
+// the frame axis streamed in groups of 8.  contrast: 0 Laplace, 1 Gauss;
+// n_bins: the Gauss contrast's bin count (F, or a bin-sharded caller's
+// whole count).
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int fused_auxiva_ip_f32(const void* x, const void* w_in, const void* psum_in,
                                    void* w_out, void* psum_out, void* stats, void* part,
-                                   void* tickets, int F, int T, int bins, int resident,
+                                   void* tickets, int F, int T, int n_bins, int bins, int resident,
                                    int smem_bytes, int contrast, float eps, float threshold,
                                    void* stream) {
-  if (F < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (F < 1 || T < 1 || n_bins < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t need = weights_bytes(T) + (resident ? 2 * slab_bytes(bins, T) : 0);
   if (static_cast<size_t>(smem_bytes) < need) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(smem_bytes);
   cudaError_t err = cudaErrorInvalidValue;
   if (contrast == kLaplace)
-    err = launch_plan<kLaplace>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, bins, resident != 0, smem, eps, threshold, s);
+    err = launch_plan<kLaplace>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, n_bins, bins, resident != 0, smem, eps, threshold, s);
   else if (contrast == kGauss)
-    err = launch_plan<kGauss>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, bins, resident != 0, smem, eps, threshold, s);
+    err = launch_plan<kGauss>(x, w_in, psum_in, w_out, psum_out, stats, part, tickets, F, T, n_bins, bins, resident != 0, smem, eps, threshold, s);
   return static_cast<int>(err);
 }
 

@@ -39,6 +39,11 @@ from .iva import IVABase
 class FDICABase(IVABase):
     """Shared FDICA machinery (``bss/fdica.py:8-150``)."""
 
+    def field_axes(self):
+        """Nothing shards: the permutation alignment couples every bin, so
+        under a mesh each rank runs the whole problem."""
+        return {}
+
     state_fields = ("demix_filter", "estimation")
 
     def nll(self, state):

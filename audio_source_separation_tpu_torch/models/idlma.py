@@ -71,6 +71,8 @@ class IDLMABase(IVABase):
     """Shared IDLMA protocol (``sss/idlma.py:10-88``); the reference takes a
     singular ``callback`` here (``idlma.py:11-13``)."""
 
+    mesh_slice = "10c"
+
     state_fields = ("demix_filter", "estimation", "dnn_output")
     callback_on_init = False
 

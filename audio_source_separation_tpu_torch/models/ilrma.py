@@ -29,6 +29,13 @@ The spatial covariances take ILRMA's per-bin weights ``1/R (N, F, T)``
 through kernel K1 (:func:`~..ops.cov_kernel.weighted_covariance_planes`, one
 launch; IP2's two rows in one launch), then the component IP sweep at C <= 4
 with a cheap guard, else the matrix one.
+
+Under a mesh the basis shards with the bins and the activations with the
+frames (the JAX package's ``field_axes``).  In bins mode K1 stays
+shard-local and the activations' MU sums over bins are all-reduced; in
+frames mode the bases' MU sums over frames and K1's covariance are.  The
+power normalisation divides by the true bin count, and the NLL's sums are
+all-reduced in either mode.
 """
 
 import warnings
@@ -36,7 +43,6 @@ import warnings
 import numpy as np
 import torch
 
-from ..algorithm.projection_back import projection_back
 from ..ops.cov_kernel import weighted_covariance_planes
 from ..ops.fast_linalg import batched_log_abs_det
 from ..ops.ip_components import (
@@ -49,7 +55,6 @@ from ..ops.ip_components import (
     projection_back_components,
     quadratic_power_planes,
 )
-from ..ops.iss import iss_sweep
 from ..runtime.solver import real_tensor
 from ..utils.flooring import EPS, THRESHOLD, floor_below
 from .iva import IVABase, _pair_update_matrix
@@ -83,6 +88,13 @@ class ILRMABase(IVABase):
         if algorithm_spatial not in ["IP", "ISS", "pairwise", "IP1", "IP2"]:
             raise AssertionError("Not support {}-based demixing filter updates.".format(algorithm_spatial))
         self.algorithm_spatial = algorithm_spatial
+
+    def field_axes(self):
+        axes = dict(super().field_axes())
+        axes["basis"] = {"bins": 0 if self.partitioning else 1}
+        axes["activation"] = {"frames": -1}
+        axes["estimation_power"] = {"bins": 1, "frames": 2}
+        return axes
 
     @property
     def _is_iss(self):
@@ -168,8 +180,15 @@ class ILRMABase(IVABase):
         if "demix_filter" in state:
             return batched_log_abs_det(state["demix_filter"])
         X = state["input"]
-        W = self.compute_demix_filter(state["estimation"], X, solve_dtype=torch.complex128)
+        frames_sum = self._frames_sum if self._sharded else None
+        W = self.compute_demix_filter(state["estimation"], X, solve_dtype=torch.complex128, frames_sum=frames_sum)
         return batched_log_abs_det(W).to(X.real.dtype)
+
+    def _nll_sum(self, terms, state):
+        """``sum(terms) - 2 T sum_f log|det W_f|``, each sum whole."""
+        X = state["input"]
+        total = self._shard_sum(torch.sum(terms))
+        return total - 2 * self._n_frames(X) * self._bins_sum(self._log_abs_det(state).sum())
 
     def _estimates(self, state):
         if "estimation" in state:
@@ -179,8 +198,7 @@ class ILRMABase(IVABase):
     def finalize(self, state):
         # projection-back is unconditional in ILRMA (``ilrma.py:269-271``)
         Y = self._estimates(state)
-        scale = projection_back(Y, reference=state["input"][self.reference_id])
-        return Y * scale[..., None]
+        return Y * self._projection_back(Y, state["input"][self.reference_id])[..., None]
 
     def _sync_attributes(self, state):
         super()._sync_attributes(state)
@@ -250,13 +268,13 @@ class GaussILRMA(ILRMABase):
         exponent = domain / (domain + 2)
         TV = floor_below(T @ V, eps)
         division, TV_inv = P / TV ** ((domain + 2) / domain), 1 / TV
-        TVV = floor_below(TV_inv @ V.transpose(-2, -1), eps)
-        T = T * (division @ V.transpose(-2, -1) / TVV) ** exponent
+        num, den = self._shard_sums([division @ V.transpose(-2, -1), TV_inv @ V.transpose(-2, -1)], "frames")
+        T = T * (num / floor_below(den, eps)) ** exponent
 
         TV = floor_below(T @ V, eps)
         division, TV_inv = P / TV ** ((domain + 2) / domain), 1 / TV
-        TTV = floor_below(T.transpose(-2, -1) @ TV_inv, eps)
-        V = V * (T.transpose(-2, -1) @ division / TTV) ** exponent
+        num, den = self._shard_sums([T.transpose(-2, -1) @ division, T.transpose(-2, -1) @ TV_inv], "bins")
+        V = V * (num / floor_below(den, eps)) ** exponent
         return T, V
 
     def _update_source_basic(self, state):
@@ -275,22 +293,25 @@ class GaussILRMA(ILRMABase):
 
         ZTV = ztv(Z, T, V)
         division, ZTV_inv = P / ZTV**2, 1 / ZTV
-        num = torch.einsum("sft,fk,kt->sk", division, T, V)
-        den = floor_below(torch.einsum("sft,fk,kt->sk", ZTV_inv, T, V), eps)
-        Z = torch.sqrt(num / den)
+        num, den = self._shard_sums(
+            [torch.einsum("sft,fk,kt->sk", division, T, V), torch.einsum("sft,fk,kt->sk", ZTV_inv, T, V)]
+        )
+        Z = torch.sqrt(num / floor_below(den, eps))
         Z = Z / Z.sum(dim=0)
 
         ZTV = ztv(Z, T, V)
         division, ZTV_inv = P / ZTV**2, 1 / ZTV
-        num = torch.einsum("sft,sk,kt->fk", division, Z, V)
-        den = floor_below(torch.einsum("sft,sk,kt->fk", ZTV_inv, Z, V), eps)
-        T = T * torch.sqrt(num / den)
+        num, den = self._shard_sums(
+            [torch.einsum("sft,sk,kt->fk", division, Z, V), torch.einsum("sft,sk,kt->fk", ZTV_inv, Z, V)], "frames"
+        )
+        T = T * torch.sqrt(num / floor_below(den, eps))
 
         ZTV = ztv(Z, T, V)
         division, ZTV_inv = P / ZTV**2, 1 / ZTV
-        num = torch.einsum("sft,sk,fk->kt", division, Z, T)
-        den = floor_below(torch.einsum("sft,sk,fk->kt", ZTV_inv, Z, T), eps)
-        V = V * torch.sqrt(num / den)
+        num, den = self._shard_sums(
+            [torch.einsum("sft,sk,fk->kt", division, Z, T), torch.einsum("sft,sk,fk->kt", ZTV_inv, Z, T)], "bins"
+        )
+        V = V * torch.sqrt(num / floor_below(den, eps))
         return dict(state, latent=Z, basis=T, activation=V)
 
     def _update_source_pairwise(self, state, m, n):
@@ -314,14 +335,14 @@ class GaussILRMA(ILRMABase):
 
     def _update_spatial_iss(self, state):
         R = floor_below(self.source_variance(state), self.eps)
-        return dict(state, estimation=iss_sweep(state["estimation"], 1.0 / R, compat=self.iss_compat))
+        return dict(state, estimation=self._iss_sweep(state["estimation"], 1.0 / R))
 
     def _update_spatial_pairwise(self, state, m, n):
         X, W = state["input"], state["demix_filter"]
         pair = torch.stack([m, n])
         T, V = state["basis"].index_select(0, pair), state["activation"].index_select(0, pair)
         R_mn = floor_below((T @ V) ** (2 / self.domain), self.eps)
-        U_mn = assemble_matrices(weighted_covariance_planes(X, 1.0 / R_mn))  # (2, F, C, C): one K1 launch
+        U_mn = assemble_matrices(self._frames_mean(weighted_covariance_planes(X, 1.0 / R_mn)))  # (2, F, C, C): one K1 launch
         if self.guard in ("one_norm", "none") and W.shape[1] == W.shape[2] <= 3:
             W = ip2_pair_update_planes(W, U_mn.permute(0, 2, 3, 1), m, n, threshold=self.threshold, guard=self.guard)
         else:
@@ -338,8 +359,14 @@ class GaussILRMA(ILRMABase):
         Y = state.get("estimation")
         if self.normalize == "power" or self.normalize is True:
             P = self._estimation_power(state)
-            aux = floor_below(torch.sqrt(P.sum(dim=(1, 2)) / (P.shape[1] * P.shape[2])), eps)  # (S,)
-            if W is not None:
+            # the mean over the input's true bins: padded bins (zero data)
+            # keep their identity rows unscaled, so their share of the NLL
+            # stays an iteration-independent constant
+            n_bins = self._n_bins_true if self._sharded else P.shape[1]
+            aux = floor_below(torch.sqrt(self._shard_sum(P.sum(dim=(1, 2))) / (n_bins * self._n_frames(P))), eps)  # (S,)
+            if W is not None and self._bin_pad:
+                W = torch.where(self._valid_bins(X)[:, None, None], W / aux[None, :, None], W)
+            elif W is not None:
                 W = W / aux[None, :, None]
             if Y is None:
                 state = dict(state, estimation_power=P / aux[:, None, None] ** 2)
@@ -358,7 +385,7 @@ class GaussILRMA(ILRMABase):
                     "Not support 'projection-back' based normalization for "
                     "partitioninig function. Choose 'power' based normalization."
                 )
-            scale = projection_back(Y, reference=X[self.reference_id])  # (S, F)
+            scale = self._projection_back(Y, X[self.reference_id])  # (S, F)
             Y = Y * scale[..., None]
             if W is not None:
                 W = W * scale.transpose(0, 1)[..., None]
@@ -394,8 +421,16 @@ class GaussILRMA(ILRMABase):
         """``sum (P / R + log R) - 2 T sum log|det W|`` (``ilrma.py:648-677``)."""
         P = self._estimation_power(state)
         R = floor_below(self.source_variance(state), self.eps)
-        n_frames = state["input"].shape[-1]
-        return torch.sum(P / R + torch.log(R)) - 2 * n_frames * self._log_abs_det(state).sum()
+        return self._nll_sum(P / R + torch.log(R), state)
+
+    def supports_bin_padding(self):
+        """Zero bins are neutral for the IP and IP2 paths with power or no
+        normalisation: zero spectra freeze the padded NMF rows at zero, the
+        guard keeps identity rows, the power normalisation divides by the
+        true bin count, and the padded bins add an iteration-independent
+        ``log(eps)`` constant to the NLL.  Projection-back and ISS solve
+        per-bin least squares (0/0 on an empty bin)."""
+        return self.algorithm_spatial in ("IP", "IP1", "IP2", "pairwise") and self.normalize in (False, True, "power")
 
     def __repr__(self):
         return "Gauss-ILRMA(n_basis={}, domain={}, partitioning={}, normalize={}, algorithm_spatial={})".format(
@@ -462,14 +497,14 @@ class TILRMA(ILRMABase):
         TV = floor_below(T @ V, eps)
         harmonic = 1 / (2 / ((2 + nu) * TV) + nu / ((2 + nu) * P))
         division, TV_inv = harmonic / TV**2, 1 / TV
-        TVV = floor_below(TV_inv @ V.transpose(-2, -1), eps)
-        T = T * torch.sqrt(division @ V.transpose(-2, -1) / TVV)
+        num, den = self._shard_sums([division @ V.transpose(-2, -1), TV_inv @ V.transpose(-2, -1)], "frames")
+        T = T * torch.sqrt(num / floor_below(den, eps))
 
         TV = floor_below(T @ V, eps)
         harmonic = 1 / (2 / ((2 + nu) * TV) + nu / ((2 + nu) * P))
         division, TV_inv = harmonic / TV**2, 1 / TV
-        TTV = floor_below(T.transpose(-2, -1) @ TV_inv, eps)
-        V = V * torch.sqrt(T.transpose(-2, -1) @ division / TTV)
+        num, den = self._shard_sums([T.transpose(-2, -1) @ division, T.transpose(-2, -1) @ TV_inv], "bins")
+        V = V * torch.sqrt(num / floor_below(den, eps))
         return dict(state, basis=T, activation=V)
 
     def _update_spatial(self, state):
@@ -497,7 +532,7 @@ class TILRMA(ILRMABase):
                 "Not support normalization based on {}. Choose 'power' or 'projection-back'".format(self.normalize)
             )
         P = self._estimation_power(state)
-        aux = floor_below(torch.sqrt(P.mean(dim=(1, 2))), self.eps)
+        aux = floor_below(torch.sqrt(self._shard_sum(P.sum(dim=(1, 2))) / (self._n_bins(P) * self._n_frames(P))), self.eps)
         state = dict(state, demix_filter=state["demix_filter"] / aux[None, :, None])
         if "estimation" in state:
             state["estimation"] = state["estimation"] / aux[:, None, None]
@@ -523,10 +558,7 @@ class TILRMA(ILRMABase):
         nu = self.nu
         P = self._estimation_power(state)
         R = floor_below(self.source_variance(state), self.eps)
-        n_frames = state["input"].shape[-1]
-        return torch.sum((1 + nu / 2) * torch.log(1 + (2 / nu) * (P / R)) + torch.log(R)) - 2 * n_frames * (
-            self._log_abs_det(state).sum()
-        )
+        return self._nll_sum((1 + nu / 2) * torch.log(1 + (2 / nu) * (P / R)) + torch.log(R), state)
 
     def __repr__(self):
         return "t-ILRMA(n_basis={}, nu={}, domain={}, partitioning={}, normalize={}, algorithm_spatial={})".format(
@@ -593,9 +625,8 @@ class ConsistentGaussILRMA(GaussILRMA):
         # the fold (``ilrma.py:1212-1233``), its scales from the invariant
         # frame-summed mixture Gram: no complex (N, F, T) estimate
         W, planes = state["demix_filter"], state["pair_products"]
-        scale = torch.stack(
-            projection_back_components(filter_rows(W), gram_components(planes), reference_id=self.reference_id)
-        )  # (S, F)
+        gram = gram_components(planes, frames_sum=self._frames_sum if self._sharded else None)
+        scale = torch.stack(projection_back_components(filter_rows(W), gram, reference_id=self.reference_id))  # (S, F)
         W = W * scale.transpose(0, 1)[..., None]
         T = state["basis"] * torch.abs(scale[..., None]) ** 2
         return dict(state, demix_filter=W, estimation_power=quadratic_power_planes(W, planes), basis=T)

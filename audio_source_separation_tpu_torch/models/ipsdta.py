@@ -23,6 +23,14 @@ The off-default variants of the JAX package (``source_compact=False`` at
 ``B <= 3``, the ``source_pencil`` streams at ``n_basis == 2``) are not
 ported: a solver set to one raises ``NotImplementedError``.
 
+Under a mesh, bins shards hold whole blocks (the partition must be uniform
+and its blocks divide by the mesh dimension): the block statistics stay
+shard-local and the activation updates' and the trace normalisation's sums
+over blocks are all-reduced.  In frames mode the activations shard along
+frames and every ``sum_t`` statistic (the MM and EM basis statistics, the
+VCD covariances and couplings, the fixed-point ``G``) is all-reduced.  The
+NLL's sums are all-reduced in either mode.
+
 The Gauss VCD's spatial covariances ``Q[n, f] = (1/T) sum_t d[n, f, t] x
 x^H``, ``d`` the real diagonal of the projected ``R_n^-1`` at bin f's slot,
 are the same for every sweep; they come from one call of kernel K1
@@ -35,7 +43,6 @@ couples the bins of a block, so both stay batched PyTorch products.
 import numpy as np
 import torch
 
-from ..algorithm.projection_back import projection_back
 from ..ops.blocks import BlockLayout
 from ..ops.cov_kernel import weighted_covariance_planes
 from ..ops.fast_linalg import (
@@ -275,11 +282,44 @@ class GaussIPSDTA(IPSDTABase):
         if spatial_iteration is not None:
             self.spatial_iteration = spatial_iteration
 
+    def field_axes(self):
+        """Shardable axes of the IPSDTA state (the JAX package's): the basis
+        along its block axis, the activations along frames."""
+        return {
+            "input": {"bins": 1, "frames": 2},
+            "demix_filter": {"bins": 0},
+            "estimation": {"bins": 1, "frames": 2},
+            "basis": {"bins": 1},  # (S, n_blocks, B, B, K)
+            "activation": {"frames": -1},  # (S, K, T)
+            "fixed_point": {"bins": -1},  # (S, n_bins)
+        }
+
+    def _validate_mesh(self, input):
+        if self._shard_mode != "bins":
+            return
+        n_bins = input.shape[1]
+        layout = BlockLayout(n_bins, min(self.n_blocks, n_bins))
+        mesh = self._mesh
+        n_dev = mesh.size(mesh.mesh_dim_names.index(self._shard_axis_name))
+        if layout.n_remains != 0 or layout.n_blocks % n_dev != 0:
+            raise ValueError(
+                "use_mesh(mode='bins'): IPSDTA blocks couple bins, so bin shards must align with whole blocks -- "
+                "requires a uniform block partition (n_bins % n_blocks == 0; here {} % {} = {}) and n_blocks "
+                "divisible by the {}-way mesh axis (here {} % {} = {}).  Use mode='frames' or adjust n_blocks/the "
+                "STFT size.".format(
+                    n_bins, layout.n_blocks, layout.n_remains, n_dev, layout.n_blocks, n_dev, layout.n_blocks % n_dev
+                )
+            )
+
     # init
     def _layout(self, n_bins):
+        """The block layout of ``n_bins`` bins: the whole partition, or a
+        bins shard's share of its blocks."""
+        world = self._shard_world("bins")
+        n_blocks = min(self.n_blocks, n_bins * world) // world
         layout = getattr(self, "_cached_layout", None)
-        if layout is None or layout.n_bins != n_bins:
-            layout = BlockLayout(n_bins, min(self.n_blocks, n_bins))
+        if layout is None or (layout.n_bins, layout.n_blocks) != (n_bins, n_blocks):
+            layout = BlockLayout(n_bins, n_blocks)
             self._cached_layout = layout
         return layout
 
@@ -359,7 +399,7 @@ class GaussIPSDTA(IPSDTABase):
         eps = self.eps
         U = self._U_kmajor(state)
         V = state["activation"]
-        n_bins = state["input"].shape[1]
+        n_bins = self._n_bins(state["input"])
         y = self._y_blocks(state["estimation"], layout)  # (S, T, nb, B)
 
         # basis: U_k A_k U_k + U_k, A_k = mean_t V_kt (z z^H - R^-1), z = R^-1 y
@@ -367,7 +407,7 @@ class GaussIPSDTA(IPSDTABase):
         inv_R = _psd_inv(R, psd=False)
         z = torch.einsum("stbij,stbj->stbi", inv_R, y)
         zz_minus = z[..., :, None] * z[..., None, :].conj() - inv_R
-        A = torch.einsum("skt,stbij->skbij", V.to(zz_minus.dtype), zz_minus) / V.shape[-1]
+        A = self._frames_sum(torch.einsum("skt,stbij->skbij", V.to(zz_minus.dtype), zz_minus)) / self._n_frames(V)
         U_new = _to_psd(layout.zero_padding_matrix(U @ A @ U + U), eps=eps)
         state = dict(state, basis=layout.zero_padding_matrix(U_new).permute(0, 2, 3, 4, 1))
 
@@ -376,8 +416,10 @@ class GaussIPSDTA(IPSDTABase):
         R, _ = self._R_blocks_parts(U, V, layout)
         inv_R = _psd_inv(R, psd=False)
         z = torch.einsum("stbij,stbj->stbi", inv_R, y)
-        zUz = torch.einsum("stbi,skbij,stbj->skt", z.conj(), U, z).real
-        trRU = torch.einsum("stbij,skbji->skt", inv_R, U).real
+        zUz, trRU = self._shard_sums(
+            [torch.einsum("stbi,skbij,stbj->skt", z.conj(), U, z).real, torch.einsum("stbij,skbji->skt", inv_R, U).real],
+            "bins",
+        )
         V_new = (V**2 * zUz + V * n_bins - V**2 * trRU) / n_bins
         return dict(state, activation=torch.clamp(V_new, min=0.0))
 
@@ -397,6 +439,7 @@ class GaussIPSDTA(IPSDTABase):
         inv2 = matmul_small(inv_R, inv_R)
         S_k = torch.einsum("skt,stbi,stbj->skbij", Vc, z, z.conj()) + eps * torch.einsum("skt,stbij->skbij", Vc, inv2)
         T_k = torch.einsum("skt,stbij->skbij", Vc, inv_R)
+        S_k, T_k = self._shard_sums([S_k, T_k], "frames")
         state = dict(state, basis=self._basis_sqrt_chain(U, S_k, T_k, layout))
 
         # activation by the trace ratio (``ipsdta.py:625-688``): with the
@@ -410,9 +453,11 @@ class GaussIPSDTA(IPSDTABase):
         d = eps + eps * (ynorm + B * eps)
         inv2_d = d[..., None, None].to(U.dtype) * matmul_small(inv_R, inv_R)
         zUz = torch.einsum("stbi,skbij,stbj->skt", z.conj(), U, z).real
-        num = torch.clamp(zUz + torch.einsum("skbij,stbji->skt", U, inv2_d).real, min=0)
-        den = floor_below(torch.einsum("stbij,skbji->skt", inv_R, U).real, eps)
-        return dict(state, activation=V * torch.sqrt(num / den))
+        num, den = self._shard_sums(
+            [zUz + torch.einsum("skbij,stbji->skt", U, inv2_d).real, torch.einsum("stbij,skbji->skt", inv_R, U).real],
+            "bins",
+        )
+        return dict(state, activation=V * torch.sqrt(torch.clamp(num, min=0) / floor_below(den, eps)))
 
     # source model on compact Hermitian planes (B <= 3): R, R^-1, R^-2 and
     # every frame statistic as B^2 real planes, batched over sources, and
@@ -475,14 +520,14 @@ class GaussIPSDTA(IPSDTABase):
         """The EM step (Ikeshita) on compact planes."""
         eps = self.eps
         V = state["activation"]
-        n_bins, n_frames = state["input"].shape[1], V.shape[-1]
+        n_bins, n_frames = self._n_bins(state["input"]), self._n_frames(V)
         U, UC, YP, padC = self._source_compact_preamble(state, layout)
         B = layout.block_size
 
         IC = self._source_R_inv_compact(UC, V, padC, False, eps)
         Z = self._solve_y_compact(IC, YP)
         AC = hermitian_compact_from_entries(lambda c, d: Z[c] * Z[d].conj(), B) - IC
-        A = self._frame_sum_compact(V, AC, B) / n_frames
+        A = self._frames_sum(self._frame_sum_compact(V, AC, B)) / n_frames
         U_new = _to_psd(layout.zero_padding_matrix(U @ A @ U + U), eps=eps)
         state = dict(state, basis=layout.zero_padding_matrix(U_new).permute(0, 2, 3, 4, 1))
 
@@ -490,8 +535,9 @@ class GaussIPSDTA(IPSDTABase):
         IC = self._source_R_inv_compact(UC, V, padC, False, eps)
         Z = self._solve_y_compact(IC, YP)
         Pz = hermitian_compact_from_entries(lambda c, d: Z[c].conj() * Z[d], B)
-        zUz = self._trace_contract_compact(UC, Pz, False)
-        trRU = self._trace_contract_compact(UC, IC, True)
+        zUz, trRU = self._shard_sums(
+            [self._trace_contract_compact(UC, Pz, False), self._trace_contract_compact(UC, IC, True)], "bins"
+        )
         V_new = (V**2 * zUz + V * n_bins - V**2 * trRU) / n_bins
         return dict(state, activation=torch.clamp(V_new, min=0.0))
 
@@ -505,8 +551,7 @@ class GaussIPSDTA(IPSDTABase):
         IC = self._source_R_inv_compact(UC, V, padC, True, eps)
         Z = self._solve_y_compact(IC, YP)
         SC = hermitian_compact_from_entries(lambda c, d: Z[c] * Z[d].conj(), B) + eps * square_hermitian_compact(IC)
-        S_k = self._frame_sum_compact(V, SC, B)
-        T_k = self._frame_sum_compact(V, IC, B)
+        S_k, T_k = self._shard_sums([self._frame_sum_compact(V, SC, B), self._frame_sum_compact(V, IC, B)], "frames")
         state = dict(state, basis=self._basis_sqrt_chain(U, S_k, T_k, layout))
 
         U, UC = self._source_compact_basis(state, layout)
@@ -517,9 +562,8 @@ class GaussIPSDTA(IPSDTABase):
         Pz = hermitian_compact_from_entries(lambda c, dd: Z[c].conj() * Z[dd], B)
         zUz = self._trace_contract_compact(UC, Pz, False)
         tr_inv2_d = self._trace_contract_compact(UC, square_hermitian_compact(IC) * d[None], True)
-        den = floor_below(self._trace_contract_compact(UC, IC, True), eps)
-        num = torch.clamp(zUz + tr_inv2_d, min=0)
-        return dict(state, activation=V * torch.sqrt(num / den))
+        num, den = self._shard_sums([zUz + tr_inv2_d, self._trace_contract_compact(UC, IC, True)], "bins")
+        return dict(state, activation=V * torch.sqrt(torch.clamp(num, min=0) / floor_below(den, eps)))
 
     # spatial model: VCD (Kondo, ``ipsdta.py:820-975``)
     def _update_spatial_vcd(self, state, layout, n_spatial=1):
@@ -561,7 +605,7 @@ class GaussIPSDTA(IPSDTABase):
         ``Q (S, B, C, C, nb)``, zero in the padded slots."""
         X = state["input"]
         weights = layout.scatter(inv_diag).transpose(1, 2).to(X.real.dtype).contiguous()  # (S, F, T)
-        Q = assemble_matrices(weighted_covariance_planes(X, weights))  # (S, F, C, C)
+        Q = assemble_matrices(self._frames_mean(weighted_covariance_planes(X, weights)))  # (S, F, C, C)
         return layout.gather(Q.permute(0, 2, 3, 1)).permute(0, 4, 1, 2, 3)
 
     def _update_spatial_vcd_planes(self, state, layout, n_spatial=1):
@@ -572,6 +616,7 @@ class GaussIPSDTA(IPSDTABase):
         n_sources, n_channels = state["demix_filter"].shape[1:]
         B, n_frames = layout.block_size, X.shape[-1]
 
+        n_frames = self._n_frames(X)
         XP, WP, validB = self._vcd_data_planes(state, layout)
         IC = self._vcd_inverse_compact(state, layout)
         entry = [[compact_entry(IC, i, j) for j in range(B)] for i in range(B)]  # (S, T, nb) each
@@ -584,9 +629,15 @@ class GaussIPSDTA(IPSDTABase):
                 Xw = self._projections_planes(XP, WP, n)
                 for j in range(B):
                     coupled = _sum(entry[i][j][n] * Xw[i] for i in range(B) if i != j) if B > 1 else 0 * Xw[j]
-                    gamma = [torch.sum(coupled * XP[j, c], dim=0) / n_frames for c in range(n_channels)]
+                    gamma = self._gamma_planes(coupled, XP[j], n_frames)
                     _vcd_row_update(WP, Xw, Q_all[n][j], Qinv_all[n][j], gamma, n, j, validB[j], XP[j], eps)
         return self._with_filter(state, layout.scatter(WP.permute(1, 2, 3, 0)).permute(2, 0, 1))
+
+    def _gamma_planes(self, coupled, XP_j, n_frames):
+        """The VCD coupling ``gamma[c] = (1/T) sum_t coupled x_c`` of one
+        slot, ``(nb,)`` per channel, its frame sums whole."""
+        sums = torch.stack([torch.sum(coupled * XP_j[c], dim=0) for c in range(XP_j.shape[0])])
+        return list(self._frames_sum(sums) / n_frames)
 
     @staticmethod
     def _projections_planes(XP, WP, n):
@@ -629,11 +680,11 @@ class GaussIPSDTA(IPSDTABase):
         Wb[:, j, n, :] = w_row
         Xw_n[j] = torch.einsum("tbc,bc->bt", Xbj.conj(), w_row.conj())
 
-    @staticmethod
-    def _coupling(inv_Rj, Xbj, Xw_n, j, n_frames):
+    def _coupling(self, inv_Rj, Xbj, Xw_n, j, n_frames):
         """``gamma (nb, C)``: the cross-bin coupling of slot j inside its block
-        through the off-diagonal of ``R^-1`` (weights ``inv_Rj (T, nb, B)``)."""
-        RXXw = torch.einsum("tbi,tbc,ibt->bic", inv_Rj, Xbj, Xw_n) / n_frames
+        through the off-diagonal of ``R^-1`` (weights ``inv_Rj (T, nb, B)``),
+        its frame sums whole."""
+        RXXw = self._frames_sum(torch.einsum("tbi,tbc,ibt->bic", inv_Rj, Xbj, Xw_n)) / n_frames
         off = 1 - torch.eye(inv_Rj.shape[-1], dtype=RXXw.dtype, device=RXXw.device)[j]
         return torch.einsum("i,bic->bc", off, RXXw)
 
@@ -642,7 +693,7 @@ class GaussIPSDTA(IPSDTABase):
         per-row solves by the closed-form inverses at ``C <= 3``."""
         eps = self.eps
         n_sources = state["demix_filter"].shape[1]
-        n_frames = state["input"].shape[-1]
+        n_frames = self._n_frames(state["input"])
         valid = layout.valid_on(state["input"].device)
 
         Xb, Wb = self._vcd_data_matrix(state, layout)
@@ -670,7 +721,7 @@ class GaussIPSDTA(IPSDTABase):
         U = self._U_kmajor(state)
         V = state["activation"]
         n_sources, n_channels = V.shape[0], X.shape[0]
-        n_frames = X.shape[-1]
+        n_frames = self._n_frames(X)
         B = layout.block_size
 
         if self.source_planes and B <= 3:
@@ -692,12 +743,12 @@ class GaussIPSDTA(IPSDTABase):
                     for c in range(n_channels)
                 ]
                 G_rows.append(torch.stack([torch.stack(r, -1) for r in rows], -2))
-            return torch.stack(G_rows) / n_frames
+            return self._frames_sum(torch.stack(G_rows)) / n_frames
 
         R, _ = self._R_blocks_parts(U, V, layout)
         inv_Rc = batched_inv(R.conj() + eps * _eye(R))
         Xb = self._vcd_data_matrix(state, layout)[0]  # (T, nb, B, C)
-        G = torch.einsum("stbjk,tbjc,tbkd->sbjckd", inv_Rc, Xb, Xb.conj()) / n_frames
+        G = self._frames_sum(torch.einsum("stbjk,tbjc,tbkd->sbjckd", inv_Rc, Xb, Xb.conj())) / n_frames
         return G.reshape(n_sources, layout.n_blocks, B * n_channels, B * n_channels)
 
     def _update_spatial_fixed_point(self, state, layout):
@@ -733,7 +784,7 @@ class GaussIPSDTA(IPSDTABase):
     def _normalize_psdtf(self, state):
         """Trace normalisation over blocks (``ipsdta.py:983-1005``)."""
         U = self._U_kmajor(state)
-        trace = _trace(U).sum(dim=2)  # (S, K)
+        trace = self._bins_sum(_trace(U).sum(dim=2))  # (S, K)
         U = U / trace[:, :, None, None, None]
         return dict(state, basis=U.permute(0, 2, 3, 4, 1), activation=state["activation"] * trace[:, :, None])
 
@@ -772,8 +823,8 @@ class GaussIPSDTA(IPSDTABase):
         eps = self.eps
         layout = self._layout(state["input"].shape[1])
         W = state["demix_filter"]
-        n_frames = state["input"].shape[-1]
-        logdet_W = batched_log_abs_det(W)
+        n_frames = self._n_frames(state["input"])
+        logdet_W = self._bins_sum(batched_log_abs_det(W).sum())
         V = state["activation"]
         if self.source_planes and self.source_compact and layout.block_size <= 3:
             _, UC, YP, padC = self._source_compact_preamble(state, layout)
@@ -782,17 +833,17 @@ class GaussIPSDTA(IPSDTABase):
             yRy = _sum((YP[i].conj() * Z[i]).real for i in range(layout.block_size)).sum(dim=-1)  # (S, T)
             # the padded slots contribute log 1 = 0 through the injected identity
             logdet = torch.log(torch.clamp(w, min=eps)).sum(dim=(0, -1))
-            return torch.sum(yRy + logdet) - 2 * n_frames * logdet_W.sum()
+            return self._shard_sum(torch.sum(yRy + logdet)) - 2 * n_frames * logdet_W
         y = self._y_blocks(state["estimation"], layout)
         R, wR = self._R_blocks_parts(self._U_kmajor(state), V, layout)
         z = torch.einsum("stbij,stbj->stbi", _psd_inv(R, eps=eps, psd=True), y)
         yRy = torch.einsum("stbi,stbi->st", y.conj(), z).real
         logdet_R = torch.log(torch.clamp(wR, min=eps)).sum(dim=(-2, -1))
-        return torch.sum(yRy + logdet_R) - 2 * n_frames * logdet_W.sum()
+        return self._shard_sum(torch.sum(yRy + logdet_R)) - 2 * n_frames * logdet_W
 
     def finalize(self, state):
         X, Y = state["input"], state["estimation"]
-        return Y * projection_back(Y, reference=X[self.reference_id])[..., None]
+        return Y * self._projection_back(Y, X[self.reference_id])[..., None]
 
     def __repr__(self):
         return (
@@ -842,14 +893,15 @@ class TIPSDTA(GaussIPSDTA):
         self.nu = nu
 
     def _pi(self, yRy, n_bins):
-        return (self.nu + 2 * n_bins) / (self.nu + 2 * yRy)
+        """``pi`` from the sum over this shard's blocks ``yRy``, made whole."""
+        return (self.nu + 2 * n_bins) / (self.nu + 2 * self._bins_sum(yRy))
 
     def _pi_weight(self, state, layout):
         """Posterior weights ``pi (S, T)`` from the unridged inverse."""
         y = self._y_blocks(state["estimation"], layout)
         R, _ = self._R_blocks_parts(self._U_kmajor(state), state["activation"], layout)
         z = torch.einsum("stbij,stbj->stbi", _psd_inv(R, psd=False), y)
-        return self._pi(torch.einsum("stbi,stbi->st", y.conj(), z).real, state["input"].shape[1])
+        return self._pi(torch.einsum("stbi,stbi->st", y.conj(), z).real, self._n_bins(state["input"]))
 
     def _update_source_mm(self, state, layout):
         """The Gaussian MM on matrices with ``pi`` in the data statistics."""
@@ -866,6 +918,7 @@ class TIPSDTA(GaussIPSDTA):
         inv2 = matmul_small(inv_R, inv_R)
         S_k = torch.einsum("skt,stbi,stbj->skbij", Vp, z, z.conj()) + eps * torch.einsum("skt,stbij->skbij", Vp, inv2)
         T_k = torch.einsum("skt,stbij->skbij", V.to(U.dtype), inv_R)
+        S_k, T_k = self._shard_sums([S_k, T_k], "frames")
         state = dict(state, basis=self._basis_sqrt_chain(U, S_k, T_k, layout))
 
         # activation: pi again from the new basis (``ipsdta.py:1420-1470``),
@@ -877,10 +930,15 @@ class TIPSDTA(GaussIPSDTA):
         inv_R = _psd_inv(R, eps=eps, psd=True)
         z = torch.einsum("stbij,stbj->stbi", inv_R, y)
         zUz = torch.einsum("stbi,skbij,stbj->skt", z.conj(), U, z).real
-        num = zUz + torch.einsum("skbij,stbji->skt", U, eps * matmul_small(inv_R, inv_R)).real
+        num, den = self._shard_sums(
+            [
+                zUz + torch.einsum("skbij,stbji->skt", U, eps * matmul_small(inv_R, inv_R)).real,
+                torch.einsum("stbij,skbji->skt", inv_R, U).real,
+            ],
+            "bins",
+        )
         num = torch.clamp(pi2[:, None, :] * num, min=0)
-        den = floor_below(torch.einsum("stbij,skbji->skt", inv_R, U).real, eps)
-        return dict(state, activation=V * torch.sqrt(num / den))
+        return dict(state, activation=V * torch.sqrt(num / floor_below(den, eps)))
 
     def _pi_and_R_inv_compact(self, UC, YP, V, padC, n_bins, eps):
         """``(pi (S, T), R^-1 (B^2, S, T, nb))`` from one adjugate inverse:
@@ -895,15 +953,16 @@ class TIPSDTA(GaussIPSDTA):
         """The Gaussian compact MM with ``pi`` in the data statistics."""
         eps = self.eps
         V = state["activation"]
-        n_bins = state["input"].shape[1]
+        n_bins = self._n_bins(state["input"])
         U, UC, YP, padC = self._source_compact_preamble(state, layout)
         B = layout.block_size
 
         pi, IC = self._pi_and_R_inv_compact(UC, YP, V, padC, n_bins, eps)
         Z = self._solve_y_compact(IC, YP)
         SC = hermitian_compact_from_entries(lambda c, d: Z[c] * Z[d].conj(), B) + eps * square_hermitian_compact(IC)
-        S_k = self._frame_sum_compact(V * pi[:, None, :], SC, B)
-        T_k = self._frame_sum_compact(V, IC, B)
+        S_k, T_k = self._shard_sums(
+            [self._frame_sum_compact(V * pi[:, None, :], SC, B), self._frame_sum_compact(V, IC, B)], "frames"
+        )
         state = dict(state, basis=self._basis_sqrt_chain(U, S_k, T_k, layout))
 
         U, UC = self._source_compact_basis(state, layout)
@@ -912,9 +971,9 @@ class TIPSDTA(GaussIPSDTA):
         Pz = hermitian_compact_from_entries(lambda c, dd: Z[c].conj() * Z[dd], B)
         zUz = self._trace_contract_compact(UC, Pz, False)
         tr_inv2_e = self._trace_contract_compact(UC, eps * square_hermitian_compact(IC), True)
-        den = floor_below(self._trace_contract_compact(UC, IC, True), eps)
-        num = torch.clamp(pi2[:, None, :] * (zUz + tr_inv2_e), min=0)
-        return dict(state, activation=V * torch.sqrt(num / den))
+        num, den = self._shard_sums([zUz + tr_inv2_e, self._trace_contract_compact(UC, IC, True)], "bins")
+        num = torch.clamp(pi2[:, None, :] * num, min=0)
+        return dict(state, activation=V * torch.sqrt(num / floor_below(den, eps)))
 
     def _update_spatial_vcd_planes(self, state, layout, n_spatial=1):
         """The t-VCD on planes (``ipsdta.py:1472-1660``): ``pi_n(t)`` from the
@@ -923,7 +982,7 @@ class TIPSDTA(GaussIPSDTA):
         eps = self.eps
         X = state["input"]
         n_sources, n_channels = state["demix_filter"].shape[1:]
-        n_bins, n_frames = X.shape[1], X.shape[-1]
+        n_bins, n_frames = self._n_bins(X), self._n_frames(X)
         B = layout.block_size
 
         XP, WP, validB = self._vcd_data_planes(state, layout)
@@ -939,13 +998,13 @@ class TIPSDTA(GaussIPSDTA):
                     z = [_sum(entry[i][k][n] * y[k] for k in range(B)) for i in range(B)]
                     pi_n = self._pi(_sum((y[i].conj() * z[i]).real for i in range(B)).sum(dim=1), n_bins)  # (T,)
                     wxt = pi_n[:, None] * IC[j, n]  # (T, nb)
-                    Q_j = _to_psd_planes(self._q_planes(wxt, XP[j], n_frames), eps=eps)
+                    Q_j = _to_psd_planes(self._frames_sum(self._q_planes(wxt, XP[j], 1)) / n_frames, eps=eps)
                     coupled = (
                         pi_n[:, None].to(XP.dtype) * _sum(entry[i][j][n] * Xw[i] for i in range(B) if i != j)
                         if B > 1
                         else 0 * Xw[j]
                     )
-                    gamma = [torch.sum(coupled * XP[j, c], dim=0) / n_frames for c in range(n_channels)]
+                    gamma = self._gamma_planes(coupled, XP[j], n_frames)
                     _vcd_row_update(WP, Xw, Q_j, inv_planes(Q_j), gamma, n, j, validB[j], XP[j], eps)
         return self._with_filter(state, layout.scatter(WP.permute(1, 2, 3, 0)).permute(2, 0, 1))
 
@@ -968,7 +1027,7 @@ class TIPSDTA(GaussIPSDTA):
         eps = self.eps
         X = state["input"]
         n_sources = state["demix_filter"].shape[1]
-        n_bins, n_frames = X.shape[1], X.shape[-1]
+        n_bins, n_frames = self._n_bins(X), self._n_frames(X)
         valid = layout.valid_on(X.device)
 
         Xb, Wb = self._vcd_data_matrix(state, layout)
@@ -988,7 +1047,7 @@ class TIPSDTA(GaussIPSDTA):
                     z = torch.einsum("jtbi,jbt->ibt", inv_Rj, y_n)
                     pi_n = self._pi(torch.einsum("ibt,ibt->t", y_n.conj(), z).real, n_bins)  # (T,)
                     Q = torch.einsum("tb,tbcd->bcd", (pi_n[:, None] * inv_R_diagj_all[n, j]).to(XXj.dtype), XXj[j])
-                    Q = _to_psd(Q / n_frames, eps=eps)
+                    Q = _to_psd(self._frames_sum(Q) / n_frames, eps=eps)
                     gamma = self._coupling(pi_n[:, None, None].to(Xb.dtype) * inv_Rj[j], Xbj[j], Xw_n, j, n_frames)
                     self._vcd_row_matrix(Wb, Xw_n, Q, batched_inv(Q), gamma, Xbj[j], valid[:, j], n, j)
         return self._with_filter(state, layout.scatter(Wb.permute(2, 3, 0, 1)).permute(2, 0, 1))
@@ -999,18 +1058,16 @@ class TIPSDTA(GaussIPSDTA):
         - 2 T sum log |det W|``."""
         eps = self.eps
         layout = self._layout(state["input"].shape[1])
-        n_bins, n_frames = state["input"].shape[1:]
+        n_bins, n_frames = self._n_bins(state["input"]), self._n_frames(state["input"])
         y = self._y_blocks(state["estimation"], layout)
         R, wR = self._R_blocks_parts(self._U_kmajor(state), state["activation"], layout)
         z = torch.einsum("stbij,stbj->stbi", _psd_inv(R, eps=eps, psd=True), y)
-        yRy = torch.einsum("stbi,stbi->st", y.conj(), z).real
-        logdet_R = torch.log(torch.clamp(wR, min=eps)).sum(dim=(-2, -1))
-        logdet_W = batched_log_abs_det(state["demix_filter"])
+        yRy = self._bins_sum(torch.einsum("stbi,stbi->st", y.conj(), z).real)
+        logdet_R = self._shard_sum(torch.log(torch.clamp(wR, min=eps)).sum())
+        logdet_W = self._bins_sum(batched_log_abs_det(state["demix_filter"]).sum())
         nu = self.nu
-        return (
-            logdet_R.sum()
-            + (nu + 2 * n_bins) / 2 * torch.sum(torch.log(1 + (2 / nu) * yRy))
-            - 2 * n_frames * logdet_W.sum()
+        return logdet_R + (nu + 2 * n_bins) / 2 * self._frames_sum(torch.sum(torch.log(1 + (2 / nu) * yRy))) - (
+            2 * n_frames * logdet_W
         )
 
     def __repr__(self):

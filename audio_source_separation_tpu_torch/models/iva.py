@@ -30,6 +30,15 @@ at init by the spatial update, the guard and the channel count C:
   * IP2/pairwise: the matrix form plus ``step_count``; the pair's two
     covariances go through K1 (``(2, T)`` weights), then the planes update
     at C <= 3 with a cheap guard, else the matrix one.
+
+Under a mesh (:meth:`~..runtime.solver.IterativeSolver.use_mesh`) every
+solver here shards as the JAX package's ``IVABase.field_axes`` says.  The
+frame weights' and the NLL's sums over bins are all-reduced in bins mode,
+and every sum over frames (the covariances, the gradient moments, ISS's
+sweep, projection-back, the NLL's contrast) in frames mode.  Bins mode at
+C = 2 with guard ``one_norm`` keeps K2, one launch and one all-reduce an
+iteration; frames mode never takes K2 (its covariance is a sum over frames
+inside the launch) but K1 on the shard's frames.
 """
 
 import torch
@@ -95,13 +104,16 @@ class IVABase(IterativeSolver):
         return (demix_filter @ input.permute(1, 0, 2)).permute(1, 0, 2)
 
     @staticmethod
-    def compute_demix_filter(estimation, input, solve_dtype=None):
+    def compute_demix_filter(estimation, input, solve_dtype=None, frames_sum=None):
         """Least-squares fit ``W = Y X^H (X X^H)^{-1}`` per bin
         (``bss/iva.py:119-125``); ``solve_dtype`` solves the small per-bin
-        systems at another precision (the frame sums stay in the input's)."""
+        systems at another precision (the frame sums stay in the input's);
+        ``frames_sum`` is a frame-sharded caller's sum over the shards."""
         X_h = input.permute(1, 2, 0).conj()  # (F, T, C)
         XXh = input.permute(1, 0, 2) @ X_h  # (F, C, C)
         YXh = estimation.permute(1, 0, 2) @ X_h  # (F, N, C)
+        if frames_sum is not None:
+            XXh, YXh = frames_sum(torch.cat([XXh, YXh], dim=1)).split([XXh.shape[1], YXh.shape[1]], dim=1)
         if solve_dtype is not None:
             XXh, YXh = XXh.to(solve_dtype), YXh.to(solve_dtype)
         # W = YXh inv(XXh): solve the adjoint system (XXh is Hermitian);
@@ -114,15 +126,49 @@ class IVABase(IterativeSolver):
         """Whether a gradient step runs in component layout (square W, C <= 4)."""
         return W.shape[1] == W.shape[2] <= 4
 
+    def field_axes(self):
+        """Shardable axes of the IVA state: the JAX package's, with the
+        port's own ``psum`` (sharded with the frames)."""
+        return {
+            "input": {"bins": 1, "frames": 2},
+            "demix_filter": {"bins": 0},
+            "demix_components": {"bins": 2},
+            "estimation": {"bins": 1, "frames": 2},
+            "pair_products": {"bins": 1, "frames": 2},
+            "psum": {"frames": 1},
+        }
+
+    def pad_state_kwarg(self, field, value, pad, axis):
+        """Padded bins get identity demixing rows (zeros would make their
+        log-determinants -inf); everything else zero-pads."""
+        if field == "demix_filter":
+            value = torch.as_tensor(value)
+            n, c = value.shape[-2:]
+            eye = torch.eye(n, c, dtype=value.dtype, device=value.device).expand(pad, n, c)
+            return torch.cat([value, eye], dim=0)
+        return super().pad_state_kwarg(field, value, pad, axis)
+
+    def _projection_back(self, Y, reference):
+        """Projection-back scales of ``Y`` at ``reference``, its frame sums
+        over the shards in frames mode."""
+        return projection_back(Y, reference=reference, frames_sum=self._frames_sum if self._sharded else None)
+
+    def _iss_sweep(self, Y, inv_R):
+        """One ISS sweep (:func:`~..ops.iss.iss_sweep`), its frame sums over
+        the shards in frames mode."""
+        shard = {"frames_sum": self._frames_sum, "n_frames": self._n_frames(Y)} if self._sharded else {}
+        return iss_sweep(Y, inv_R, compat=self.iss_compat, **shard)
+
     def _default_filter(self, X):
         n_channels, n_bins, _ = X.shape
         eye = torch.eye(n_channels, dtype=X.dtype, device=X.device)
         return eye.expand(n_bins, n_channels, n_channels)
 
     def _initial_filter(self, X, demix_filter):
-        n_channels, n_bins, n_frames = X.shape
+        n_channels = X.shape[0]
         self.n_sources = self.n_channels = n_channels
-        self.n_bins, self.n_frames = n_bins, n_frames
+        self.n_bins = self._n_bins_true if self._sharded else X.shape[1]
+        self.n_frames = self._n_frames(X)
         if demix_filter is None:
             return self._default_filter(X)
         return torch.as_tensor(demix_filter).to(device=X.device, dtype=X.dtype)
@@ -139,7 +185,7 @@ class IVABase(IterativeSolver):
         components straight from K1's compact output for a cheap guard at
         C <= 4, the matrix sweep otherwise (:func:`~..ops.ip.ip_update`)."""
         W = state["demix_filter"]
-        out = weighted_covariance_planes(state["input"], inv_weights)
+        out = self._frames_mean(weighted_covariance_planes(state["input"], inv_weights))
         kwargs = {"threshold": self.threshold, "guard": self.guard, "denom_floor": denom_floor}
         if uses_component_sweep(self.guard, W.shape[-1]):
             return stack_filter_rows(ip_update_components(filter_rows(W), assemble_components(out), **kwargs))
@@ -171,18 +217,24 @@ class GradIVABase(IVABase):
         X = state["input"]
         output = self.separate(X, state["demix_filter"])
         if self.apply_projection_back:
-            scale = projection_back(output, reference=X[self.reference_id])
+            scale = self._projection_back(output, X[self.reference_id])
             output = output * scale[..., None]
         return output
 
     def _score(self, Y):
         """Multivariate Laplace score ``Y / sqrt(sum_f |Y|^2)`` on ``(N, F, T)``."""
-        denom = floor_below(torch.sqrt(torch.sum(torch.abs(Y) ** 2, dim=1)), self.eps)  # (N, T)
+        denom = floor_below(torch.sqrt(self._bins_sum(torch.sum(torch.abs(Y) ** 2, dim=1))), self.eps)  # (N, T)
         return Y / denom[:, None, :]
 
+    def _moment_kwargs(self, X):
+        """The gradient steps' frame-shard sum and whole frame count."""
+        return {"frames_sum": self._frames_sum, "n_frames": self._n_frames(X)} if self._sharded else {}
+
     def nll(self, state):
-        P = torch.sum(torch.abs(state["estimation"]) ** 2, dim=1)  # (N, T)
-        return 2 * torch.sqrt(P).sum(dim=0).mean() - 2 * batched_log_abs_det(state["demix_filter"]).sum()
+        Y = state["estimation"]
+        P = self._bins_sum(torch.sum(torch.abs(Y) ** 2, dim=1))  # (N, T)
+        contrast = self._frames_sum(torch.sqrt(P).sum(dim=0).sum()) / self._n_frames(Y)
+        return 2 * contrast - 2 * self._bins_sum(batched_log_abs_det(state["demix_filter"]).sum())
 
     def __repr__(self):
         return "GradIVA(lr={lr})".format(lr=self.lr)
@@ -195,12 +247,12 @@ class GradLaplaceIVA(GradIVABase):
     def update_state(self, state):
         X, W, Y = state["input"], state["demix_filter"], state["estimation"]
         if self._component_step(W):
-            rows = plain_grad_step_components(filter_rows(W), X, self._score(Y), self.lr)
+            rows = plain_grad_step_components(filter_rows(W), X, self._score(Y), self.lr, **self._moment_kwargs(X))
             return dict(state, demix_filter=stack_filter_rows(rows), estimation=separate_components(rows, X))
         X_h = X.permute(1, 2, 0).conj()  # (F, T, C)
         W_invH = torch.linalg.inv_ex(W).inverse.transpose(-2, -1).conj()
         Phi = self._score(Y).permute(1, 0, 2)  # (F, N, T)
-        W = W - self.lr * ((Phi @ X_h) / X.shape[-1] - W_invH)
+        W = W - self.lr * (self._frames_sum(Phi @ X_h) / self._n_frames(X) - W_invH)
         return dict(state, demix_filter=W, estimation=self.separate(X, W))
 
 
@@ -211,12 +263,13 @@ class NaturalGradLaplaceIVA(GradIVABase):
     def update_state(self, state):
         X, W, Y = state["input"], state["demix_filter"], state["estimation"]
         if self._component_step(W):
-            rows = natural_grad_step_components(filter_rows(W), Y, self._score(Y), self.lr)
+            rows = natural_grad_step_components(filter_rows(W), Y, self._score(Y), self.lr, **self._moment_kwargs(X))
             return dict(state, demix_filter=stack_filter_rows(rows), estimation=separate_components(rows, X))
         Yb = Y.permute(1, 0, 2)  # (F, N, T)
         eye = torch.eye(X.shape[0], dtype=X.dtype, device=X.device)
         Phi = self._score(Y).permute(1, 0, 2)
-        W = W - self.lr * (((Phi @ Yb.transpose(-2, -1).conj()) / X.shape[-1] - eye) @ W)
+        moments = self._frames_sum(Phi @ Yb.transpose(-2, -1).conj()) / self._n_frames(X)
+        W = W - self.lr * ((moments - eye) @ W)
         return dict(state, demix_filter=W, estimation=self.separate(X, W))
 
     def __repr__(self):
@@ -294,15 +347,17 @@ class AuxIVABase(IVABase):
         raise NotImplementedError
 
     def source_weights(self, Y):
-        return self.source_weights_from_power_sums(torch.sum(torch.abs(Y) ** 2, dim=1), Y.shape[1])
+        return self.source_weights_from_power_sums(self._bins_sum(torch.sum(torch.abs(Y) ** 2, dim=1)), self._n_bins(Y))
 
     # the state
     def _component_mode(self, n_channels):
         return self.algorithm_spatial in _IP_UPDATES and uses_component_sweep(self.guard, n_channels)
 
     def _fused(self, n_channels):
-        """Whether an iteration is one call of kernel K2 (with ``contrast``)."""
-        return self._component_mode(n_channels) and n_channels == 2 and self.guard == "one_norm"
+        """Whether an iteration is one call of kernel K2 (with ``contrast``):
+        never in frames mode, whose covariance sums over frames inside K2."""
+        frames = self._sharded and self._shard_mode == "frames"
+        return self._component_mode(n_channels) and n_channels == 2 and self.guard == "one_norm" and not frames
 
     def init_state(self, X, demix_filter=None, estimation=None, step_count=None):
         if self.algorithm_spatial == "IPA":
@@ -317,7 +372,7 @@ class AuxIVABase(IVABase):
         if self._component_mode(n_channels):
             Wc = W.permute(1, 2, 0).contiguous()  # (N, C, F)
             Y = separate_components(_rows(Wc), X)
-            state = {"input": X, "demix_components": Wc, "psum": torch.sum(torch.abs(Y) ** 2, dim=1)}
+            state = {"input": X, "demix_components": Wc, "psum": self._bins_sum(torch.sum(torch.abs(Y) ** 2, dim=1))}
             if not self._fused(n_channels):
                 state["pair_products"] = pair_products_planes(X)
             return state
@@ -343,28 +398,35 @@ class AuxIVABase(IVABase):
             W = self._ip_sweep(state, 1.0 / R)
             return dict(state, demix_filter=W, estimation=self.separate(X, W))
         if self._fused(X.shape[0]):
-            Wc, psum, _, nll = fused_auxiva_ip_iter(
+            n_bins = self._n_bins(X)
+            Wc, psum, logdet, nll = fused_auxiva_ip_iter(
                 X, state["demix_components"], state["psum"], eps=self.eps, threshold=self.threshold,
-                contrast=self.contrast,
+                contrast=self.contrast, n_bins=n_bins,
             )
+            if self._sharded:
+                # the shard's psum and logdet, made whole by one all-reduce;
+                # the NLL by the kernel's formula from them
+                whole = self._bins_sum(torch.cat([psum.reshape(-1), logdet.reshape(1)]))
+                psum, logdet = whole[:-1].reshape(psum.shape), whole[-1]
+                nll = self.contrast_nll(psum, n_bins) - 2 * self._n_frames(X) * logdet
             return {"input": X, "demix_components": Wc, "psum": psum, "nll_value": nll}
         rows = _rows(state["demix_components"])
-        R = floor_below(self.source_weights_from_power_sums(state["psum"], X.shape[1]), self.eps)
-        U = weighted_covariance_auto(X, 1.0 / R)  # (N, F, C, C)
+        R = floor_below(self.source_weights_from_power_sums(state["psum"], self._n_bins(X)), self.eps)
+        U = self._frames_mean(weighted_covariance_auto(X, 1.0 / R))  # (N, F, C, C)
         C = X.shape[0]
         U = [[[U[n, :, c, d] for d in range(C)] for c in range(C)] for n in range(U.shape[0])]
         rows = ip_update_components(rows, U, threshold=self.threshold, guard=self.guard)
         return {
             "input": X,
             "demix_components": _stack_rows(rows),
-            "psum": frame_power_sums(rows, state["pair_products"]),
+            "psum": frame_power_sums(rows, state["pair_products"], bins_sum=self._bins_sum if self._sharded else None),
             "pair_products": state["pair_products"],
         }
 
     def _update_iss(self, state):
         Y = state["estimation"]
         R = floor_below(self.source_weights(Y), self.eps)
-        return {"input": state["input"], "estimation": iss_sweep(Y, 1.0 / R, compat=self.iss_compat)}
+        return {"input": state["input"], "estimation": self._iss_sweep(Y, 1.0 / R)}
 
     def _update_pairwise(self, state):
         X, W, Y = state["input"], state["demix_filter"], state["estimation"]
@@ -372,7 +434,7 @@ class AuxIVABase(IVABase):
         k = state["step_count"]
         m, n = k % n_sources, (k + 1) % n_sources
         R_mn = floor_below(self.source_weights(Y.index_select(0, torch.stack([m, n]))), self.eps)
-        U_mn = weighted_covariance_auto(X, 1.0 / R_mn)  # (2, F, C, C): K1
+        U_mn = self._frames_mean(weighted_covariance_auto(X, 1.0 / R_mn))  # (2, F, C, C): K1
         if self.guard in ("one_norm", "none") and n_sources == n_channels <= 3:
             W = ip2_pair_update_planes(
                 W, U_mn.permute(0, 2, 3, 1), m, n, threshold=self.threshold, guard=self.guard
@@ -393,7 +455,8 @@ class AuxIVABase(IVABase):
         if "demix_filter" in state:
             return batched_log_abs_det(state["demix_filter"])
         X = state["input"]
-        W = self.compute_demix_filter(state["estimation"], X, solve_dtype=torch.complex128)
+        frames_sum = self._frames_sum if self._sharded else None
+        W = self.compute_demix_filter(state["estimation"], X, solve_dtype=torch.complex128, frames_sum=frames_sum)
         return batched_log_abs_det(W).to(X.real.dtype)
 
     def nll(self, state):
@@ -401,8 +464,12 @@ class AuxIVABase(IVABase):
         if "nll_value" in state:
             return state["nll_value"]
         X = state["input"]
-        psum = state["psum"] if "psum" in state else torch.sum(torch.abs(state["estimation"]) ** 2, dim=1)
-        return self.contrast_nll(psum, X.shape[1]) - 2 * X.shape[2] * self._log_abs_det(state).sum()
+        if "psum" in state:
+            psum = state["psum"]
+        else:
+            psum = self._bins_sum(torch.sum(torch.abs(state["estimation"]) ** 2, dim=1))
+        contrast = self._frames_sum(self.contrast_nll(psum, self._n_bins(X)))
+        return contrast - 2 * self._n_frames(X) * self._bins_sum(self._log_abs_det(state).sum())
 
     def _estimates(self, state):
         if "demix_components" in state:
@@ -412,8 +479,7 @@ class AuxIVABase(IVABase):
     def finalize(self, state):
         Y = self._estimates(state)
         if self.apply_projection_back:
-            scale = projection_back(Y, reference=state["input"][self.reference_id])
-            Y = Y * scale[..., None]
+            Y = Y * self._projection_back(Y, state["input"][self.reference_id])[..., None]
         return Y
 
     def _sync_attributes(self, state):
@@ -443,6 +509,14 @@ class AuxLaplaceIVA(AuxIVABase):
 
     def contrast_nll(self, psum, n_bins):
         return 2 * torch.sqrt(psum).sum()
+
+    def supports_bin_padding(self):
+        """Zero bins are neutral for the IP and IP2 paths: they add nothing
+        to the frame weights' sums over bins, their covariances are zero so
+        the guard keeps their identity rows, and ``log|det I| = 0`` leaves
+        the NLL exact.  ISS has no guard (its least-squares filter is 0/0
+        on an empty bin)."""
+        return self.algorithm_spatial in ("IP", "IP1", "IP2", "pairwise")
 
     def __repr__(self):
         return "AuxLaplaceIVA(algorithm_spatial={})".format(self.algorithm_spatial)

@@ -88,6 +88,8 @@ def _state_tensors(X, kwargs):
 class MultichannelNMFBase(IterativeSolver):
     """Shared MNMF protocol (``bss/mnmf.py:25-113``)."""
 
+    mesh_slice = "10c"
+
     def __init__(self, n_basis=10, n_sources=None, callbacks=None, recordable_loss=True, eps=EPS, device=None):
         super().__init__(callbacks=callbacks, recordable_loss=recordable_loss, eps=eps, device=device)
         self.n_basis = n_basis

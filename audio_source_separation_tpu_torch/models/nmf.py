@@ -63,6 +63,8 @@ def _check_mm(algorithm):
 class NMFBase(IterativeSolver):
     """Fit protocol shared by the NMF family (``nmf.py:10-56``)."""
 
+    mesh_slice = "10c"
+
     state_fields = ("basis", "activation")
     record_initial_loss = False
     real_input = True
@@ -298,6 +300,8 @@ class ComplexEUCNMF(IterativeSolver):
     entries), a documented divergence shared with the JAX package.
     """
 
+    mesh_slice = "10c"
+
     state_fields = ("basis", "activation", "phase")
     record_initial_loss = False
 
@@ -396,6 +400,8 @@ class MultichannelISNMF(IterativeSolver):
     inverted (:meth:`_inv_ridge`), and ``max(., 0)`` floors on the trace
     numerators.
     """
+
+    mesh_slice = "10c"
 
     state_fields = ("spatial", "basis", "activation")
     record_initial_loss = False

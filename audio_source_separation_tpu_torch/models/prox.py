@@ -34,6 +34,8 @@ from ..utils.flooring import EPS
 class PDSBSSBase(IterativeSolver):
     """Primal-dual splitting solver base (``prox.py:13-201``)."""
 
+    mesh_slice = "10c"
+
     state_fields = ("demix_filter", "estimation", "dual")
     callback_on_init = False
 

@@ -91,6 +91,7 @@ def _cholesky(A):
 
 
 class PSDTFBase(IterativeSolver):
+    mesh_slice = "10c"
     state_fields = ("basis", "activation")
     record_initial_loss = False
 

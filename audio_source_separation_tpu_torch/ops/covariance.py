@@ -48,15 +48,21 @@ def weighted_covariance_from_pairs(PP, weights):
 
 
 def weighted_covariance_auto(X, weights, PP=None, use_pallas=None):
-    """Weighted covariance ``(N, F, C, C)`` through kernel K1
-    (:func:`~.cov_kernel.weighted_covariance_planes`: the CUDA kernel for a
-    CUDA mixture, its plain version on the CPU) at any C and N, for ``(N,
-    T)`` and per-bin ``(N, F, T)`` weights alike.
+    """Weighted covariance ``(N, F, C, C)`` for ``(N, T)`` and per-bin ``(N,
+    F, T)`` weights alike.
 
-    ``PP`` and ``use_pallas`` are the JAX signature's: there they pick
-    between the pair-product GEMM and the Pallas kernel.  Here the route
-    does not depend on them; K1 is the counterpart of the Pallas route and
-    reads ``X`` itself, so ``PP`` is not read."""
+    ``use_pallas`` left at ``None`` or ``True`` takes kernel K1
+    (:func:`~.cov_kernel.weighted_covariance_planes`: the CUDA kernel for a
+    CUDA mixture, its plain version on the CPU) at any C and N; K1 is the
+    counterpart of the JAX package's Pallas route and reads ``X`` itself,
+    so ``PP`` is not read.  An explicit ``use_pallas=False`` takes the plain
+    route on any device, as the JAX function does: one product over the
+    pair products ``PP`` where they are given, else the direct contraction.
+    """
+    if use_pallas is False:
+        if PP is not None:
+            return weighted_covariance_from_pairs(PP, weights)
+        return weighted_covariance(X, weights)
     return assemble_matrices(weighted_covariance_planes(X, weights))
 
 

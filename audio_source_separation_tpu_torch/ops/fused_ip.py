@@ -12,6 +12,11 @@ sequential IP row update, and, for the new rows, the frame power sums
   * ``"gauss"``: ``R = max(psum / F, eps)``, NLL ``F sum log max(psum / F,
     eps) - 2 T logdet`` (``AuxGaussIVA``).
 
+``F`` in the Gauss contrast is ``n_bins``, by default the launch's own bin
+count; a bin-sharded caller passes the whole input's, and then reads the
+returned ``psum`` and ``logdet`` as its shard's share of sums it reduces
+over the shards itself (the NLL is then the shard's only).
+
 The returned ``psum`` is both the next iteration's weights and this
 iteration's loss.
 
@@ -48,7 +53,7 @@ def _contrast_code(contrast):
     return CONTRASTS.index(contrast)
 
 
-def fused_auxiva_ip_iter_plain(X, W, psum, eps=EPS, threshold=THRESHOLD, contrast="laplace"):
+def fused_auxiva_ip_iter_plain(X, W, psum, eps=EPS, threshold=THRESHOLD, contrast="laplace", n_bins=None):
     """Plain PyTorch version of K2.
 
     Args:
@@ -56,11 +61,13 @@ def fused_auxiva_ip_iter_plain(X, W, psum, eps=EPS, threshold=THRESHOLD, contras
         W: ``(2, 2, F)`` complex demixing rows as components ``W[n, c]``.
         psum: ``(2, T)`` frame power sums of the current rows.
         contrast: ``"laplace"`` or ``"gauss"`` (module docstring).
+        n_bins: the Gauss contrast's ``F`` (``None``: ``X``'s bin count).
     Returns:
         ``(W_new (2, 2, F), psum_new (2, T), logdet (), nll ())``.
     """
     _contrast_code(contrast)
-    n_bins, n_frames = X.shape[1], X.shape[2]
+    n_bins = X.shape[1] if n_bins is None else n_bins
+    n_frames = X.shape[2]
     if contrast == "gauss":
         winv = 1.0 / floor_below(psum / n_bins, eps)
     else:
@@ -137,7 +144,7 @@ def _entry():
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_void_p] * 8
-            + [ctypes.c_int] * 6
+            + [ctypes.c_int] * 7
             + [ctypes.c_float] * 2
             + [ctypes.c_void_p]
         )
@@ -171,22 +178,28 @@ def _check_operand(name, t, dtype, shape, device):
         )
 
 
-def fused_auxiva_ip_iter(X, W, psum, eps=EPS, threshold=THRESHOLD, contrast="laplace"):
+def fused_auxiva_ip_iter(X, W, psum, eps=EPS, threshold=THRESHOLD, contrast="laplace", n_bins=None):
     """K2: one fused AuxIVA-IP iteration (see the module docstring).
 
     On CUDA, ``X`` is contiguous complex64 ``(2, F, T)``, ``W`` contiguous
     complex64 ``(2, 2, F)`` and ``psum`` contiguous float32 ``(2, T)``, all
     on one device, at any ``F`` and ``T``; ``contrast`` picks the kernel's
-    instance.
+    instance and ``n_bins`` (default ``F``) is the Gauss contrast's bin
+    count.
     """
     code = _contrast_code(contrast)
     if X.device.type == "cpu":
-        return fused_auxiva_ip_iter_plain(X, W, psum, eps=eps, threshold=threshold, contrast=contrast)
+        return fused_auxiva_ip_iter_plain(
+            X, W, psum, eps=eps, threshold=threshold, contrast=contrast, n_bins=n_bins
+        )
     if X.device.type != "cuda":
         raise ValueError("fused_auxiva_ip_iter: unsupported device {}".format(X.device))
     if X.ndim != 3 or X.shape[0] != 2:
         raise ValueError("K2 takes a (2, F, T) mixture, got {}".format(tuple(X.shape)))
     _, F, T = X.shape
+    n_bins = F if n_bins is None else int(n_bins)
+    if n_bins < 1:
+        raise ValueError("K2 takes n_bins >= 1, got {}".format(n_bins))
     device = X.device
     _check_operand("X", X, torch.complex64, (2, F, T), device)
     _check_operand("W", W, torch.complex64, (2, 2, F), device)
@@ -200,7 +213,7 @@ def fused_auxiva_ip_iter(X, W, psum, eps=EPS, threshold=THRESHOLD, contrast="lap
     status = _entry()(
         X.data_ptr(), W.data_ptr(), psum.data_ptr(), W_new.data_ptr(),
         psum_new.data_ptr(), stats.data_ptr(), part.data_ptr(), tickets.data_ptr(),
-        F, T, plan.bins, int(plan.resident), plan.smem_bytes, code,
+        F, T, n_bins, plan.bins, int(plan.resident), plan.smem_bytes, code,
         eps, threshold, stream,
     )
     _build.check(status, "fused_auxiva_ip")

@@ -52,9 +52,10 @@ def pair_products_planes(X):
     return torch.stack(planes)
 
 
-def frame_power_sums(rows, planes):
+def frame_power_sums(rows, planes, bins_sum=None):
     """``sum_f |sum_c rows[n][c] x_c|^2 -> (N, T)`` as one real GEMM over the
-    pair-product planes; the complex estimates are never formed.
+    pair-product planes; the complex estimates are never formed.  A
+    bin-sharded caller passes its sum over the shards as ``bins_sum``.
 
     The quadratic expansion ``sum_c |w_c|^2 P_cc + sum_{c<d} 2(Re a Re P_cd
     - Im a Im P_cd)`` with ``a = w_c w_d^*`` is a real weight per (n, plane,
@@ -75,6 +76,8 @@ def frame_power_sums(rows, planes):
     W = torch.stack(wts).to(planes.dtype)  # (N, C^2, F)
     P, F, T = planes.shape
     out = torch.matmul(W.reshape(W.shape[0], P * F), planes.reshape(P * F, T))
+    if bins_sum is not None:
+        out = bins_sum(out)
     return torch.clamp(out, min=0.0)
 
 
@@ -110,11 +113,14 @@ def quadratic_power_planes(W, planes):
     return quadratic_power_components(filter_rows(W), planes)
 
 
-def gram_components(planes):
+def gram_components(planes, frames_sum=None):
     """Frame-summed mixture Gram ``G[c][d] = sum_t x_c x_d^* (F,)`` complex,
-    reassembled from the compact planes; invariant for a fixed mixture."""
+    reassembled from the compact planes; invariant for a fixed mixture.
+    ``frames_sum`` is a frame-sharded caller's sum over the shards."""
     C = math.isqrt(planes.shape[0])
     sums = planes.sum(dim=-1)  # (C^2, F)
+    if frames_sum is not None:
+        sums = frames_sum(sums)
     index, _ = _plane_index(C)
     G = [[None] * C for _ in range(C)]
     for c in range(C):
@@ -502,7 +508,7 @@ def ip2_pair_update_planes(W, U_mn, m, n, threshold=1e12, guard="one_norm"):
     return _dynamic_set_row(W, n, w_n)
 
 
-def natural_grad_step_components(W_rows, Y, Phi, lr):
+def natural_grad_step_components(W_rows, Y, Phi, lr, frames_sum=None, n_frames=None):
     """One natural-gradient step ``W <- W - lr ((Phi Y^H / T - I) W)`` in
     component layout: the cross-moments ``G[n][m] = mean_t Phi_n conj(Y_m)``
     are ``(F,)`` frame reductions and the update is component arithmetic.
@@ -512,12 +518,16 @@ def natural_grad_step_components(W_rows, Y, Phi, lr):
         Y: estimates ``(N, F, T)`` (``separate(X, W)``).
         Phi: score ``(N, F, T)``.
         lr: learning rate.
+        frames_sum, n_frames: a frame-sharded caller's sum over the shards
+            (applied once to the packed moments) and the whole frame count.
     Returns: the updated ``W_rows``.
     """
     n_sources = len(W_rows)
     n_channels = len(W_rows[0])
-    n_frames = Y.shape[-1]
-    G = [[(Phi[n] * Y[m].conj()).sum(dim=-1) / n_frames for m in range(n_sources)] for n in range(n_sources)]
+    sums = torch.stack([torch.stack([(Phi[n] * Y[m].conj()).sum(dim=-1) for m in range(n_sources)]) for n in range(n_sources)])
+    if frames_sum is not None:
+        sums = frames_sum(sums)
+    G = sums / (Y.shape[-1] if n_frames is None else n_frames)
     new_rows = []
     for n in range(n_sources):
         row = []
@@ -532,12 +542,17 @@ def natural_grad_step_components(W_rows, Y, Phi, lr):
     return new_rows
 
 
-def plain_grad_step_components(W_rows, X, Phi, lr):
+def plain_grad_step_components(W_rows, X, Phi, lr, frames_sum=None, n_frames=None):
     """One plain-gradient step ``W <- W - lr (Phi X^H / T - W^{-H})`` in
-    component layout, ``W^{-H}`` from the adjugate (square W, N <= 4)."""
+    component layout, ``W^{-H}`` from the adjugate (square W, N <= 4);
+    ``frames_sum`` and ``n_frames`` as in
+    :func:`natural_grad_step_components`."""
     n_sources = len(W_rows)
     n_channels = len(W_rows[0])
-    n_frames = X.shape[-1]
+    sums = torch.stack([torch.stack([(Phi[n] * X[c].conj()).sum(dim=-1) for c in range(n_channels)]) for n in range(n_sources)])
+    if frames_sum is not None:
+        sums = frames_sum(sums)
+    moments = sums / (X.shape[-1] if n_frames is None else n_frames)
     det = det_components(W_rows, n_sources)
     # inv_cols[n][c] = (W^{-1})[c, n]
     inv_cols = [solve_column_components(W_rows, n_sources, n, det=det) for n in range(n_sources)]
@@ -545,7 +560,6 @@ def plain_grad_step_components(W_rows, X, Phi, lr):
     for n in range(n_sources):
         row = []
         for c in range(n_channels):
-            px = (Phi[n] * X[c].conj()).sum(dim=-1) / n_frames
-            row.append(W_rows[n][c] - lr * (px - inv_cols[n][c].conj()))
+            row.append(W_rows[n][c] - lr * (moments[n, c] - inv_cols[n][c].conj()))
         new_rows.append(row)
     return new_rows

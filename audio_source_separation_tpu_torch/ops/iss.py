@@ -19,7 +19,7 @@ reproduces the reference's scale.
 import torch
 
 
-def iss_sweep(Y, inv_R, compat=False):
+def iss_sweep(Y, inv_R, compat=False, frames_sum=None, n_frames=None):
     """One full ISS sweep.
 
     Args:
@@ -29,16 +29,22 @@ def iss_sweep(Y, inv_R, compat=False):
             (ILRMA's per-bin variances); ``1/R`` with ``R`` floored.
         compat: the reference's self-steering scale ``v_nn = 1 -
             1/sqrt(D_nn)`` instead of ``1 - sqrt(T/D_nn)`` (module docstring).
+        frames_sum, n_frames: a frame-sharded caller's sum over the shards
+            (once per source, on the packed frame sums) and the whole frame
+            count.
     Returns:
         the updated ``Y``.
     """
     n_sources = Y.shape[0]
-    scale = 1.0 if compat else Y.shape[-1]
+    scale = 1.0 if compat else (Y.shape[-1] if n_frames is None else n_frames)
     w = inv_R[:, None, :] if inv_R.ndim == 2 else inv_R
     for n in range(n_sources):
         Yn = Y[n]  # (n_bins, n_frames)
         U_n = torch.sum(Y * Yn.conj() * w, dim=2)  # (n_sources, n_bins)
         D_n = torch.sum(torch.abs(Yn) ** 2 * w, dim=2)  # (n_sources, n_bins), real
+        if frames_sum is not None:
+            U_n, D_n = frames_sum(torch.cat([U_n, D_n.to(U_n.dtype)])).split(n_sources)
+            D_n = D_n.real
         V_n = U_n / D_n
         V_n[n] = 1 - torch.sqrt(scale / D_n[n])
         Y = Y - V_n[:, :, None] * Yn

@@ -9,12 +9,19 @@ outputs and losses are stacked on the device and cross to the host once.
   * the host-RNG default inits are drawn for every example first, in the
     JAX package's order (each example in the reference's draw order);
   * callbacks are not called.
+
+Over a ``("dp", "tp")`` device mesh the examples split over ``dp`` in
+contiguous blocks, each example runs sharded over ``tp`` in bins mode
+(:meth:`~..runtime.solver.IterativeSolver.use_mesh`), and the outputs and
+losses are gathered over both dimensions, so every rank returns the whole
+batch.
 """
 
 import numpy as np
 import torch
 
 from ..runtime.solver import full_f32_matmuls
+from .mesh import all_gather_cat, shard_bounds
 
 
 def _take(value, b):
@@ -49,8 +56,10 @@ def batch_separate(solver, inputs, iteration=100, mesh=None, state_kwargs=None, 
             tensor; cast as the solver's own call casts its input
             (complex64 on the card).
         iteration: number of update steps.
-        mesh: sharding over devices waits for the ``torch.distributed``
-            port; anything but ``None`` raises ``NotImplementedError``.
+        mesh: optional ``("dp", "tp")`` (or ``("dp",)``)
+            :class:`~torch.distributed.device_mesh.DeviceMesh` (module
+            docstring); the batch must divide by its ``dp`` size.  Without
+            one the members run unsharded, whatever mesh the solver holds.
         state_kwargs: optional dict of warm-start arrays, each with a
             leading batch axis (a stack of :func:`~..utils.state_from_jax`
             dicts works).
@@ -61,17 +70,20 @@ def batch_separate(solver, inputs, iteration=100, mesh=None, state_kwargs=None, 
         iteration))``, the losses without the pre-loop one, or ``None``
         where ``solver.recordable_loss`` is off.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "batch_separate(mesh=...): sharding over devices waits for slice 10b (torch.distributed)"
-        )
     with full_f32_matmuls():
-        return _batch_separate(solver, inputs, iteration, state_kwargs or {}, host)
+        return _batch_separate(solver, inputs, iteration, state_kwargs or {}, host, mesh)
 
 
-def _batch_separate(solver, inputs, iteration, state_kwargs, host):
+def _batch_separate(solver, inputs, iteration, state_kwargs, host, mesh):
     Xs = solver._to_input(inputs)
     batch = Xs.shape[0]
+    members, tp = range(batch), None
+    if mesh is not None:
+        dp = mesh.size(mesh.mesh_dim_names.index("dp"))
+        if batch % dp:
+            raise ValueError("batch_separate: a batch of {} does not divide by the {}-way 'dp' axis".format(batch, dp))
+        members = range(*shard_bounds(batch, mesh, "dp"))
+        tp = mesh["tp"] if "tp" in mesh.mesh_dim_names else None
 
     # host-RNG inits for every example first (the JAX package's draw order).
     # prepare_state_kwargs may set solver attributes from its example (MNMF's
@@ -85,20 +97,31 @@ def _batch_separate(solver, inputs, iteration, state_kwargs, host):
         prepared.append(({k: v for k, v in kw.items() if v is not None}, dict(vars(solver))))
 
     record = bool(solver.recordable_loss)
+    meshed = solver._mesh, solver._shard_mode, solver._shard_axis_name, solver._shard_pad
     outputs, losses = [], []
-    for b, (kw, attributes) in enumerate(prepared):
-        vars(solver).update(attributes)
-        state = solver.init_state(Xs[b], **kw)
-        example_losses = []
-        for _ in range(iteration):
-            state = solver.update_state(state)
+    try:
+        for b in members:
+            kw, attributes = prepared[b]
+            vars(solver).update(attributes)
+            solver.use_mesh(tp, mode="bins")
+            with solver._on_shard(Xs[b], kw) as (X, kw):
+                state = solver.init_state(X, **kw)
+                example_losses = []
+                for _ in range(iteration):
+                    state = solver.update_state(state)
+                    if record:
+                        example_losses.append(solver.nll(state))
+                outputs.append(solver._whole_output(solver.finalize(state)))
             if record:
-                example_losses.append(solver.nll(state))
-        outputs.append(solver.finalize(state))
-        if record:
-            losses.append(torch.stack(example_losses) if example_losses else Xs.real.new_zeros((0,)))
+                losses.append(torch.stack(example_losses) if example_losses else Xs.real.new_zeros((0,)))
+    finally:
+        solver._mesh, solver._shard_mode, solver._shard_axis_name, solver._shard_pad = meshed
     outputs = _stack(outputs)
     losses = torch.stack(losses) if record else None
+    if mesh is not None:
+        group = mesh.get_group("dp")
+        outputs = all_gather_cat(outputs, 0, group)
+        losses = all_gather_cat(losses, 0, group) if record else None
     if not host:
         return outputs, losses
     return _to_host(outputs), (losses.cpu().numpy() if record else None)

@@ -11,6 +11,12 @@ loss after every update (concatenating across calls) and, where
 ``record_initial_loss`` is set, before the first one, and callbacks run
 after every iteration, and after init where ``callback_on_init`` is set,
 with the state published as attributes.
+
+Under :meth:`IterativeSolver.use_mesh` the call runs on one shard of bins or
+frames per rank of a ``torch.distributed`` device mesh (see
+:mod:`~..parallel.mesh`): every rank passes the whole input, runs the loop
+on its shard with an all-reduce at each reduction over the sharded axis,
+and gathers the output and the published attributes once, after the loop.
 """
 
 import contextlib
@@ -83,6 +89,17 @@ class IterativeSolver:
     # the PDS and IDLMA solvers call callbacks only after iterations
     callback_on_init = True
 
+    # the slice of the port that brings this family's mesh support, where
+    # the JAX class shards its state and this one does not yet
+    mesh_slice = None
+    # the mesh of use_mesh, and what this call runs sharded on
+    _mesh = None
+    _shard_mode = "bins"
+    _shard_axis_name = None
+    _shard_pad = False
+    _sharded = False
+    _bin_pad = 0
+
     def __init__(self, callbacks=None, recordable_loss=True, eps=EPS, device=None):
         if callbacks is not None and callable(callbacks):
             callbacks = [callbacks]
@@ -92,6 +109,225 @@ class IterativeSolver:
         self.input = None
         self.recordable_loss = recordable_loss
         self.loss = [] if recordable_loss else None
+
+    # multi-device execution
+    def field_axes(self):
+        """Shardable axes of each state field, ``{field: {"bins": axis,
+        "frames": axis}}``; a field or a mode left out is replicated (the
+        default: everything)."""
+        return {}
+
+    def use_mesh(self, mesh, mode="bins", axis_name=None, pad_bins=False):
+        """Run every later call sharded over ``mesh``, a
+        :class:`~torch.distributed.device_mesh.DeviceMesh` of one rank per
+        device (``mesh=None`` resets).
+
+        ``mode="bins"`` shards the frequency bins (every per-bin update is
+        independent; the cross-bin sums of the weights and the NLL are
+        all-reduced), ``mode="frames"`` the frames (every ``sum_t``
+        statistic is all-reduced).  ``axis_name`` names the mesh dimension
+        that shards: ``"tp"`` where the mesh has one, else its last.
+
+        Every rank calls the solver with the whole input and gets the whole
+        output back, and the same ``loss``.  The sharded length must divide
+        by the mesh dimension; ``pad_bins=True`` zero-pads the bins up to a
+        multiple for the solvers whose padded bins are provably neutral
+        (:meth:`supports_bin_padding`), and crops the output and the
+        published attributes back to the input's bins.
+        """
+        if mode not in ("bins", "frames"):
+            raise ValueError("mode must be 'bins' or 'frames', got {!r}".format(mode))
+        if mesh is not None and self.mesh_slice is not None:
+            raise NotImplementedError(
+                "use_mesh: {} shards its state in the JAX package; its mesh support is ported in slice {}".format(
+                    type(self).__name__, self.mesh_slice
+                )
+            )
+        from ..parallel.mesh import mesh_axis
+
+        self._mesh = mesh
+        self._shard_mode = mode
+        self._shard_pad = bool(pad_bins)
+        self._shard_axis_name = None if mesh is None else mesh_axis(mesh, axis_name)
+        return self
+
+    def _validate_mesh(self, input):
+        """Solver-specific check of the mesh against the (padded) input,
+        after the divisibility check; raises where the state couples the
+        sharded axis beyond per-element independence."""
+
+    def supports_bin_padding(self):
+        """Whether zero bins are provably neutral for this solver's updates."""
+        return False
+
+    def pad_state_kwarg(self, field, value, pad, axis):
+        """A warm-start value padded with ``pad`` zeros along its bins
+        ``axis`` (solvers override for another neutral fill)."""
+        value = torch.as_tensor(value)
+        shape = list(value.shape)
+        shape[axis] = pad
+        return torch.cat([value, value.new_zeros(shape)], dim=axis)
+
+    def _shard_world(self, mode=None):
+        """Ranks of the sharded dimension when this call runs sharded in
+        ``mode`` (any mode for ``None``), else 1."""
+        if not self._sharded or (mode is not None and mode != self._shard_mode):
+            return 1
+        mesh = self._mesh
+        return mesh.size(mesh.mesh_dim_names.index(self._shard_axis_name))
+
+    def _shard_group(self, mode=None):
+        """The process group of the sharded dimension when this call runs
+        sharded in ``mode`` (any mode for ``None``), else ``None``."""
+        if not self._sharded or (mode is not None and mode != self._shard_mode):
+            return None
+        return self._mesh.get_group(self._shard_axis_name)
+
+    def _shard_sum(self, x, mode=None):
+        """``x`` summed over the shards when this call runs sharded in
+        ``mode`` (:func:`~..parallel.mesh.shard_sum`)."""
+        if not self._sharded:
+            return x
+        from ..parallel.mesh import shard_sum
+
+        return shard_sum(x, self, mode)
+
+    def _shard_sums(self, tensors, mode=None):
+        """Several partial sums of one type made whole by one all-reduce
+        (:meth:`_shard_sum` of the packed tensors)."""
+        if self._shard_group(mode) is None:
+            return tensors
+        whole = self._shard_sum(torch.cat([t.reshape(-1) for t in tensors]), mode)
+        return [part.reshape(t.shape) for part, t in zip(whole.split([t.numel() for t in tensors]), tensors)]
+
+    def _bins_sum(self, x):
+        return self._shard_sum(x, "bins")
+
+    def _frames_sum(self, x):
+        return self._shard_sum(x, "frames")
+
+    def _frames_mean(self, x):
+        """The mean over frame shards of a statistic each shard divided by
+        its own frame count: the global ``(1/T) sum_t``, shards being equal."""
+        return self._shard_sum(x, "frames") / self._shard_world("frames")
+
+    def _n_bins(self, X):
+        """The bin count of the whole (padded) input of this call."""
+        return self._n_bins_global if self._sharded else X.shape[1]
+
+    def _n_frames(self, X):
+        """The frame count of the whole input of this call."""
+        return self._n_frames_global if self._sharded else X.shape[-1]
+
+    def _valid_bins(self, X):
+        """``(F,)`` bool mask of the bins of this padded call's shard ``X``
+        that are the input's, not padding."""
+        start = self._bin_start
+        return torch.arange(start, start + X.shape[1], device=X.device) < self._n_bins_true
+
+    def _enter_mesh(self, X, state_kwargs):
+        """Pad, check and cut the input and the warm-start kwargs to this
+        rank's shard; returns them and marks the call sharded."""
+        from ..parallel.mesh import mesh_device, shard_bounds, take_shard
+
+        mesh, mode, name = self._mesh, self._shard_mode, self._shard_axis_name
+        size = mesh.size(mesh.mesh_dim_names.index(name))
+        device = mesh_device(mesh)
+        own = self.device
+        own_index = own.index if own.index is not None or own.type == "cpu" else torch.cuda.current_device()
+        if own.type != device.type or own_index != device.index:
+            raise ValueError("use_mesh: this rank's device is {}, the solver's {}".format(device, own))
+        axes = self.field_axes()
+        self._bin_pad = 0
+        self._n_bins_true = X.shape[1]
+        if mode == "bins" and self._shard_pad and X.shape[1] % size:
+            if not self.supports_bin_padding():
+                raise ValueError(
+                    "use_mesh(pad_bins=True): {} does not support zero-bin padding in this configuration "
+                    "(padded bins must be provably neutral); choose a mesh that divides n_bins or size the "
+                    "STFT so one does".format(type(self).__name__)
+                )
+            pad = (-X.shape[1]) % size
+            X = torch.cat([X, X.new_zeros((X.shape[0], pad, X.shape[2]))], dim=1)
+            for k, v in state_kwargs.items():
+                ax = axes.get(k, {}).get("bins")
+                if ax is not None:
+                    state_kwargs[k] = self.pad_state_kwarg(k, v, pad, ax % np.ndim(v))
+            self._bin_pad = pad
+        in_ax = axes.get("input", {}).get(mode)
+        if in_ax is not None and X.shape[in_ax] % size:
+            raise ValueError(
+                "use_mesh(mode={!r}): axis length {} is not divisible by the {}-way mesh axis {!r}; choose a mesh "
+                "that divides it, size the STFT so one does, or pass use_mesh(..., pad_bins=True) for solvers "
+                "that support zero-bin padding".format(mode, X.shape[in_ax], size, name)
+            )
+        self._validate_mesh(X)
+        self._full_input = X
+        self._n_bins_global, self._n_frames_global = X.shape[1], X.shape[-1]
+        if in_ax is None:  # nothing of this solver shards: every rank runs it whole
+            return X, state_kwargs
+        self._sharded = True
+        self._bin_start = shard_bounds(X.shape[1], mesh, name)[0] if mode == "bins" else 0
+        for k, v in state_kwargs.items():
+            ax = axes.get(k, {}).get(mode)
+            if ax is not None:
+                v = v if isinstance(v, torch.Tensor) else np.asarray(v)
+                state_kwargs[k] = take_shard(v, ax, shard_bounds(v.shape[ax], mesh, name))
+        return take_shard(X, in_ax, shard_bounds(X.shape[in_ax], mesh, name)).contiguous(), state_kwargs
+
+    @contextlib.contextmanager
+    def _on_shard(self, X, state_kwargs):
+        """The input and the warm-start kwargs of this rank's shard under the
+        mesh of :meth:`use_mesh` (themselves without one), with the call
+        marked sharded inside the block."""
+        if self._mesh is None:
+            yield X, state_kwargs
+            return
+        X, state_kwargs = self._enter_mesh(X, dict(state_kwargs))
+        try:
+            yield X, state_kwargs
+        finally:
+            self._sharded, self._bin_pad = False, 0
+
+    def _whole_output(self, output):
+        """The output of :meth:`finalize` on this shard, gathered whole and
+        cropped to the input's bins."""
+        if not self._sharded:
+            return output
+        from ..parallel.mesh import shard_gather
+
+        axis = self.field_axes()["estimation"][self._shard_mode]
+        return self._crop_bins(shard_gather(output, axis % output.ndim, self), 1)
+
+    def _global_state(self, state):
+        """The state as a whole: each sharded field gathered along its axis
+        (the input is the whole one already), cropped to the input's bins."""
+        if not self._sharded:
+            return state
+        from ..parallel.mesh import shard_gather
+
+        axes, mode = self.field_axes(), self._shard_mode
+        out = {}
+        for k, v in state.items():
+            if k == "input":
+                v = self._full_input
+            elif isinstance(v, torch.Tensor) and v.ndim and axes.get(k, {}).get(mode) is not None:
+                v = shard_gather(v, axes[k][mode] % v.ndim, self)
+            out[k] = self._crop_bins(v, axes.get(k, {}).get("bins"))
+        return out
+
+    def _crop_bins(self, value, axis):
+        """``value`` cut back to the input's bins along ``axis`` after a
+        padded call."""
+        if not self._bin_pad or axis is None or not isinstance(value, torch.Tensor) or not value.ndim:
+            return value
+        from ..parallel.mesh import take_shard
+
+        return take_shard(value, axis, (0, self._n_bins_true))
+
+    def _publish(self, state):
+        """Publish the state as a whole (:meth:`_sync_attributes`)."""
+        self._sync_attributes(self._global_state(state))
 
     # functional API -- override in subclasses
     def init_state(self, X, **kwargs):
@@ -168,8 +404,15 @@ class IterativeSolver:
         for k, v in extra.items():
             setattr(self, k, v)
         state_kwargs = self.prepare_state_kwargs(X, state_kwargs)
-        state = self.init_state(X, **{k: v for k, v in state_kwargs.items() if v is not None})
-        self._sync_attributes(state)
+        state_kwargs = {k: v for k, v in state_kwargs.items() if v is not None}
+        # the host inits above were drawn at the true bin count; a mesh pads
+        # and cuts them with the input
+        with self._on_shard(X, state_kwargs) as (X, state_kwargs):
+            return self._loop(X, iteration, state_kwargs)
+
+    def _loop(self, X, iteration, state_kwargs):
+        state = self.init_state(X, **state_kwargs)
+        self._publish(state)
 
         losses = []
         if self.recordable_loss and self.record_initial_loss:
@@ -183,7 +426,7 @@ class IterativeSolver:
                 state = self.update_state(state)
                 if self.recordable_loss:
                     self.loss.append(float(self.nll(state)))
-                self._sync_attributes(state)
+                self._publish(state)
                 self._on_callback()
         else:
             for _ in range(iteration):
@@ -191,9 +434,9 @@ class IterativeSolver:
                 if self.recordable_loss:
                     losses.append(self.nll(state))
             self._flush_losses(losses)
-            self._sync_attributes(state)
+            self._publish(state)
 
-        output = self.finalize(state)
+        output = self._whole_output(self.finalize(state))
         self.estimation = output
         return output
 

@@ -82,7 +82,7 @@ def launcher(entry, X, W, psum, plan):
     def launch():
         status = entry(
             X.data_ptr(), W.data_ptr(), psum.data_ptr(), W_new.data_ptr(), psum_new.data_ptr(),
-            stats.data_ptr(), part.data_ptr(), tickets.data_ptr(), F, T, plan.bins,
+            stats.data_ptr(), part.data_ptr(), tickets.data_ptr(), F, T, F, plan.bins,
             int(plan.resident), plan.smem_bytes, CONTRASTS.index("laplace"), EPS, THRESHOLD, stream,
         )
         _build.check(status, "k2_timeline")

@@ -120,10 +120,30 @@ Phases (each asserts; any failure exits non-zero):
      times; the example scripts ``examples.separate --method auxiva`` and
      ``examples.walkthrough`` on the card, their artefacts in
      ``build/phase12``;
- 13. one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
+ 13. the profiling tools and the mesh (``torch.distributed``, one rank
+     per device): ``benchmark_solver`` on the main path (1000 against 100
+     iterations) beside phase 3's ms per iteration, and
+     ``measure_memory_bandwidth`` beside the data sheet's 3.35 TB/s; then
+     at world size 1 under NCCL in this process,
+     AuxLaplaceIVA and AuxGaussIVA IP x 100 in bins mode on phase 3's
+     mixture (K2 100 in 100, one all-reduce and no all-gather an
+     iteration), AuxLaplaceIVA IP x 20 in frames mode (K1 20 in 20, no K2)
+     and GaussILRMA(10) x 20 in bins mode (K1 per bin 20 in 20), each
+     against the same call unsharded, batch_separate on a (1, 1) mesh and
+     make_sharded_train_step x 100 against batched_auxiva_ip_step; at world
+     size 2, two gloo ranks on the one card (spawned; they load phase 2's
+     kernels): AuxLaplaceIVA IP x 100 with pad_bins (2049 bins, 1025 a rank
+     through K2) and AuxGaussIVA IP x 100 on the first 2048 bins (1024 a
+     rank through K2 with the whole bin count), AuxLaplaceIVA IP
+     x 20 in frames mode on a seeded 470-frame mixture (235 a rank), Kondo
+     GaussIPSDTA x 5 on the first 2048 bins in 1024 blocks (512 a rank, K1
+     per bin), each against the same call unsharded here at its family's
+     tolerance, and the stages of ``tools/dryrun_multichip.py``;
+ 14. the script's seconds, one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
      line ``{"ok": true, "device": {...}}``.
 
-Phase 2 also holds K2's Gauss instance at both shapes, K1 at C = 3 with
+Phase 2 also holds K2's Gauss instance at both shapes, K2 (both contrasts)
+on phase 13's shard of 1025 of 2050 padded bins with the whole count, K1 at C = 3 with
 N = 2 weight rows (IP2's pair covariances), K1's generic instance at
 C = N = 5, K1 at C = N = 1, and K1 with per-bin (N, F, T) weights at
 2 x 2049 x 469 (N = 2), 3 x 2049 x 469 (N = 3 and IP2's N = 2),
@@ -149,6 +169,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from audio_source_separation_tpu_torch import (
     EUCNMF,
@@ -208,7 +229,18 @@ from audio_source_separation_tpu_torch.parallel import (
     auxiva_ip_step_stacked,
     batch_separate,
     batched_auxiva_ip_step,
+    make_mesh,
+    make_mesh_2d,
+    make_sharded_train_step,
 )
+from audio_source_separation_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    collective_counts,
+    mesh_device,
+    reset_collective_counts,
+)
+from audio_source_separation_tpu_torch.runtime import benchmark_solver, measure_memory_bandwidth
+from audio_source_separation_tpu_torch.tools import dryrun_multichip
 from audio_source_separation_tpu_torch.tools.timing import l2_flusher, median_ms
 from audio_source_separation_tpu_torch.utils import (
     BSSEvalCallback,
@@ -364,7 +396,10 @@ def k1_case(gen, C, F, T, N=None, per_bin=False):
     }
 
 
-def k2_case(gen, F, T, contrast="laplace"):
+def k2_case(gen, F, T, contrast="laplace", n_bins=None):
+    """K2 against its plain version, bit-identical across two launches, and
+    their median times; ``n_bins`` is a bin-sharded caller's whole bin
+    count (phase 13's shard of 1025 of 2050 padded bins)."""
     X = random_mixture(gen, 2, F, T)
     zero_bin = F // 2
     X[:, zero_bin] = 0
@@ -379,7 +414,7 @@ def k2_case(gen, F, T, contrast="laplace"):
         torch.abs(separate_components([[W[s, c] for c in range(2)] for s in range(2)], X)) ** 2, dim=1
     ).contiguous()
 
-    kw = {"eps": EPS, "threshold": THRESHOLD, "contrast": contrast}
+    kw = {"eps": EPS, "threshold": THRESHOLD, "contrast": contrast, "n_bins": n_bins}
     out = fused_auxiva_ip_iter(X, W, psum, **kw)
     again = fused_auxiva_ip_iter(X, W, psum, **kw)
     ref = fused_auxiva_ip_iter_plain(X, W, psum, **kw)
@@ -397,7 +432,7 @@ def k2_case(gen, F, T, contrast="laplace"):
     n_flops = F * T * 62  # covariance (26) + separation power sums (36) per (f, t)
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return {
-        "F": F, "T": T, "contrast": contrast, "plan": k2_launch_plan(F, T)._asdict(),
+        "F": F, "T": T, "n_bins": n_bins or F, "contrast": contrast, "plan": k2_launch_plan(F, T)._asdict(),
         "max_abs_err": float(max((out[0] - ref[0]).abs().max(), (out[1] - ref[1]).abs().max())),
         "rel_err": {"W": w_err, "psum": p_err, "nll": nll_err},
         "ms": ms, "plain_ms": plain_ms, "library_ms": None,
@@ -1805,6 +1840,273 @@ def harness_and_batch(failed):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: the mesh (torch.distributed), profiling
+# --------------------------------------------------------------------------- #
+ITERS_MESH, ITERS_MESH_SHORT, ITERS_MESH_IPSDTA = 100, 20, 5
+N_SAMPLES_470 = 960_512  # 470 frames at stft(4096, 2048): 235 a rank
+MESH_W1_RTOL = 1e-5  # world size 1 against the unsharded call: the same kernels, the NLL by another formula
+# 900 differenced iterations: 400 against 40 left the window on an H100
+# under the 10 ms below which benchmark_solver warns of jitter
+BENCH_ITERS, BENCH_SHORT = 1000, 100
+
+
+def mesh_counts_zero():
+    counts_zero()
+    reset_collective_counts()
+
+
+def mesh_counts():
+    return {**counts(), **collective_counts()}
+
+
+def output_gap(a, b):
+    a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def loss_gap(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def mesh_call(make, X, iteration, mesh=None, mode="bins", pad=False):
+    """``make()(X, iteration)`` from the seed-111 init, under ``mesh`` where
+    given; the output on the host, the losses, the kernels' and the
+    collectives' counts (set to 0 just before, read just after) and the
+    seconds."""
+    np.random.seed(SEED)
+    solver = make()
+    if mesh is not None:
+        solver.use_mesh(mesh, mode=mode, pad_bins=pad)
+    mesh_counts_zero()
+    start = time.perf_counter()
+    Y = solver(X, iteration=iteration)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    loss = np.asarray(solver.loss)
+    assert np.isfinite(loss).all() and torch.isfinite(Y).all(), "non-finite loss or output"
+    return Y.cpu(), loss, {"iterations": iteration, "seconds": seconds, **mesh_counts()}
+
+
+def mesh_per_iteration(make, X, mesh=None, mode="bins", pad=False, n=ITERS_MESH):
+    """All-reduces, all-gathers and ms an iteration (loss on): an
+    ``n``-iteration call less a 0-iteration call, the least of two each
+    (init, the gathers and finalize cancel)."""
+    runs = {k: [mesh_call(make, X, k, mesh, mode, pad)[2] for _ in range(2)] for k in (0, n)}
+    per = {k: (runs[n][0][k] - runs[0][0][k]) / n for k in ("all_reduce", "all_gather")}
+    per["ms"] = (min(r["seconds"] for r in runs[n]) - min(r["seconds"] for r in runs[0])) * 1e3 / n
+    return per
+
+
+def all_reduce_ms(mesh, numel, reps=100):
+    """Host-clock ms of one all-reduce of ``numel`` float32 on the card over
+    ``mesh``'s sharding group, synchronised after ``reps`` of them."""
+    group = mesh.get_group(mesh.mesh_dim_names[-1])
+    x = torch.ones(numel, device=mesh_device(mesh))
+    all_reduce_sum(x, group)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        all_reduce_sum(x, group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3 / reps
+
+
+def mesh_world_one(X, failed):
+    """World size 1 under NCCL, in this process: AuxLaplaceIVA and
+    AuxGaussIVA IP x 100 in bins mode, AuxLaplaceIVA IP x 20 in frames mode,
+    GaussILRMA(10) x 20 in bins mode, batch_separate on a (1, 1) mesh and
+    the sharded train step x 100, each against the same call unsharded."""
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_mesh(axis_name="bins")
+        out["all_reduce_ms_939_floats"] = all_reduce_ms(mesh, 2 * X.shape[-1] + 1)
+        for key, make in (("laplace_ip_bins", AuxLaplaceIVA), ("gauss_ip_bins", AuxGaussIVA)):
+            Y, loss, res = mesh_call(make, X, ITERS_MESH, mesh)
+            Y1, loss1, single = mesh_call(make, X, ITERS_MESH)
+            res.update(per_iteration=mesh_per_iteration(make, X, mesh), unsharded_per_iteration=mesh_per_iteration(make, X),
+                       output_gap=output_gap(Y, Y1), loss_gap=loss_gap(loss, loss1),
+                       unsharded_seconds=single["seconds"])  # fmt: skip
+            out[key] = res
+            record_checks(failed, "mesh_w1_" + key, {
+                "K2 {0} in {0}".format(ITERS_MESH): res["k2_launches"] == ITERS_MESH and res["k1_launches"] == 0,
+                "one all-reduce an iteration": res["per_iteration"]["all_reduce"] == 1,
+                "no all-gather in the loop": res["per_iteration"]["all_gather"] == 0,
+                "output and losses within {}".format(MESH_W1_RTOL):
+                max(res["output_gap"], res["loss_gap"]) <= MESH_W1_RTOL,
+            })  # fmt: skip
+        Y, loss, res = mesh_call(AuxLaplaceIVA, X, ITERS_MESH_SHORT, mesh, "frames")
+        Y1, loss1, _ = mesh_call(AuxLaplaceIVA, X, ITERS_MESH_SHORT)
+        res.update(output_gap=output_gap(Y, Y1), loss_gap=loss_gap(loss, loss1),
+                   per_iteration=mesh_per_iteration(AuxLaplaceIVA, X, mesh, "frames", n=ITERS_MESH_SHORT))
+        out["laplace_ip_frames"] = res
+        record_checks(failed, "mesh_w1_laplace_ip_frames", {
+            "K1 {0} in {0}, no K2".format(ITERS_MESH_SHORT):
+            res["k1_launches"] == ITERS_MESH_SHORT and res["k2_launches"] == 0,
+            "losses within {} of the K2 route's".format(LOSS_MATCH_RTOL): res["loss_gap"] <= LOSS_MATCH_RTOL,
+        })  # fmt: skip
+        ilrma = functools.partial(GaussILRMA, n_basis=BATCH_BASIS)
+        Y, loss, res = mesh_call(ilrma, X, ITERS_MESH_SHORT, mesh)
+        Y1, loss1, single = mesh_call(ilrma, X, ITERS_MESH_SHORT)
+        res.update(output_gap=output_gap(Y, Y1), loss_gap=loss_gap(loss, loss1), unsharded_seconds=single["seconds"])
+        out["gauss_ilrma_bins"] = res
+        record_checks(failed, "mesh_w1_gauss_ilrma_bins", {
+            "K1 per bin {0} in {0}".format(ITERS_MESH_SHORT): res["k1_launches"] == ITERS_MESH_SHORT,
+            "output and losses within {}".format(MESH_W1_RTOL):
+            max(res["output_gap"], res["loss_gap"]) <= MESH_W1_RTOL,
+        })  # fmt: skip
+
+        mesh2 = make_mesh_2d()
+        Xs = torch.stack([X, X.flip(0)]).contiguous()
+        mesh_counts_zero()
+        outputs, losses = batch_separate(AuxLaplaceIVA(), Xs, ITERS_MESH_SHORT, mesh=mesh2, host=False)
+        res = mesh_counts()
+        single = batch_separate(AuxLaplaceIVA(), Xs, ITERS_MESH_SHORT, host=False)
+        res.update(members=2, output_gap=output_gap(outputs, single[0]), loss_gap=loss_gap(losses.cpu(), single[1].cpu()))
+        out["batch_separate_1x1"] = res
+        record_checks(failed, "mesh_w1_batch_separate", {
+            "K2 {} in {}".format(2 * ITERS_MESH_SHORT, 2 * ITERS_MESH_SHORT): res["k2_launches"] == 2 * ITERS_MESH_SHORT,
+            "output and losses within {}".format(MESH_W1_RTOL):
+            max(res["output_gap"], res["loss_gap"]) <= MESH_W1_RTOL,
+        })  # fmt: skip
+
+        step, _, _ = make_sharded_train_step(mesh2)
+        X2 = torch.stack([Xs.real, Xs.imag], dim=1).contiguous()
+        eye = torch.eye(2, device=X.device)
+        W2 = torch.stack([eye.expand(X.shape[1], 2, 2), torch.zeros_like(eye).expand(X.shape[1], 2, 2)])
+        W_sh = W_ref = W2.expand(2, *W2.shape).contiguous()
+        mesh_counts_zero()
+        start = time.perf_counter()
+        for _ in range(ITERS_MESH):
+            W_sh, nll_sh = step(X2, W_sh)
+        torch.cuda.synchronize()
+        res = {"steps": ITERS_MESH, "ms_per_step": (time.perf_counter() - start) * 1e3 / ITERS_MESH, **mesh_counts()}
+        for _ in range(ITERS_MESH):
+            W_ref, nll_ref = batched_auxiva_ip_step(X2, W_ref)
+        res.update(w_gap=output_gap(W_sh, W_ref), nll_gap=loss_gap(nll_sh.cpu(), nll_ref.cpu()))
+        out["train_step_1x1"] = res
+        record_checks(failed, "mesh_w1_train_step", {
+            "W and NLL within {}".format(MESH_W1_RTOL): max(res["w_gap"], res["nll_gap"]) <= MESH_W1_RTOL,
+            "finite": bool(torch.isfinite(W_sh).all() and torch.isfinite(nll_sh).all()),
+        })
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def mesh_rank(rank, world, store, workdir):
+    """One of phase 13's gloo ranks, both on ``cuda:0``: the sharded calls
+    of :func:`mesh_world_two` and the dry run's stages; rank 0 saves the
+    outputs, losses and counts."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + str(store), rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(axis_name="bins")
+        inputs = torch.load(workdir / "inputs.pt")
+        X, X470 = inputs["X"].cuda(), inputs["X470"].cuda()
+        saved = {"all_reduce_ms_939_floats": all_reduce_ms(mesh, 2 * X.shape[-1] + 1)}
+        for key, make, Xk, iteration, mode, pad in mesh_world_two_calls(X, X470):
+            Y, loss, res = mesh_call(make, Xk, iteration, mesh, mode, pad)
+            saved[key] = {"output": Y, "loss": loss, **res}
+            if key == "laplace_ip_bins_pad":
+                saved[key]["per_iteration"] = mesh_per_iteration(make, Xk, mesh, mode, pad)
+        start = time.perf_counter()
+        report, _ = dryrun_multichip.stages(world, "cuda")
+        saved["dryrun_multichip"] = {"stages": report, "seconds": time.perf_counter() - start}
+        if rank == 0:
+            torch.save(saved, workdir / "world2.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_world_two_calls(X, X470):
+    """``(key, make, input, iterations, mode, pad_bins)`` of each world-2 call."""
+    kondo = functools.partial(GaussIPSDTA, n_basis=2, n_blocks=1024)
+    # the Gauss contrast divides by the bin count, so padded bins are not
+    # neutral for it (it takes no padding, as in the JAX package): 2048 bins
+    even = X[:, :2048].contiguous()
+    return [
+        ("laplace_ip_bins_pad", AuxLaplaceIVA, X, ITERS_MESH, "bins", True),
+        ("gauss_ip_bins", AuxGaussIVA, even, ITERS_MESH, "bins", False),
+        ("laplace_ip_frames", AuxLaplaceIVA, X470, ITERS_MESH_SHORT, "frames", False),
+        ("kondo_bins", kondo, even, ITERS_MESH_IPSDTA, "bins", False),
+    ]
+
+
+def mesh_world_two(X, X470, failed):
+    """World size 2 on the one card: two gloo ranks on ``cuda:0`` (NCCL
+    refuses two ranks on one card; gloo takes the CUDA tensors as they are);
+    each sharded call against the same call unsharded here, at its family's
+    tolerance (PERF.md section 2)."""
+    workdir = ROOT / "build" / "phase13"
+    workdir.mkdir(parents=True, exist_ok=True)
+    torch.save({"X": X.cpu(), "X470": X470.cpu()}, workdir / "inputs.pt")
+    store = workdir / "store"
+    store.unlink(missing_ok=True)
+    start = time.perf_counter()
+    torch.multiprocessing.spawn(mesh_rank, args=(2, store, workdir), nprocs=2)
+    spawn_s = time.perf_counter() - start
+    saved = torch.load(workdir / "world2.pt", weights_only=False)
+    out = {"spawn_s": spawn_s, "dryrun_multichip": saved.pop("dryrun_multichip"),
+           "all_reduce_ms_939_floats_rank0": saved.pop("all_reduce_ms_939_floats")}
+    for key, make, Xk, iteration, mode, pad in mesh_world_two_calls(X, X470):
+        res = saved[key]
+        Y1, loss1, single = mesh_call(make, Xk, iteration)
+        n = IPSDTA_MATCH if key == "kondo_bins" else N_MATCH
+        rtol = 1e-3 if key == "kondo_bins" else LOSS_MATCH_RTOL
+        out[key] = {k: v for k, v in res.items() if k not in ("output", "loss")}
+        out[key].update(mode=mode, pad_bins=pad, shape=list(Xk.shape), output_gap=output_gap(res["output"], Y1),
+                        loss_gap=loss_gap(res["loss"][:n], loss1[:n]), losses_compared=n,
+                        unsharded_seconds=single["seconds"], unsharded_k1=single["k1_launches"],
+                        unsharded_k2=single["k2_launches"])  # fmt: skip
+        checks = {
+            "output shape": tuple(res["output"].shape) == tuple(Y1.shape),
+            "first {} losses within {}".format(n, rtol): out[key]["loss_gap"] <= rtol,
+            "no all-gather beyond the call's": res["all_gather"] <= 8,
+        }
+        if key.endswith(("_ip_bins_pad", "_ip_bins")):
+            checks["K2 {0} in {0} a rank".format(iteration)] = res["k2_launches"] == iteration
+        else:
+            checks["K1 {0} in {0} a rank, no K2".format(iteration)] = (
+                res["k1_launches"] == iteration and res["k2_launches"] == 0
+            )
+        record_checks(failed, "mesh_w2_" + key, checks)
+    return out
+
+
+def profiling_rows(X, c2):
+    """benchmark_solver on the main path beside phase 3's per-iteration ms
+    (loss off), and measure_memory_bandwidth beside the data sheet's."""
+    ips, first_s = benchmark_solver(AuxLaplaceIVA(), X, iteration=BENCH_ITERS, short=BENCH_SHORT)
+    gbps = measure_memory_bandwidth()
+    return {
+        "benchmark_solver_iters_per_s": ips, "benchmark_solver_ms": 1e3 / ips, "benchmark_first_call_s": first_s,
+        "phase3_per_iter_loss_off_ms": c2["per_iter_loss_off"]["ms"],
+        "memory_bandwidth_gb_s": gbps, "datasheet_gb_s": HBM_BYTES_PER_S / 1e9,
+        "share_of_datasheet": gbps / (HBM_BYTES_PER_S / 1e9),
+    }
+
+
+def mesh_phase(X, c2, failed):
+    """Phase 13: the profiling tools on the main path, then world size 1
+    under NCCL and world size 2 on the one card over gloo."""
+    start = time.perf_counter()
+    profiling = profiling_rows(X, c2)
+    rng = np.random.RandomState(SEED + 13)
+    mixture470, _ = synth_mixture(rng, 2, N_SAMPLES_470)
+    X470 = stft(mixture470.astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE)
+    assert X470.shape[-1] == 470, X470.shape
+    out = {"world_1_nccl": mesh_world_one(X, failed)}
+    out["world_2_gloo"] = mesh_world_two(X, X470, failed)
+    out["profiling"] = profiling
+    out["card"] = card_line()
+    out["phase_s"] = time.perf_counter() - start
+    return out
+
+
 def profile_c2(X, path):
     """torch.profiler table of a 20-iteration C = 2 solver call, and the
     device time of each kernel per iteration."""
@@ -1830,6 +2132,7 @@ def profile_c2(X, path):
 
 
 def main():
+    script_start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true", help="write a torch.profiler table")
     args = parser.parse_args()
@@ -1863,7 +2166,10 @@ def main():
     print(json.dumps({"k1_any": k1_any}), flush=True)
     k2_gauss = k2_case(gen, F, T, contrast="gauss")
     k2_gauss_long = k2_case(gen, 257, 9000, contrast="gauss")
-    print(json.dumps({"k1_pair": k1_pair, "k2_gauss": k2_gauss, "k2_gauss_long": k2_gauss_long}), flush=True)
+    # phase 13's shard of 1025 of 2050 padded bins, the whole count passed
+    k2_shard = [k2_case(gen, 1025, T, contrast=c, n_bins=2050) for c in ("laplace", "gauss")]
+    print(json.dumps({"k1_pair": k1_pair, "k2_gauss": k2_gauss, "k2_gauss_long": k2_gauss_long,
+                      "k2_shard": k2_shard}), flush=True)
     # per-bin (N, F, T) weights, ILRMA's: IP at C = 2 and 3, IP2's pair at
     # C = 3, the generic instance, the frame axis split, odd F T
     k1_per_bin = [
@@ -1936,6 +2242,11 @@ def main():
     phase12["phase_s"] = time.perf_counter() - start
     print(json.dumps({"harness_and_batch": phase12}), flush=True)
     assert not phase12_failed, phase12_failed
+    mesh_failed = []
+    mesh = mesh_phase(X2, c2, mesh_failed)
+    print(json.dumps({"mesh": mesh}), flush=True)
+    assert not mesh_failed, mesh_failed
+    mesh_w1, mesh_w2 = mesh["world_1_nccl"], mesh["world_2_gloo"]
     if args.profile:
         prof = profile_c2(X2, ROOT / "chiprun_out" / "profile_c2.txt")
         print(json.dumps({"profile_c2": prof}), flush=True)
@@ -1943,14 +2254,15 @@ def main():
     k1_main = k1[1]  # C = 3, the shape of the K1 main path
     k1_all = k1 + [k1_long, k1_long_c3, k1_pair] + k1_any + k1_per_bin
 
-    def k2_entry(name, case, case_long, launches, launches_by_path, rtol):
+    def k2_entry(name, case, case_long, case_shard, launches, launches_by_path, rtol):
+        cases = (case, case_long, case_shard)
         return {
             "name": name, "route": "cuda",
             "source": "audio_source_separation_tpu_torch/csrc/fused_auxiva_ip.cu",
             "replaces": "audio_source_separation_tpu/ops/pallas_fused.py:231",
             "launches": launches, "launches_by_path": launches_by_path,
-            "max_abs_err": max(case["max_abs_err"], case_long["max_abs_err"]),
-            "max_rel_err": max(*case["rel_err"].values(), *case_long["rel_err"].values()),
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "max_rel_err": max(max(c["rel_err"].values()) for c in cases),
             "tolerance": "W, psum max_rel_err <= {}; NLL <= {}".format(rtol, K2_RTOL),
             "ms": case["ms"], "plain_ms": case["plain_ms"], "ms_long": case_long["ms"],
             "bound_ms": case["bound_ms"], "bound_us": case["bound_ms"] * 1e3, "bound_by": case["bound_by"],
@@ -1990,6 +2302,11 @@ def main():
                 "examples_walkthrough_ilrma": phase12["examples_walkthrough"]["k1_launches"],
                 "batch_laplace_ip_c2": phase12["batch_laplace_ip_c2"]["k1_launches"],
                 "harness_laplace_ip_c2": phase12["harness_laplace_ip_c2"]["k1_launches"],
+                "mesh_w1_laplace_ip_frames": mesh_w1["laplace_ip_frames"]["k1_launches"],
+                "mesh_w1_gauss_ilrma_bins": mesh_w1["gauss_ilrma_bins"]["k1_launches"],
+                "mesh_w1_laplace_ip_bins": mesh_w1["laplace_ip_bins"]["k1_launches"],
+                "mesh_w2_laplace_ip_frames_rank0": mesh_w2["laplace_ip_frames"]["k1_launches"],
+                "mesh_w2_kondo_bins_rank0": mesh_w2["kondo_bins"]["k1_launches"],
             },
             "max_abs_err": max(c["max_abs_err"] for c in k1_all),
             "max_rel_err": max(c["rel_err"] for c in k1_all),
@@ -2006,7 +2323,7 @@ def main():
             ],
         },
         k2_entry(
-            "fused_auxiva_ip (K2, Laplace contrast)", k2, k2_long, c2["k2_launches"],
+            "fused_auxiva_ip (K2, Laplace contrast)", k2, k2_long, k2_shard[0], c2["k2_launches"],
             {"laplace_ip_c2": c2["k2_launches"], "laplace_ip_c2_long": c2_long["k2_launches"],
              "over_4to2": over["k2_launches"], "factorisation": factor_launches["k2"],
              "fdica_prox_beamformers": slice5_launches["k2"], "mnmf": mnmf_k2, "block_psd": block_k2,
@@ -2015,16 +2332,25 @@ def main():
              "examples_separate_auxiva": phase12["examples_separate_auxiva"]["k2_launches"],
              "batch_ilrma_c2": phase12["batch_ilrma_c2"]["k2_launches"],
              "batch_fast_mnmf_c2": phase12["batch_fast_mnmf_c2"]["k2_launches"],
-             "sharded_auxiva_ip_step": phase12["sharded_auxiva_ip_step"]["k2_launches"]},
+             "sharded_auxiva_ip_step": phase12["sharded_auxiva_ip_step"]["k2_launches"],
+             "mesh_w1_laplace_ip_bins": mesh_w1["laplace_ip_bins"]["k2_launches"],
+             "mesh_w1_laplace_ip_frames": mesh_w1["laplace_ip_frames"]["k2_launches"],
+             "mesh_w1_batch_separate_1x1": mesh_w1["batch_separate_1x1"]["k2_launches"],
+             "mesh_w2_laplace_ip_bins_pad_rank0": mesh_w2["laplace_ip_bins_pad"]["k2_launches"],
+             "mesh_w2_laplace_ip_frames_rank0": mesh_w2["laplace_ip_frames"]["k2_launches"]},
             K2_RTOL,
         ),
         k2_entry(
-            "fused_auxiva_ip (K2, Gauss contrast)", k2_gauss, k2_gauss_long, fam2["gauss_ip"]["k2_launches"],
+            "fused_auxiva_ip (K2, Gauss contrast)", k2_gauss, k2_gauss_long, k2_shard[1],
+            fam2["gauss_ip"]["k2_launches"],
             {"gauss_ip_c2": fam2["gauss_ip"]["k2_launches"], "factorisation": factor_launches["k2"],
-             "fdica_prox_beamformers": slice5_launches["k2"], "mnmf": mnmf_k2, "block_psd": block_k2},
+             "fdica_prox_beamformers": slice5_launches["k2"], "mnmf": mnmf_k2, "block_psd": block_k2,
+             "mesh_w1_gauss_ip_bins": mesh_w1["gauss_ip_bins"]["k2_launches"],
+             "mesh_w2_gauss_ip_bins_rank0": mesh_w2["gauss_ip_bins"]["k2_launches"]},
             K2_GAUSS_RTOL,
         ),
     ]
+    print(json.dumps({"chip_smoke_s": time.perf_counter() - script_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print("card: " + card, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

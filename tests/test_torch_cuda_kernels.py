@@ -201,6 +201,37 @@ def test_k2_matches_plain_and_is_deterministic(cuda, F, T, contrast):
     _check_k2(*_k2_operands(F, T, cuda), contrast)
 
 
+@pytest.mark.parametrize("contrast", ["laplace", "gauss"])
+def test_k2_n_bins_matches_plain(cuda, contrast):
+    """K2 with a bin-sharded caller's whole bin count ``n_bins`` (the Gauss
+    contrast's F; the Laplace contrast reads none) against its plain version
+    with the same argument, on a shard of 1025 of 2049 bins."""
+    X, W, psum = _k2_operands(1025, 469, cuda)
+    out = fused_auxiva_ip_iter(X, W, psum, contrast=contrast, n_bins=2049)
+    ref = fused_auxiva_ip_iter_plain(X, W, psum, contrast=contrast, n_bins=2049)
+    torch.testing.assert_close(out[0], ref[0], rtol=0, atol=1e-4 * float(ref[0].abs().max()))
+    torch.testing.assert_close(out[1], ref[1], rtol=1e-4, atol=1e-6 * float(ref[1].abs().max()))
+    torch.testing.assert_close(out[3], ref[3], rtol=1e-4, atol=0)
+    with pytest.raises(ValueError):
+        fused_auxiva_ip_iter(X, W, psum, contrast=contrast, n_bins=0)
+
+
+def test_weighted_covariance_auto_false_launches_no_k1(cuda):
+    """An explicit ``use_pallas=False`` takes the plain route on the card,
+    ``None`` takes K1."""
+    from audio_source_separation_tpu_torch.ops.covariance import weighted_covariance_auto
+
+    X = _mixture(3, 2, 257, 469, cuda)
+    w = torch.rand((2, 469), device=cuda) + 0.1
+    weighted_covariance_planes.launches = 0
+    plain = weighted_covariance_auto(X, w, use_pallas=False)
+    torch.cuda.synchronize()
+    assert weighted_covariance_planes.launches == 0
+    k1 = weighted_covariance_auto(X, w)
+    assert weighted_covariance_planes.launches == 1
+    torch.testing.assert_close(k1, plain, rtol=1e-4, atol=1e-5 * float(plain.abs().max()))
+
+
 def _solver_launches(C, F, T, iterations, counter, solver_cls=AuxLaplaceIVA, **kwargs):
     X = _mixture(C, C, F, T, "cuda")
     counter.launches = 0

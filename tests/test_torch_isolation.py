@@ -41,7 +41,7 @@ def test_exact_name_rule():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "_torch_mesh_worker.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_forbidden_import(path):
@@ -143,6 +143,11 @@ def test_port_imports_with_jax_blocked():
         assert utils.bss_eval_sources(refs, refs[::-1] + 0.1, filter_length=8, device="cpu")[0].shape == (2,)
         rirs = utils.synthetic_room_impulse_responses(2, 2, taps=8, device="cpu")
         assert utils.convolutive_mixture(refs, rirs)[0].shape == (2, 300)
+        from audio_source_separation_tpu_torch.parallel import mesh, make_mesh_2d, make_sharded_train_step
+        from audio_source_separation_tpu_torch.runtime import profiling, benchmark_solver, measure_memory_bandwidth
+        from audio_source_separation_tpu_torch.tools import dryrun_multichip
+        sys.path.insert(0, "tests")
+        import _torch_mesh_worker
         assert not [m for m in sys.modules if m.startswith("jax.")]
         print("ok")
         """

@@ -27,8 +27,8 @@ from audio_source_separation_tpu_torch.utils import state_from_jax
 
 from _torch_port import assert_losses_match, to_np
 
-# the JAX ``parallel`` names that wait for the torch.distributed port (slice 10b)
-DEFERRED_PARALLEL = {"make_mesh", "shard_spectrogram", "make_mesh_2d", "make_sharded_train_step"}
+# the JAX ``parallel`` names the port lacks: none since slice 10b
+DEFERRED_PARALLEL = set()
 # the steps of ``parallel/sharded.py`` that the JAX package does not re-export
 SHARDED_STEPS = {"auxiva_ip_step_carry", "auxiva_ip_step_binsmajor", "auxiva_ip_step_stacked", "batched_auxiva_ip_step"}
 ITERATIONS = 3
@@ -71,8 +71,9 @@ def test_pair_product_covariance_matches_jax(per_bin):
 @pytest.mark.parametrize("use_pallas", [True, False, None])
 @pytest.mark.parametrize("per_bin", [False, True], ids=["nt", "nft"])
 def test_weighted_covariance_auto_takes_the_jax_keywords(per_bin, use_pallas, monkeypatch):
-    """``PP`` and ``use_pallas`` are accepted; the route stays K1's (its plain
-    version here), one call of its wrapper whatever they say."""
+    """``PP`` and ``use_pallas`` are accepted.  ``None`` and ``True`` take K1
+    (its plain version here), one call of its wrapper; an explicit ``False``
+    takes the plain route, as the JAX function does, and calls no K1."""
     rng = np.random.RandomState(4)
     X = _mixture(4, C=2, F=17, T=24)
     w = np.abs(rng.randn(*((2, 17, 24) if per_bin else (2, 24)))) + 0.1
@@ -83,7 +84,7 @@ def test_weighted_covariance_auto_takes_the_jax_keywords(per_bin, use_pallas, mo
     plain = cov_kernel.weighted_covariance_planes_plain
     monkeypatch.setattr(cov_kernel, "weighted_covariance_planes_plain", lambda *a: calls.append(1) or plain(*a))
     ours = port_cov.weighted_covariance_auto(_t(X), _t(w), PP=port_cov.pair_products(_t(X)), use_pallas=use_pallas)
-    assert calls == [1]
+    assert calls == ([] if use_pallas is False else [1])
     np.testing.assert_allclose(to_np(ours), np.asarray(theirs), atol=1e-12)
 
 
@@ -335,6 +336,46 @@ def test_batch_separate_device_outputs_and_no_losses():
     assert outputs.dtype == torch.complex128 and outputs.device.type == "cpu"
 
 
-def test_batch_separate_mesh_raises():
-    with pytest.raises(NotImplementedError, match="slice 10b"):
-        port_parallel.batch_separate(port.AuxLaplaceIVA(device="cpu"), _mixture(25, batch=2), mesh=object())
+def test_batch_separate_world_one_mesh_matches_unmeshed(tmp_path):
+    """A world-size-1 gloo ``(1, 1)`` mesh: one member block over ``dp``,
+    each member sharded over a one-rank ``tp``; the result is the unmeshed
+    one."""
+    import torch.distributed as dist
+
+    inputs = _mixture(25, F=9, T=16, batch=2)
+    np.random.seed(111)
+    expected = port_parallel.batch_separate(port.GaussILRMA(n_basis=2, device="cpu"), inputs, iteration=ITERATIONS)
+    dist.init_process_group("gloo", init_method="file://{}".format(tmp_path / "store"), rank=0, world_size=1)
+    try:
+        mesh = port_parallel.make_mesh_2d(device_type="cpu")
+        assert mesh.mesh_dim_names == ("dp", "tp") and tuple(mesh.shape) == (1, 1)
+        np.random.seed(111)
+        solver = port.GaussILRMA(n_basis=2, device="cpu")
+        outputs, losses = port_parallel.batch_separate(solver, inputs, iteration=ITERATIONS, mesh=mesh, host=False)
+    finally:
+        dist.destroy_process_group()
+    assert solver._mesh is None  # the member's tp mesh is not left on the solver
+    np.testing.assert_allclose(to_np(outputs), expected[0], atol=1e-12)
+    np.testing.assert_allclose(to_np(losses), expected[1], rtol=1e-12)
+
+
+def test_dryrun_multichip_world_two_cpu():
+    """``tools/dryrun_multichip.py --world-size 2 --device cpu``: every stage
+    runs on two gloo ranks and comes out finite."""
+    import json
+    import subprocess
+    import sys
+
+    result = subprocess.run(
+        [sys.executable, "-m", "audio_source_separation_tpu_torch.tools.dryrun_multichip", "--world-size", "2",
+         "--device", "cpu"],
+        capture_output=True, text=True, timeout=300,
+    )  # fmt: skip
+    assert result.returncode == 0, result.stderr[-4000:]
+    report = json.loads(result.stdout.strip().splitlines()[-1])["dryrun_multichip"]
+    assert (report["dp"], report["tp"], report["backend"]) == (1, 2, "gloo")
+    assert set(report["stages"]) == {
+        "train_step", "gauss_ilrma_bins", "auxiva_ip_pad_bins", "gauss_ipsdta_bins", "auxiva_ip_frames",
+        "batch_separate_dp_tp",
+    }  # fmt: skip
+    assert report["stages"]["auxiva_ip_pad_bins"]["shape"] == [2, 33, 48]
