@@ -34,11 +34,18 @@ As in the JAX package the state always starts from the identity filter and
 unit variances: ``__call__`` keyword arguments become attributes, not
 state, and the singular ``callback`` (the reference's name) runs after each
 iteration only.
+
+Under a mesh (the JAX package's ``field_axes``) everything shards with the
+bins or the frames.  In frames mode the network maps this shard's frames,
+and K1's covariance, the Gram and the projection-back's frame sums are
+all-reduced.  In bins mode the network mixes the frequencies, so its input
+is all-gathered along the bins once an iteration (the one gather inside
+the loop) and each rank keeps its own bins of the output.  The NLL's sums
+are all-reduced in either mode.
 """
 
 import torch
 
-from ..algorithm.projection_back import projection_back
 from ..ops.fast_linalg import batched_log_abs_det
 from ..ops.ip import uses_component_sweep
 from ..ops.ip_components import (
@@ -70,8 +77,6 @@ def torch_dnn(module):
 class IDLMABase(IVABase):
     """Shared IDLMA protocol (``sss/idlma.py:10-88``); the reference takes a
     singular ``callback`` here (``idlma.py:11-13``)."""
-
-    mesh_slice = "10c"
 
     state_fields = ("demix_filter", "estimation", "dnn_output")
     callback_on_init = False
@@ -121,12 +126,22 @@ class GaussIDLMA(IDLMABase):
         self.guard = guard
         self.jax_dnn = jax_dnn
 
+    def field_axes(self):
+        """The JAX package's shardable axes, with the port's component
+        state: the Gram ``(C, C, F)`` and the estimates' power."""
+        return dict(
+            super().field_axes(),
+            dnn_output={"bins": 1, "frames": 2},
+            gram={"bins": 2},
+            estimation_power={"bins": 1, "frames": 2},
+        )
+
     def init_state(self, X):
         W = self._initial_filter(X, None)
         state = {"input": X, "demix_filter": W, "dnn_output": torch.ones(X.shape, dtype=X.real.dtype, device=X.device)}
         if uses_component_sweep(self.guard, X.shape[0]):
             planes = pair_products_planes(X)
-            gram = gram_components(planes)
+            gram = gram_components(planes, frames_sum=self._frames_sum if self._sharded else None)
             state.update(
                 pair_products=planes,
                 gram=torch.stack([torch.stack(row) for row in gram]),
@@ -145,8 +160,17 @@ class GaussIDLMA(IDLMABase):
         """``max(dnn(P^(domain / 2))^(2 / domain), dnn_flooring)``
         (``idlma.py:212-225``)."""
         amplitude = P ** (self.domain / 2)
+        group = self._shard_group("bins")
+        if group is not None:
+            # the network mixes the frequencies: it sees every bin, and this
+            # rank keeps its own
+            from ..parallel.mesh import shard_gather
+
+            amplitude = shard_gather(amplitude, 1, self)
         with torch.no_grad():
             out = torch.as_tensor(self.dnn(amplitude), dtype=P.dtype, device=P.device)
+        if group is not None:
+            out = out[:, self._bin_start : self._bin_start + P.shape[1]]
         out = out ** (2 / self.domain)
         if self.dnn_flooring:
             out = torch.clamp(out, min=self.dnn_flooring)
@@ -176,22 +200,22 @@ class GaussIDLMA(IDLMABase):
                 estimation_power=quadratic_power_planes(W, state["pair_products"]),
             )
         Y = self.separate(X, W)
-        Y = Y * projection_back(Y, reference=X[self.reference_id])[..., None]
+        Y = Y * self._projection_back(Y, X[self.reference_id])[..., None]
         # refit W to the normalised estimates (``idlma.py:154-157``)
-        W = self.compute_demix_filter(Y, X)
+        W = self.compute_demix_filter(Y, X, frames_sum=self._frames_sum if self._sharded else None)
         return dict(state, demix_filter=W, dnn_output=dnn_output, estimation=Y)
 
     def nll(self, state):
         R = self._variance(state["dnn_output"])
-        n_frames = state["input"].shape[-1]
+        n_frames = self._n_frames(state["input"])
         P = self._power(state)
-        return torch.sum(P / R + torch.log(R)) - 2 * n_frames * batched_log_abs_det(state["demix_filter"]).sum()
+        logdet = batched_log_abs_det(state["demix_filter"]).sum()
+        return self._fit_less_per_bin(torch.sum(P / R + torch.log(R)), 2 * n_frames * logdet)
 
     def finalize(self, state):
         X = state["input"]
         Y = self.separate(X, state["demix_filter"])
-        scale = projection_back(Y, reference=X[self.reference_id])
-        return Y * scale[..., None]
+        return Y * self._projection_back(Y, X[self.reference_id])[..., None]
 
     def _sync_attributes(self, state):
         super()._sync_attributes(state)

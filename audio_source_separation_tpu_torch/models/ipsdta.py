@@ -14,14 +14,17 @@
     the posterior weight ``pi = (nu + 2 F) / (nu + 2 y^H R^-1 y)`` in the
     source statistics and in the VCD covariance.
 
-Routes, as in the JAX package: at ``B <= 3`` the source steps, the
+Routes, as in the JAX package, chosen by three switches on the solver: at
+``B <= 3`` with ``source_planes`` (the default) the source steps, the
 fixed-point statistic and the Gauss NLL run on compact Hermitian planes
-(``B^2`` real planes, batched over sources; ``source_compact``); above, on
-``(S, T, n_blocks, B, B)`` matrices.  The VCD runs on planes at ``B <= 3``
-and ``C <= 3`` with as many sources as channels, else on matrices.
-The off-default variants of the JAX package (``source_compact=False`` at
-``B <= 3``, the ``source_pencil`` streams at ``n_basis == 2``) are not
-ported: a solver set to one raises ``NotImplementedError``.
+(``B^2`` real planes, batched over sources; ``source_compact``, the
+default), or with ``source_compact=False`` on complex ``(B, B)`` entry
+planes per source; with ``source_pencil`` and ``n_basis == 2`` the MM source
+step runs the K = 2 pencil streams instead (Ikeshita's EM ignores the
+switch).  Above ``B = 3``, or with ``source_planes=False``, the source steps
+run on ``(S, T, n_blocks, B, B)`` matrices.  The VCD runs on planes at ``B
+<= 3`` and ``C <= 3`` with as many sources as channels (its inverses
+compact or complex as ``source_compact`` says), else on matrices.
 
 Under a mesh, bins shards hold whole blocks (the partition must be uniform
 and its blocks divide by the mesh dimension): the block statistics stay
@@ -40,6 +43,8 @@ covariance changes inside each sweep and Ikeshita's fixed-point statistic
 couples the bins of a block, so both stay batched PyTorch products.
 """
 
+import math
+
 import numpy as np
 import torch
 
@@ -48,6 +53,7 @@ from ..ops.cov_kernel import weighted_covariance_planes
 from ..ops.fast_linalg import (
     _sum,
     add_diag_hermitian_compact,
+    add_diag_planes,
     batched_eigvalsh,
     batched_inv,
     batched_log_abs_det,
@@ -56,8 +62,10 @@ from ..ops.fast_linalg import (
     hermitian_compact_from_entries,
     inv_hermitian_compact,
     inv_planes,
+    matmul_planes,
     matmul_small,
     psd_inv_hermitian_compact,
+    psd_inv_planes,
     psd_parts_hermitian_compact,
     psd_parts_planes,
     square_hermitian_compact,
@@ -227,8 +235,7 @@ class IPSDTABase(IVABase):
         self.reference_id = reference_id
         # the JAX package's route switches: the planes source steps at
         # B <= 3, the compact Hermitian planes within them (both on by
-        # default) and the K = 2 pencil streams (off); only the default
-        # compact planes and the matrix steps are ported
+        # default) and the K = 2 pencil streams (off)
         self.source_planes = True
         self.source_pencil = False
         self.source_compact = True
@@ -565,6 +572,246 @@ class GaussIPSDTA(IPSDTABase):
         num, den = self._shard_sums([zUz + tr_inv2_d, self._trace_contract_compact(UC, IC, True)], "bins")
         return dict(state, activation=V * torch.sqrt(torch.clamp(num, min=0) / floor_below(den, eps)))
 
+    # source model on complex planes (B <= 3, source_compact=False): every
+    # per-block quantity as (B, B) entry planes (T, nb), source by source
+    def _source_planes_basis(self, state, layout):
+        """``U (S, K, nb, B, B)``, its planes ``UP (S, K, B, B, nb)`` and the
+        identity of the padded slots ``padP (B, B, nb)``."""
+        U = self._U_kmajor(state)
+        invf = (~layout.valid_on(U.device)).T.to(U.real.dtype)  # (B, nb)
+        padP = _eye(U)[:, :, None] * invf[None]
+        return U, U.permute(0, 1, 3, 4, 2), padP
+
+    def _source_planes_preamble(self, state, layout):
+        """:meth:`_source_planes_basis` and the estimates ``YP (B, S, T,
+        nb)``, zero-padded."""
+        U, UP, padP = self._source_planes_basis(state, layout)
+        return U, UP, self._y_blocks(state["estimation"], layout).permute(3, 0, 1, 2), padP
+
+    @staticmethod
+    def _source_R_inv_planes(UP_n, V_n, padP, psd, eps):
+        """One source's ``R = sum_k U_k V_kt``, identity-padded and
+        projected, and its adjugate inverse, planes ``(B, B, T, nb)``."""
+        RP = torch.einsum("kijb,kt->ijtb", UP_n, V_n.to(UP_n.dtype)) + padP[:, :, None, :]
+        return psd_inv_planes(psd_parts_planes(RP, eps=eps)[0], eps=eps, psd=psd)
+
+    @staticmethod
+    def _solve_y_planes(IP, YP_n):
+        """``z = R^-1 y`` as B planes ``(T, nb)``."""
+        B = IP.shape[0]
+        return [_sum(IP[i, j] * YP_n[j] for j in range(B)) for i in range(B)]
+
+    @staticmethod
+    def _frame_sum_planes(V_n, entry, B):
+        """``sum_t V[k, t] entry(i, j)[t, b]``, ``(K, nb, B, B)``."""
+        rows = [[entry(i, j) for j in range(B)] for i in range(B)]
+        Vc = V_n.to(rows[0][0].dtype)
+        return torch.stack([torch.stack([torch.einsum("kt,tb->kb", Vc, e) for e in row], -1) for row in rows], -2)
+
+    @staticmethod
+    def _trace_sum_planes(UP_n, entry, B, transpose=False):
+        """``sum_ij sum_b U[k, i, j, b] entry(i, j)[t, b]`` (``U[k, j, i, b]``
+        with ``transpose``), real ``(K, T)``."""
+        return _sum(
+            torch.einsum("kb,tb->kt", UP_n[:, j, i] if transpose else UP_n[:, i, j], entry(i, j))
+            for i in range(B)
+            for j in range(B)
+        ).real
+
+    def _planes_pi(self, UP, YP, V, padP, n_bins):
+        """The source statistics' frame weights on the planes route: none
+        for the Gaussian model (TIPSDTA's posterior ``pi``)."""
+        return None
+
+    def _update_source_em_planes(self, state, layout):
+        """The EM step (Ikeshita) on complex planes."""
+        eps = self.eps
+        V = state["activation"]
+        n_bins, n_frames = self._n_bins(state["input"]), self._n_frames(V)
+        U, UP, YP, padP = self._source_planes_preamble(state, layout)
+        B = layout.block_size
+
+        A = []
+        for n in range(V.shape[0]):
+            IP = self._source_R_inv_planes(UP[n], V[n], padP, False, eps)
+            Z = self._solve_y_planes(IP, YP[:, n])
+            A.append(self._frame_sum_planes(V[n], lambda i, j: Z[i] * Z[j].conj() - IP[i, j], B))
+        A = self._frames_sum(torch.stack(A)) / n_frames  # (S, K, nb, B, B)
+        U_new = _to_psd(layout.zero_padding_matrix(U @ A @ U + U), eps=eps)
+        state = dict(state, basis=layout.zero_padding_matrix(U_new).permute(0, 2, 3, 4, 1))
+
+        _, UP, _ = self._source_planes_basis(state, layout)
+        zUz, trRU = [], []
+        for n in range(V.shape[0]):
+            IP = self._source_R_inv_planes(UP[n], V[n], padP, False, eps)
+            Z = self._solve_y_planes(IP, YP[:, n])
+            zUz.append(self._trace_sum_planes(UP[n], lambda i, j: Z[i].conj() * Z[j], B))
+            trRU.append(self._trace_sum_planes(UP[n], lambda i, j: IP[i, j], B, transpose=True))
+        zUz, trRU = self._shard_sums([torch.stack(zUz), torch.stack(trRU)], "bins")
+        V_new = (V**2 * zUz + V * n_bins - V**2 * trRU) / n_bins
+        return dict(state, activation=torch.clamp(V_new, min=0.0))
+
+    def _update_source_mm_planes(self, state, layout):
+        """The MM step on complex planes; TIPSDTA's ``pi`` (:meth:`_planes_pi`)
+        weights the data statistics and the activation's numerator, whose
+        ridge is then the plain ``eps``."""
+        eps = self.eps
+        V = state["activation"]
+        n_bins = self._n_bins(state["input"])
+        U, UP, YP, padP = self._source_planes_preamble(state, layout)
+        B = layout.block_size
+
+        pi = self._planes_pi(UP, YP, V, padP, n_bins)
+        S_k, T_k = [], []
+        for n in range(V.shape[0]):
+            IP = self._source_R_inv_planes(UP[n], V[n], padP, True, eps)
+            Z = self._solve_y_planes(IP, YP[:, n])
+            inv2 = matmul_planes(IP, IP)
+            Vp = V[n] if pi is None else V[n] * pi[n][None, :]
+            S_k.append(self._frame_sum_planes(Vp, lambda i, j: Z[i] * Z[j].conj() + eps * inv2[i, j], B))
+            T_k.append(self._frame_sum_planes(V[n], lambda i, j: IP[i, j], B))
+        S_k, T_k = self._shard_sums([torch.stack(S_k), torch.stack(T_k)], "frames")
+        state = dict(state, basis=self._basis_sqrt_chain(U, S_k, T_k, layout))
+
+        # activation by the trace ratio: num = z^H U z + d tr(U R^-2), den =
+        # tr(R^-1 U)
+        _, UP, _ = self._source_planes_basis(state, layout)
+        pi2 = self._planes_pi(UP, YP, V, padP, n_bins)
+        num, den = [], []
+        for n in range(V.shape[0]):
+            IP = self._source_R_inv_planes(UP[n], V[n], padP, True, eps)
+            Z = self._solve_y_planes(IP, YP[:, n])
+            if pi2 is None:
+                ynorm = _sum((YP[i, n].conj() * YP[i, n]).real for i in range(B))
+                d = (eps + eps * (ynorm + B * eps)).to(IP.dtype)  # (T, nb)
+            else:
+                d = eps
+            inv2 = matmul_planes(IP, IP)
+            zUz = self._trace_sum_planes(UP[n], lambda i, j: Z[i].conj() * Z[j], B)
+            num.append(zUz + self._trace_sum_planes(UP[n], lambda i, j: d * inv2[j, i], B))
+            den.append(self._trace_sum_planes(UP[n], lambda i, j: IP[i, j], B, transpose=True))
+        num, den = self._shard_sums([torch.stack(num), torch.stack(den)], "bins")
+        if pi2 is not None:
+            num = pi2[:, None, :] * num
+        return dict(state, activation=V * torch.sqrt(torch.clamp(num, min=0) / floor_below(den, eps)))
+
+    # source model: the K = 2 pencil streams (MM at n_basis == 2).  Per
+    # block, G^H U_1 G = I and G^H U_2 G = diag(d) diagonalise every frame's
+    # R = V_1 U_1 + V_2 U_2 (w_i = V_1 + V_2 d_i); the padded slots are
+    # pushed out by a kappa = 1 / eps_machine identity in U_1, and the
+    # reference's per-frame to_psd floors become ``w >= eps sum(w)`` in the
+    # pencil frame (the JAX package's documented divergence)
+    def _pencil_blocks(self, U1, U2, layout):
+        """``(G, d, diag(G^H G))`` of the per-block pencil of ``(U_1, U_2)
+        (..., nb, B, B)``."""
+        rdt = U1.real.dtype
+        finfo = torch.finfo(rdt)
+        deps = max(self.eps, 100 * finfo.eps)
+        eye = _eye(U1)
+        pad = (~layout.valid_on(U1.device)).to(rdt)[..., None] * eye  # (nb, B, B)
+        ridge = deps * _trace(U1) + math.sqrt(finfo.tiny)
+        U1h = _herm(U1) + ridge[..., None, None] * eye + (1.0 / finfo.eps) * pad
+        L = torch.linalg.cholesky_ex(U1h).L
+        Z = torch.linalg.solve_triangular(L, _herm(U2), upper=False)
+        M = torch.linalg.solve_triangular(L, Z.transpose(-2, -1).conj(), upper=False)
+        d, Q = _eigh_wide(_herm(M))
+        G = torch.linalg.solve_triangular(L.transpose(-2, -1).conj(), Q, upper=True)
+        return G, torch.clamp(d, min=0), torch.einsum("...ji,...ji->...i", G.conj(), G).real
+
+    def _pencil_w_planes(self, V_n, d_n):
+        """The pencil eigenvalue planes ``w_i (T, nb)`` of one source,
+        floored at ``eps sum_i w_i``."""
+        w = [V_n[0][:, None] + V_n[1][:, None] * d_n[:, i][None, :] for i in range(d_n.shape[-1])]
+        finfo = torch.finfo(w[0].dtype)
+        floor = torch.clamp(max(self.eps, 100 * finfo.eps) * _sum(w), min=finfo.tiny)
+        return [torch.maximum(wi, floor) for wi in w]
+
+    @staticmethod
+    def _pencil_y(Gn, YP_n):
+        """The estimates in the pencil frame, ``G^H y``: B planes ``(T, nb)``."""
+        B = Gn.shape[-1]
+        return [_sum(Gn[:, j, i].conj() * YP_n[j] for j in range(B)) for i in range(B)]
+
+    def _pencil_pi(self, G, d, YP, V, n_bins):
+        """The source statistics' frame weights on the pencil route: none for
+        the Gaussian model (TIPSDTA's posterior ``pi``)."""
+        return None
+
+    def _update_source_mm_pencil(self, state, layout):
+        """The MM step on the K = 2 pencil streams; TIPSDTA's ``pi``
+        (:meth:`_pencil_pi`) as on the planes route."""
+        eps = self.eps
+        V = state["activation"]
+        n_bins = self._n_bins(state["input"])
+        U, _, YP, _ = self._source_planes_preamble(state, layout)
+        B = layout.block_size
+
+        # basis statistics in the pencil frame of the current basis
+        G1, d1, _ = self._pencil_blocks(U[:, 0], U[:, 1], layout)
+        pi = self._pencil_pi(G1, d1, YP, V, n_bins)
+        S_k, T_k = [], []
+        for n in range(V.shape[0]):
+            Gn = G1[n]
+            yt = self._pencil_y(Gn, YP[:, n])
+            w = self._pencil_w_planes(V[n], d1[n])
+            q = [yt[i] / w[i] for i in range(B)]
+            rinv = [1.0 / w[i] for i in range(B)]
+            Vp = (V[n] if pi is None else V[n] * pi[n][None, :]).to(U.dtype)
+            Mfull = torch.einsum("bji,bjk->bik", Gn.conj(), Gn)  # (nb, B, B)
+            E = torch.stack(
+                [
+                    torch.stack(
+                        [
+                            torch.einsum("kt,tb->kb", Vp, q[i] * q[j].conj())
+                            + (eps * Mfull[:, i, j])[None, :]
+                            * torch.einsum("kt,tb->kb", Vp, (rinv[i] * rinv[j]).to(U.dtype))
+                            for j in range(B)
+                        ],
+                        -1,
+                    )
+                    for i in range(B)
+                ],
+                -2,
+            )  # (K, nb, B, B)
+            Vc = V[n].to(U.dtype)
+            t_diag = torch.stack([torch.einsum("kt,tb->kb", Vc, rinv[i].to(U.dtype)) for i in range(B)], -1)
+            Gh = Gn.transpose(-2, -1).conj()
+            S_k.append(Gn[None] @ E @ Gh[None])
+            T_k.append((Gn[None] * t_diag[..., None, :]) @ Gh[None])
+        S_k, T_k = self._shard_sums([torch.stack(S_k), torch.stack(T_k)], "frames")
+        state = dict(state, basis=self._basis_sqrt_chain(U, S_k, T_k, layout))
+
+        # activation: diagonal traces in the new basis' pencil frame
+        U = self._U_kmajor(state)
+        G2, d2, M2 = self._pencil_blocks(U[:, 0], U[:, 1], layout)
+        pi2 = self._pencil_pi(G2, d2, YP, V, n_bins)
+        num, den = [], []
+        for n in range(V.shape[0]):
+            Gn, dn, Mn = G2[n], d2[n], M2[n]
+            yt = self._pencil_y(Gn, YP[:, n])
+            w = self._pencil_w_planes(V[n], dn)
+            if pi2 is None:
+                ynorm = _sum((YP[i, n].conj() * YP[i, n]).real for i in range(B))
+                ridge = eps + eps * (ynorm + B * eps)  # (T, nb)
+            else:
+                ridge = eps
+            r = [(torch.abs(yt[i]) ** 2 + ridge * Mn[:, i][None, :]) / (w[i] * w[i]) for i in range(B)]
+            # c1 = diag(G^H U_1 G): 0, not 1, on the padded directions
+            c1 = torch.einsum("bji,bjk,bki->bi", Gn.conj(), U[n, 0], Gn).real  # (nb, B)
+            num.append(torch.stack([_sum(r).sum(-1), _sum(r[i] * dn[:, i][None, :] for i in range(B)).sum(-1)]))
+            den.append(
+                torch.stack(
+                    [
+                        _sum(c1[:, i][None, :] / w[i] for i in range(B)).sum(-1),
+                        _sum(dn[:, i][None, :] / w[i] for i in range(B)).sum(-1),
+                    ]
+                )
+            )
+        num, den = self._shard_sums([torch.stack(num), torch.stack(den)], "bins")  # (S, 2, T)
+        if pi2 is not None:
+            num = pi2[:, None, :] * num
+        return dict(state, activation=V * torch.sqrt(torch.clamp(num, min=0) / floor_below(den, eps)))
+
     # spatial model: VCD (Kondo, ``ipsdta.py:820-975``)
     def _update_spatial_vcd(self, state, layout, n_spatial=1):
         """All ``n_spatial`` sweeps in one call, the sweep invariants (the
@@ -590,12 +837,20 @@ class GaussIPSDTA(IPSDTABase):
         WP = torch.where(~validB[:, None, None, :], eye[:, :, None], WP)
         return XP, WP, validB
 
-    def _vcd_inverse_compact(self, state, layout):
-        """The projected ``R^-1`` with its ridge, on compact planes ``(B^2,
-        S, T, nb)``: the VCD's per-source sweep invariant."""
+    def _vcd_inverse_planes(self, state, layout):
+        """The projected ``R^-1`` with its ridge, the VCD's per-source sweep
+        invariant: its entries ``[i][j] (S, T, nb)`` and its real diagonal
+        ``(B, S, T, nb)``, from compact planes or, with
+        ``source_compact=False``, complex ones."""
         V = state["activation"]
-        _, UC, _, padC = self._source_compact_preamble(state, layout)
-        return self._source_R_inv_compact(UC, V, padC, True, self.eps)
+        B = layout.block_size
+        if self.source_compact:
+            _, UC, _, padC = self._source_compact_preamble(state, layout)
+            IC = self._source_R_inv_compact(UC, V, padC, True, self.eps)
+            return [[compact_entry(IC, i, j) for j in range(B)] for i in range(B)], IC[:B]
+        _, UP, padP = self._source_planes_basis(state, layout)
+        IP = torch.stack([self._source_R_inv_planes(UP[n], V[n], padP, True, self.eps) for n in range(V.shape[0])], 2)
+        return [[IP[i, j] for j in range(B)] for i in range(B)], torch.stack([IP[j, j].real for j in range(B)])
 
     def _vcd_covariances(self, state, layout, inv_diag):
         """``Q[n, f] = (1/T) sum_t d[n, f, t] x x^H`` for every source and
@@ -618,9 +873,8 @@ class GaussIPSDTA(IPSDTABase):
 
         n_frames = self._n_frames(X)
         XP, WP, validB = self._vcd_data_planes(state, layout)
-        IC = self._vcd_inverse_compact(state, layout)
-        entry = [[compact_entry(IC, i, j) for j in range(B)] for i in range(B)]  # (S, T, nb) each
-        Q = self._vcd_covariances(state, layout, IC[:B].permute(1, 2, 3, 0))
+        entry, diag = self._vcd_inverse_planes(state, layout)  # (S, T, nb) each, (B, S, T, nb)
+        Q = self._vcd_covariances(state, layout, diag.permute(1, 2, 3, 0))
         Q_all = [[_to_psd_planes(Q[n, j], eps=eps) for j in range(B)] for n in range(n_sources)]
         Qinv_all = [[inv_planes(Q_nj) for Q_nj in Q_n] for Q_n in Q_all]
 
@@ -725,17 +979,29 @@ class GaussIPSDTA(IPSDTABase):
         B = layout.block_size
 
         if self.source_planes and B <= 3:
-            # compact planes: the inverse of R + eps I, conj(R^-1) being the
-            # sign flip of its imaginary planes for a Hermitian R
+            # planes: the inverse of conj(R) + eps I, on compact planes
+            # (conj(R^-1) being the sign flip of their imaginary planes for a
+            # Hermitian R), or on complex ones with source_compact=False
             XP = self._vcd_data_planes(state, layout)[0]  # (B, C, T, nb)
-            _, UC, _, padC = self._source_compact_preamble(state, layout)
-            ICe = inv_hermitian_compact(self._compact_R(UC, V, padC, eps)[0], ridge=eps)
-            entry = [[compact_entry(ICe, j, k).conj() for k in range(B)] for j in range(B)]  # (S, T, nb)
+            if self.source_compact:
+                _, UC, _, padC = self._source_compact_preamble(state, layout)
+                ICe = inv_hermitian_compact(self._compact_R(UC, V, padC, eps)[0], ridge=eps)
+                entries = [[compact_entry(ICe, j, k).conj() for k in range(B)] for j in range(B)]  # (S, T, nb)
+            else:
+                _, UP, padP = self._source_planes_basis(state, layout)
+                inv_c = []
+                for n in range(n_sources):
+                    RP = torch.einsum("kijb,kt->ijtb", UP[n], V[n].to(UP.dtype)) + padP[:, :, None, :]
+                    RP = psd_parts_planes(RP, eps=eps)[0]
+                    ridge = torch.full(RP.shape[2:], eps, dtype=V.dtype, device=V.device)
+                    inv_c.append(inv_planes(add_diag_planes(RP.conj(), ridge)))
+                entries = torch.stack(inv_c, 2)  # (B, B, S, T, nb)
             G_rows = []
             for n in range(n_sources):
+                entry = [[entries[j][k][n] for k in range(B)] for j in range(B)]
                 rows = [
                     [
-                        torch.einsum("tb,tb->b", entry[j][k][n] * XP[j, c], XP[k, d].conj())
+                        torch.einsum("tb,tb->b", entry[j][k] * XP[j, c], XP[k, d].conj())
                         for k in range(B)
                         for d in range(n_channels)
                     ]
@@ -788,26 +1054,23 @@ class GaussIPSDTA(IPSDTABase):
         U = U / trace[:, :, None, None, None]
         return dict(state, basis=U.permute(0, 2, 3, 4, 1), activation=state["activation"] * trace[:, :, None])
 
-    def _compact_route(self, layout):
-        """Whether the source steps run on compact planes, as the JAX package
-        routes them at this block size; raises for the variants not ported."""
-        small = layout.block_size <= 3
-        where = " (ROADMAP.md, queue 1: the off-default IPSDTA variants)"
-        if small and not self.source_compact:
-            raise NotImplementedError("source_compact=False at block size <= 3 is not ported" + where)
-        compact = small and self.source_planes
-        if compact and self.source_pencil and self.n_basis == 2 and self.algorithm_source == "mm":
-            raise NotImplementedError("source_pencil=True at n_basis == 2 is not ported" + where)
-        return compact
+    def _source_step(self, layout):
+        """The source step of this block size and these switches, routed as
+        the JAX package routes it (``ipsdta.py:1582-1600``)."""
+        planes = self.source_planes and layout.block_size <= 3
+        if self.algorithm_source == "em":
+            if not planes:
+                return self._update_source_em
+            return self._update_source_em_compact if self.source_compact else self._update_source_em_planes
+        if planes and self.source_pencil and self.n_basis == 2:
+            return self._update_source_mm_pencil
+        if not planes:
+            return self._update_source_mm
+        return self._update_source_mm_compact if self.source_compact else self._update_source_mm_planes
 
     def update_state(self, state):
         layout = self._layout(state["input"].shape[1])
-        compact = self._compact_route(layout)
-        if self.algorithm_source == "em":
-            step = self._update_source_em_compact if compact else self._update_source_em
-        else:
-            step = self._update_source_mm_compact if compact else self._update_source_mm
-        state = step(state, layout)
+        state = self._source_step(layout)(state, layout)
         if self.normalize:
             state = self._normalize_psdtf(state)
         if self.algorithm_spatial == "fixed-point":
@@ -940,6 +1203,25 @@ class TIPSDTA(GaussIPSDTA):
         num = torch.clamp(pi2[:, None, :] * num, min=0)
         return dict(state, activation=V * torch.sqrt(num / floor_below(den, eps)))
 
+    def _planes_pi(self, UP, YP, V, padP, n_bins):
+        """``pi (S, T)`` from the planes route's unridged inverse."""
+        B = UP.shape[2]
+        yRy = []
+        for n in range(V.shape[0]):
+            Z = self._solve_y_planes(self._source_R_inv_planes(UP[n], V[n], padP, False, self.eps), YP[:, n])
+            yRy.append(_sum((YP[i, n].conj() * Z[i]).real for i in range(B)).sum(dim=-1))
+        return self._pi(torch.stack(yRy), n_bins)
+
+    def _pencil_pi(self, G, d, YP, V, n_bins):
+        """``pi (S, T)`` in the pencil frame: ``y^H R^-1 y = sum_blocks sum_i
+        |G^H y|_i^2 / w_i``."""
+        yRy = []
+        for n in range(V.shape[0]):
+            yt = self._pencil_y(G[n], YP[:, n])
+            w = self._pencil_w_planes(V[n], d[n])
+            yRy.append(_sum(torch.abs(yt[i]) ** 2 / w[i] for i in range(len(w))).sum(dim=-1))
+        return self._pi(torch.stack(yRy), n_bins)
+
     def _pi_and_R_inv_compact(self, UC, YP, V, padC, n_bins, eps):
         """``(pi (S, T), R^-1 (B^2, S, T, nb))`` from one adjugate inverse:
         ``pi`` from the plain inverse, the MM statistics from it plus the
@@ -986,8 +1268,7 @@ class TIPSDTA(GaussIPSDTA):
         B = layout.block_size
 
         XP, WP, validB = self._vcd_data_planes(state, layout)
-        IC = self._vcd_inverse_compact(state, layout)
-        entry = [[compact_entry(IC, i, j) for j in range(B)] for i in range(B)]
+        entry, diag = self._vcd_inverse_planes(state, layout)
 
         for _ in range(n_spatial):
             for n in range(n_sources):
@@ -997,7 +1278,7 @@ class TIPSDTA(GaussIPSDTA):
                     y = [Xw[i].conj() for i in range(B)]
                     z = [_sum(entry[i][k][n] * y[k] for k in range(B)) for i in range(B)]
                     pi_n = self._pi(_sum((y[i].conj() * z[i]).real for i in range(B)).sum(dim=1), n_bins)  # (T,)
-                    wxt = pi_n[:, None] * IC[j, n]  # (T, nb)
+                    wxt = pi_n[:, None] * diag[j, n]  # (T, nb)
                     Q_j = _to_psd_planes(self._frames_sum(self._q_planes(wxt, XP[j], 1)) / n_frames, eps=eps)
                     coupled = (
                         pi_n[:, None].to(XP.dtype) * _sum(entry[i][j][n] * Xw[i] for i in range(B) if i != j)

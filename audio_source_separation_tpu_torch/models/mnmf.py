@@ -30,6 +30,14 @@ sum_t x x^H / R[m, f, t]`` in one call of kernel K1
 (:func:`~..ops.cov_kernel.weighted_covariance_planes`, per-bin ``(C, F, T)``
 weights) per iteration; Sawada's frame contractions and Ozerov's EM are
 batched PyTorch products, no kernel.
+
+Under a mesh (the JAX package's ``field_axes``) every per-bin field shards
+with the bins and the activations with the frames.  In bins mode the sums
+over bins (the activation updates, Sawada's latent, Ozerov's ``H`` and
+normaliser, FastMNMF's basis normaliser) are all-reduced; in frames mode
+the sums over frames (the basis, gain and spatial statistics, Ozerov's EM
+moments, K1's covariance) are.  The NLL's sums are all-reduced in either
+mode, and the statistics of one step travel in one all-reduce.
 """
 
 import math
@@ -87,8 +95,6 @@ def _state_tensors(X, kwargs):
 
 class MultichannelNMFBase(IterativeSolver):
     """Shared MNMF protocol (``bss/mnmf.py:25-113``)."""
-
-    mesh_slice = "10c"
 
     def __init__(self, n_basis=10, n_sources=None, callbacks=None, recordable_loss=True, eps=EPS, device=None):
         super().__init__(callbacks=callbacks, recordable_loss=recordable_loss, eps=eps, device=device)
@@ -167,6 +173,28 @@ class MultichannelISNMF(MultichannelNMFBase):
     def _sawada(self):
         return self.author.lower() == "sawada"
 
+    def field_axes(self):
+        """The JAX package's shardable axes: every per-bin field with the
+        bins, the activations with the frames (the latent replicates)."""
+        common = {"input": {"bins": 1, "frames": 2}, "estimation": {"bins": 1, "frames": 2}}
+        if self._sawada:
+            return dict(
+                common,
+                covariance_planes={"bins": 1, "frames": 2},
+                spatial={"bins": 0},
+                basis={"bins": 0},
+                activation={"frames": -1},
+            )
+        return dict(
+            common,
+            mix_filter={"bins": 0},
+            noise_covariance={"bins": 0},
+            second_moment={"bins": 0},
+            bin_scale={"bins": 0},
+            basis={"bins": 1},
+            activation={"frames": -1},
+        )
+
     # init
     def prepare_state_kwargs(self, input, state_kwargs):
         """Host NumPy draws in the JAX package's order (``mnmf.py:190-249``)."""
@@ -220,7 +248,7 @@ class MultichannelISNMF(MultichannelNMFBase):
         # real spectrogram powers span decades across bins, past float32's
         # range in the determinants.  The NLL restores C log s, the output
         # sqrt(s), and the published basis and noise s
-        s = torch.mean(torch.sum(torch.abs(X) ** 2, dim=0), dim=-1) / C
+        s = self._frames_mean(torch.mean(torch.sum(torch.abs(X) ** 2, dim=0), dim=-1)) / C
         s = torch.clamp(s, min=torch.finfo(s.dtype).tiny)  # (F,)
         X = X / torch.sqrt(s)[None, :, None].to(X.dtype)
         state.update(
@@ -229,8 +257,10 @@ class MultichannelISNMF(MultichannelNMFBase):
             basis=state["basis"] / s[None, :, None],
             noise_covariance=state["noise_covariance"] / s[:, None],
             # R_xx = mean_t x x^H, a function of the mixture only
-            second_moment=torch.stack(
-                [torch.stack([(X[c] * X[d].conj()).mean(dim=-1) for d in range(C)], -1) for c in range(C)], -2
+            second_moment=self._frames_mean(
+                torch.stack(
+                    [torch.stack([(X[c] * X[d].conj()).mean(dim=-1) for d in range(C)], -1) for c in range(C)], -2
+                )
             ),  # (F, C, C)
         )
         return state
@@ -264,26 +294,27 @@ class MultichannelISNMF(MultichannelNMFBase):
         """Basis MU (``mnmf.py:377-398``)."""
         Z, T, V = state["latent"], state["basis"], state["activation"]
         tn, td = self._trace_terms(state)
+        num, den = self._shard_sums(
+            [torch.einsum("sk,kt,fst->fk", Z, V, tn), torch.einsum("sk,kt,fst->fk", Z, V, td)], "frames"
+        )
         # floor at 0: PSD x PSD traces round slightly negative at float32
-        num = torch.clamp(torch.einsum("sk,kt,fst->fk", Z, V, tn), min=0.0)
-        den = floor_below(torch.einsum("sk,kt,fst->fk", Z, V, td), self.eps)
-        return dict(state, basis=T * torch.sqrt(num / den))
+        return dict(state, basis=T * torch.sqrt(torch.clamp(num, min=0.0) / floor_below(den, self.eps)))
 
     def _update_sawada_activation(self, state):
         """Activation MU (``mnmf.py:400-421``)."""
         Z, T, V = state["latent"], state["basis"], state["activation"]
         tn, td = self._trace_terms(state)
-        num = torch.clamp(torch.einsum("sk,fk,fst->kt", Z, T, tn), min=0.0)
-        den = floor_below(torch.einsum("sk,fk,fst->kt", Z, T, td), self.eps)
-        return dict(state, activation=V * torch.sqrt(num / den))
+        num, den = self._shard_sums(
+            [torch.einsum("sk,fk,fst->kt", Z, T, tn), torch.einsum("sk,fk,fst->kt", Z, T, td)], "bins"
+        )
+        return dict(state, activation=V * torch.sqrt(torch.clamp(num, min=0.0) / floor_below(den, self.eps)))
 
     def _update_sawada_latent(self, state):
         """Latent MU and simplex renormalisation (``mnmf.py:423-447``)."""
         Z, T, V = state["latent"], state["basis"], state["activation"]
         tn, td = self._trace_terms(state)
-        num = torch.clamp(torch.einsum("fk,kt,fst->sk", T, V, tn), min=0.0)
-        den = floor_below(torch.einsum("fk,kt,fst->sk", T, V, td), self.eps)
-        Z = Z * torch.sqrt(num / den)
+        num, den = self._shard_sums([torch.einsum("fk,kt,fst->sk", T, V, tn), torch.einsum("fk,kt,fst->sk", T, V, td)])
+        Z = Z * torch.sqrt(torch.clamp(num, min=0.0) / floor_below(den, self.eps))
         return dict(state, latent=Z / floor_below(Z.sum(dim=0), self.eps))
 
     def _update_sawada_spatial(self, state):
@@ -298,8 +329,9 @@ class MultichannelISNMF(MultichannelNMFBase):
         ZTV = self._ztv(state)  # (S, F, T)
         if self.riccati_planes and C == 2:
             # the whole chain on compact planes (C^2, S, F)
-            A_p = torch.einsum("sft,pft->psf", ZTV, inv)
-            Z_p = torch.einsum("sft,pft->psf", ZTV, XXX)
+            A_p, Z_p = self._shard_sums(
+                [torch.einsum("sft,pft->psf", ZTV, inv), torch.einsum("sft,pft->psf", ZTV, XXX)], "frames"
+            )
             H_p = hermitian_compact_from_trailing(H).transpose(1, 2)
             H_p = solve_riccati_hermitian_compact(A_p, sandwich_hermitian_compact(H_p, Z_p))
             diag, off = H_p[:C] + eps, H_p[C:]
@@ -309,11 +341,12 @@ class MultichannelISNMF(MultichannelNMFBase):
             H_new = expand_hermitian_compact(torch.cat([diag, off]))  # (C, C, S, F)
             return dict(state, spatial=H_new.permute(3, 2, 0, 1))
 
-        def contract_t(planes):
-            small = torch.einsum("sft,pft->fsp", ZTV, planes)  # (F, S, C^2)
-            return expand_hermitian_compact_trailing(small, C)
-
-        H = solve_riccati(contract_t(inv), H @ contract_t(XXX) @ H)
+        small_inv, small_xxx = self._shard_sums(
+            [torch.einsum("sft,pft->fsp", ZTV, inv), torch.einsum("sft,pft->fsp", ZTV, XXX)], "frames"
+        )  # (F, S, C^2) each
+        H = solve_riccati(
+            expand_hermitian_compact_trailing(small_inv, C), H @ expand_hermitian_compact_trailing(small_xxx, C) @ H
+        )
         H = H + eps * torch.eye(C, dtype=H.dtype, device=H.device)
         if self.normalize:
             H = H / torch.diagonal(H, dim1=-2, dim2=-1).sum(dim=-1)[..., None, None]
@@ -338,7 +371,7 @@ class MultichannelISNMF(MultichannelNMFBase):
         inv_h = inv_planes(add_diag_planes(Xh_psd, ridge))
         trace = _sum((X_psd[c, d] * inv_h[d, c]).real for c in range(C) for d in range(C))
         logdet = torch.log(floor_below(wX + eps, eps)).sum(dim=0) - torch.log(floor_below(wXh + eps, eps)).sum(dim=0)
-        return (trace - logdet - C).sum()
+        return self._shard_sum((trace - logdet - C).sum())
 
     def _separate_sawada(self, state):
         """Multichannel Wiener filter at the reference mic (``mnmf.py:554-583``):
@@ -458,7 +491,7 @@ class MultichannelISNMF(MultichannelNMFBase):
         R_xx = state["second_moment"]  # (F, C, C)
         R_xs = torch.stack(
             [torch.stack([(X[c] * s_post[s].conj()).mean(dim=-1) for s in range(S)], -1) for c in range(C)], -2
-        )  # (F, C, S)
+        )  # (F, C, S), this shard's frame mean
         R_ss = torch.stack(
             [
                 torch.stack(
@@ -474,9 +507,16 @@ class MultichannelISNMF(MultichannelNMFBase):
             ],
             -2,
         )  # (F, S, S)
-        R_ss = 0.5 * (R_ss + R_ss.transpose(-2, -1).conj())
         # U = sigma^2 B + sigma per component: the MU ratios below need only B
         B_post = torch.abs(v) ** 2 - diag  # (S, F, T)
+        n_frames, n_bins = self._n_frames(X), self._n_bins(X)
+        # the frame means of this step in one all-reduce: R_xs, R_ss and the
+        # W statistic C1 = mean_t H B
+        world = self._shard_world("frames")
+        R_xs, R_ss, C1 = self._shard_sums(
+            [R_xs / world, R_ss / world, torch.einsum("skt,sft->sfk", H, B_post) / n_frames], "frames"
+        )  # (F, C, S), (F, S, S), (S, F, K)
+        R_ss = 0.5 * (R_ss + R_ss.transpose(-2, -1).conj())
 
         # M step: A = R_xs R_ss^-1 with a trace-relative ridge (a source dead
         # at a bin makes R_ss singular at float32), floored at sqrt(tiny)
@@ -503,11 +543,10 @@ class MultichannelISNMF(MultichannelNMFBase):
             sigma_b = torch.maximum(sigma_b, level)
 
         # W: mean_t U / H = W + W^2 mean_t(H B) exactly; H from the new W
-        n_frames, n_bins = B_post.shape[-1], W.shape[1]
-        C1 = torch.einsum("skt,sft->sfk", H, B_post) / n_frames  # (S, F, K)
         W_new = W + W**2 * C1
         Wf = floor_below(W_new, self.eps)
-        H_new = H**2 * (torch.einsum("sfk,sft->skt", W**2 / Wf, B_post) / n_bins) + H * (W / Wf).mean(dim=1)[:, :, None]
+        HB, WW = self._shard_sums([torch.einsum("sfk,sft->skt", W**2 / Wf, B_post), (W / Wf).sum(dim=1)], "bins")
+        H_new = H**2 * (HB / n_bins) + H * (WW / n_bins)[:, :, None]
 
         if self.normalize:
             # a_s -> a_s / lambda with W -> W lambda^2 per (bin, source), then
@@ -516,7 +555,7 @@ class MultichannelISNMF(MultichannelNMFBase):
             scale = torch.clamp(scale, min=math.sqrt(torch.finfo(scale.dtype).tiny))
             A_new = A_new / scale.to(A_new.dtype)
             W_new = W_new * scale.permute(2, 0, 1) ** 2
-            wsum = (W_new * state["bin_scale"][None, :, None]).sum(dim=1)  # (S, K)
+            wsum = self._bins_sum((W_new * state["bin_scale"][None, :, None]).sum(dim=1))  # (S, K)
             W_new = W_new / wsum[:, None, :]
             H_new = H_new * wsum[:, :, None]
 
@@ -535,7 +574,7 @@ class MultichannelISNMF(MultichannelNMFBase):
         det = self._det_floored(Sx)
         quad = _sum((X[c].conj() * _sum(adj[c][d] * X[d] for d in range(C))).real for c in range(C)) / det
         logdet = torch.log(torch.abs(det)) + C * torch.log(state["bin_scale"])[:, None]
-        return (quad + logdet).sum()
+        return self._shard_sum((quad + logdet).sum())
 
     def _separate_ozerov(self, state):
         """Posterior mean of the sources (``mnmf.py:585-617``, its duplicated
@@ -593,6 +632,20 @@ class FastMultichannelISNMF(MultichannelNMFBase):
 
     state_fields = ("diagonalizer", "spatial_covariance", "basis", "activation", "latent")
     callback_on_init = False  # callbacks run after iterations only (``mnmf.py:713-716``)
+
+    def field_axes(self):
+        """The JAX package's shardable axes: everything per bin but the
+        activations, which shard with the frames."""
+        return {
+            "input": {"bins": 1, "frames": 2},
+            "estimation": {"bins": 1, "frames": 2},
+            "diagonalizer": {"bins": 0},
+            "spatial_covariance": {"bins": 1},
+            "basis": {"bins": 1},
+            "activation": {"frames": -1},
+            "pair_products": {"bins": 1, "frames": 2},
+            "qx_power": {"bins": 1, "frames": 2},
+        }
 
     def __init__(
         self,
@@ -685,9 +738,7 @@ class FastMultichannelISNMF(MultichannelNMFBase):
         W, H = state["basis"], state["activation"]
         x_tilde = state["qx_power"]  # (M, F, T)
 
-        R = floor_below(self._model_power(state), eps)
-        E_num = torch.einsum("mft,skt->mfsk", x_tilde / R**2, H)
-        E_den = torch.einsum("mft,skt->mfsk", 1 / R, H)
+        E_num, E_den = self._frame_statistics(state)
         num = torch.einsum("sfm,mfsk->sfk", g, E_num)
         den = floor_below(torch.einsum("sfm,mfsk->sfk", g, E_den), eps)
         W = W * torch.sqrt(num / den)
@@ -695,19 +746,26 @@ class FastMultichannelISNMF(MultichannelNMFBase):
 
         R = floor_below(self._model_power(state), eps)
         Wg = torch.einsum("sfk,sfm->skmf", W, g)  # (S, K, M, F)
-        num = torch.einsum("mft,skmf->skt", x_tilde / R**2, Wg)
-        den = floor_below(torch.einsum("mft,skmf->skt", 1 / R, Wg), eps)
-        return dict(state, activation=H * torch.sqrt(num / den))
+        num, den = self._shard_sums(
+            [torch.einsum("mft,skmf->skt", x_tilde / R**2, Wg), torch.einsum("mft,skmf->skt", 1 / R, Wg)], "bins"
+        )
+        return dict(state, activation=H * torch.sqrt(num / floor_below(den, eps)))
+
+    def _frame_statistics(self, state):
+        """``sum_t x~ / R^2 H`` and ``sum_t H / R``, ``(M, F, S, K)`` each,
+        whole over the frame shards (one all-reduce)."""
+        R = floor_below(self._model_power(state), self.eps)
+        H = state["activation"]
+        return self._shard_sums(
+            [torch.einsum("mft,skt->mfsk", state["qx_power"] / R**2, H), torch.einsum("mft,skt->mfsk", 1 / R, H)],
+            "frames",
+        )
 
     def _update_scm(self, state):
         """Gain MU (``mnmf.py:815-827``) from the same frame contractions."""
         eps = self.eps
-        g = state["spatial_covariance"]
-        W, H = state["basis"], state["activation"]
-        R = floor_below(self._model_power(state), eps)
-        x_tilde = state["qx_power"]
-        E_num = torch.einsum("mft,skt->mfsk", x_tilde / R**2, H)
-        E_den = torch.einsum("mft,skt->mfsk", 1 / R, H)
+        g, W = state["spatial_covariance"], state["basis"]
+        E_num, E_den = self._frame_statistics(state)
         A = torch.einsum("sfk,mfsk->sfm", W, E_num)
         B = floor_below(torch.einsum("sfk,mfsk->sfm", W, E_den), eps)
         return dict(state, spatial_covariance=g * torch.sqrt(A / B))
@@ -720,7 +778,7 @@ class FastMultichannelISNMF(MultichannelNMFBase):
         Q = state["diagonalizer"]
         C = Q.shape[-1]
         R = floor_below(self._model_power(state), eps)  # (M, F, T)
-        U_planes = weighted_covariance_planes(state["input"], 1.0 / R)  # (C^2, F, M): one K1 launch
+        U_planes = self._frames_mean(weighted_covariance_planes(state["input"], 1.0 / R))  # (C^2, F, M): one K1 launch
 
         if self.guard in ("one_norm", "none") and C <= 4:
             U_all = assemble_components(U_planes)
@@ -780,7 +838,7 @@ class FastMultichannelISNMF(MultichannelNMFBase):
         g = g / g_sum[:, :, None]
         W = W * g_sum[:, :, None]
 
-        Wsum = floor_below(W.sum(dim=1), eps)
+        Wsum = floor_below(self._bins_sum(W.sum(dim=1)), eps)
         W = W / Wsum[:, None]
         H = H * Wsum[:, :, None]
         return dict(state, diagonalizer=Q, spatial_covariance=g, basis=W, activation=H)
@@ -800,9 +858,8 @@ class FastMultichannelISNMF(MultichannelNMFBase):
         x_tilde = state["qx_power"] + eps
         y_tilde = self._model_power(state) + eps
         detQQ = torch.abs(batched_det(Q @ Q.transpose(-2, -1)))
-        return torch.sum(x_tilde / y_tilde + torch.log(y_tilde)) - state["input"].shape[-1] * torch.sum(
-            torch.log(detQQ)
-        )
+        fit = torch.sum(x_tilde / y_tilde + torch.log(y_tilde))
+        return self._fit_less_per_bin(fit, self._n_frames(state["input"]) * torch.sum(torch.log(detQQ)))
 
     def finalize(self, state):
         """Wiener mask in the Q domain and the ``Q^-1`` row at the reference

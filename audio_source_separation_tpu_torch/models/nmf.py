@@ -19,6 +19,14 @@ the CPU; the host-RNG inits (float64 NumPy, basis then activation) are cast
 to that type after they are drawn, so seeded runs start where the JAX
 package's do.  Each update is a few GEMMs and elementwise passes; no kernel
 of ``csrc/`` is on this path.
+
+Under a mesh (the JAX package's ``field_axes``) the target and the basis
+shard with the bins and the activations with the frames.  In frames mode
+the basis updates' sums over frames are all-reduced, in bins mode the
+activation updates' sums over bins (and ComplexEUCNMF's basis normaliser);
+the loss is all-reduced in either mode.  Each update's numerator and
+denominator travel in one all-reduce, and each factor of the output is
+gathered along its own axis.
 """
 
 import math
@@ -49,6 +57,16 @@ from ..runtime.solver import IterativeSolver, real_tensor
 from ..utils.flooring import EPS, floor_below
 
 
+# the shardable axes of the 2-D (n_bins, n_frames) target and its factors
+# (the JAX package's NMFBase.field_axes)
+NMF_FIELD_AXES = {
+    "input": {"bins": 0, "frames": 1},
+    "target": {"bins": -2, "frames": -1},
+    "basis": {"bins": -2},  # (n_bins, n_basis)
+    "activation": {"frames": -1},  # (n_basis, n_frames)
+}
+
+
 def _check_domain(domain):
     # AssertionError, as the JAX package's asserts raise, but kept under -O
     if not 1 <= domain <= 2:
@@ -63,8 +81,6 @@ def _check_mm(algorithm):
 class NMFBase(IterativeSolver):
     """Fit protocol shared by the NMF family (``nmf.py:10-56``)."""
 
-    mesh_slice = "10c"
-
     state_fields = ("basis", "activation")
     record_initial_loss = False
     real_input = True
@@ -72,6 +88,13 @@ class NMFBase(IterativeSolver):
     def __init__(self, n_basis=2, eps=EPS, device=None):
         super().__init__(callbacks=None, recordable_loss=True, eps=eps, device=device)
         self.n_basis = n_basis
+
+    def field_axes(self):
+        return dict(NMF_FIELD_AXES)
+
+    def output_axes(self):
+        axes = self.field_axes()
+        return axes["basis"], axes["activation"]
 
     def prepare_state_kwargs(self, target, state_kwargs):
         n_bins, n_frames = target.shape[-2], target.shape[-1]
@@ -92,7 +115,7 @@ class NMFBase(IterativeSolver):
         return (state["basis"] @ state["activation"]) ** (2 / domain)
 
     def nll(self, state):
-        return self.criterion(self.reconstruct(state), state["target"]).sum()
+        return self._shard_sum(self.criterion(self.reconstruct(state), state["target"]).sum())
 
     def finalize(self, state):
         return state["basis"], state["activation"]
@@ -116,14 +139,12 @@ class EUCNMF(NMFBase):
         d, eps = self.domain, self.eps
 
         TV = floor_below(T @ V, eps)
-        TVV = floor_below(TV ** ((4 - d) / d) @ V.T, eps)
-        numerator = (Z * TV ** ((2 - d) / d)) @ V.T
-        T = T * (numerator / TVV) ** (d / (4 - d))
+        TVV, numerator = self._shard_sums([TV ** ((4 - d) / d) @ V.T, (Z * TV ** ((2 - d) / d)) @ V.T], "frames")
+        T = T * (numerator / floor_below(TVV, eps)) ** (d / (4 - d))
 
         TV = floor_below(T @ V, eps)
-        TTV = floor_below(T.T @ TV ** ((4 - d) / d), eps)
-        numerator = T.T @ (Z * TV ** ((2 - d) / d))
-        V = V * (numerator / TTV) ** (d / (4 - d))
+        TTV, numerator = self._shard_sums([T.T @ TV ** ((4 - d) / d), T.T @ (Z * TV ** ((2 - d) / d))], "bins")
+        V = V * (numerator / floor_below(TTV, eps)) ** (d / (4 - d))
         return {"target": Z, "basis": T, "activation": V}
 
 
@@ -145,12 +166,12 @@ class KLNMF(NMFBase):
         d, eps = self.domain, self.eps
 
         TV = floor_below(T @ V, eps)
-        TVV = floor_below(TV ** ((2 - d) / d) @ V.T, eps)
-        T = T * ((Z / TV) @ V.T / TVV) ** (d / 2)
+        TVV, numerator = self._shard_sums([TV ** ((2 - d) / d) @ V.T, (Z / TV) @ V.T], "frames")
+        T = T * (numerator / floor_below(TVV, eps)) ** (d / 2)
 
         TV = floor_below(T @ V, eps)
-        TTV = floor_below(T.T @ TV ** ((2 - d) / d), eps)
-        V = V * (T.T @ (Z / TV) / TTV) ** (d / 2)
+        TTV, numerator = self._shard_sums([T.T @ TV ** ((2 - d) / d), T.T @ (Z / TV)], "bins")
+        V = V * (numerator / floor_below(TTV, eps)) ** (d / 2)
         return {"target": Z, "basis": T, "activation": V}
 
 
@@ -176,13 +197,13 @@ class ISNMF(NMFBase):
 
         TV = floor_below(T @ V, eps)
         division = Z / TV ** ((d + 2) / d)
-        TVV = floor_below((1 / TV) @ V.T, eps)
-        T = T * (division @ V.T / TVV) ** exponent
+        TVV, numerator = self._shard_sums([(1 / TV) @ V.T, division @ V.T], "frames")
+        T = T * (numerator / floor_below(TVV, eps)) ** exponent
 
         TV = floor_below(T @ V, eps)
         division = Z / TV ** ((d + 2) / d)
-        TTV = floor_below(T.T @ (1 / TV), eps)
-        V = V * (T.T @ division / TTV) ** exponent
+        TTV, numerator = self._shard_sums([T.T @ (1 / TV), T.T @ division], "bins")
+        V = V * (numerator / floor_below(TTV, eps)) ** exponent
         return {"target": Z, "basis": T, "activation": V}
 
 
@@ -210,13 +231,13 @@ class TNMF(NMFBase):
 
         TV = floor_below(T @ V, eps)
         harmonic = 1 / (2 / ((2 + nu) * TV) + nu / ((2 + nu) * Z))
-        TVV = floor_below((1 / TV) @ V.T, eps)
-        T = T * torch.sqrt((harmonic / TV**2) @ V.T / TVV)
+        TVV, numerator = self._shard_sums([(1 / TV) @ V.T, (harmonic / TV**2) @ V.T], "frames")
+        T = T * torch.sqrt(numerator / floor_below(TVV, eps))
 
         TV = floor_below(T @ V, eps)
         harmonic = 1 / (2 / ((2 + nu) * TV) + nu / ((2 + nu) * Z))
-        TTV = floor_below(T.T @ (1 / TV), eps)
-        V = V * torch.sqrt(T.T @ (harmonic / TV**2) / TTV)
+        TTV, numerator = self._shard_sums([T.T @ (1 / TV), T.T @ (harmonic / TV**2)], "bins")
+        V = V * torch.sqrt(numerator / floor_below(TTV, eps))
         return {"target": state["target"], "basis": T, "activation": V}
 
 
@@ -241,13 +262,12 @@ class CauchyNMF(NMFBase):
         denominator = 3 * _target**2
         return torch.log(_target / _input) + (3 / 2) * torch.log(numerator / denominator)
 
-    @staticmethod
-    def _basis_then_activation(T, V, rule):
-        """``rule(TV, G, back)`` gives the multiplicative factor of a factor
-        from ``TV`` and the contraction ``G(M)`` onto it (``M @ V.T`` for the
-        basis, ``T.T @ M`` for the activation)."""
-        T = T * rule(T @ V, lambda M: M @ V.T)
-        V = V * rule(T @ V, lambda M: T.T @ M)
+    def _basis_then_activation(self, T, V, rule):
+        """``rule(TV, G)`` gives the multiplicative factor of a factor from
+        ``TV`` and the contractions ``G(M, ...)`` onto it (``M @ V.T`` for
+        the basis, ``T.T @ M`` for the activation), whole over the shards."""
+        T = T * rule(T @ V, lambda *Ms: self._shard_sums([M @ V.T for M in Ms], "frames"))
+        V = V * rule(T @ V, lambda *Ms: self._shard_sums([T.T @ M for M in Ms], "bins"))
         return T, V
 
     def update_state(self, state):
@@ -259,23 +279,23 @@ class CauchyNMF(NMFBase):
 
             def rule(TV, G):
                 TV = floor_below(TV, eps)
-                numerator = G(1 / TV)
                 C = floor_below(2 * Z + TV**2, eps)
-                return ratio_pow(numerator / floor_below(3 * G(TV / C), eps))
+                numerator, denominator = G(1 / TV, TV / C)
+                return ratio_pow(numerator / floor_below(3 * denominator, eps))
 
         elif self.algorithm == "me":
 
             def rule(TV, G):
-                A = (3 / 4) * G(TV / floor_below(TV**2 + Z, eps))
-                B = G(1 / floor_below(TV, eps))
+                A, B = G(TV / floor_below(TV**2 + Z, eps), 1 / floor_below(TV, eps))
+                A = (3 / 4) * A
                 return B / floor_below(A + torch.sqrt(A**2 + 2 * B * A), eps)
 
         else:  # mm_fast
 
             def rule(TV, G):
                 C = 2 * Z + TV**2
-                ZCTV = Z / floor_below(C * TV, eps)
-                return torch.sqrt(G(ZCTV) / floor_below(G(TV / floor_below(C, eps)), eps))
+                numerator, denominator = G(Z / floor_below(C * TV, eps), TV / floor_below(C, eps))
+                return torch.sqrt(numerator / floor_below(denominator, eps))
 
         T, V = self._basis_then_activation(T, V, rule)
         return {"target": Z, "basis": T, "activation": V}
@@ -300,8 +320,6 @@ class ComplexEUCNMF(IterativeSolver):
     entries), a documented divergence shared with the JAX package.
     """
 
-    mesh_slice = "10c"
-
     state_fields = ("basis", "activation", "phase")
     record_initial_loss = False
 
@@ -310,6 +328,20 @@ class ComplexEUCNMF(IterativeSolver):
         self.n_basis = n_basis
         self.regularizer = regularizer
         self.p = p
+
+    def field_axes(self):
+        """NMFBase's axes, the ``(K, F, T)`` phasor planes sharded with the
+        target, and the ``(F, K, T)`` phase warm start cut with them."""
+        return dict(
+            NMF_FIELD_AXES,
+            phase_cos={"bins": 1, "frames": 2},
+            phase_sin={"bins": 1, "frames": 2},
+            phase={"bins": 0, "frames": 2},
+        )
+
+    def output_axes(self):
+        axes = self.field_axes()
+        return axes["basis"], axes["activation"], axes["phase"]
 
     def prepare_state_kwargs(self, target, state_kwargs):
         n_bins, n_frames = target.shape
@@ -348,13 +380,14 @@ class ComplexEUCNMF(IterativeSolver):
         V_bar = floor_below(V, eps)
 
         # basis: (sum_t V sum_k TV + V re) / (sum_t V sum_k TV / T)
-        G_T = TVsum @ V.T  # (F, K)
-        T_new = (G_T + torch.einsum("kt,kft->fk", V, re)) / floor_below(G_T / floor_below(T, eps * eps), eps)
+        G_T, R_V = self._shard_sums([TVsum @ V.T, torch.einsum("kt,kft->fk", V, re)], "frames")  # (F, K)
+        T_new = (G_T + R_V) / floor_below(G_T / floor_below(T, eps * eps), eps)
 
         # activation, with the new basis as in the reference
-        G_V = T_new.T @ TVsum  # (K, T)
-        R_T = torch.einsum("fk,kft->kt", T_new, re)
-        G3 = (T_new**2 / floor_below(T, eps * eps)).T @ TVsum
+        G_V, R_T, G3 = self._shard_sums(
+            [T_new.T @ TVsum, torch.einsum("fk,kft->kt", T_new, re), (T_new**2 / floor_below(T, eps * eps)).T @ TVsum],
+            "bins",
+        )  # (K, T) each
         denominator = floor_below(G3 / floor_below(V, eps * eps) + regularizer * p * V_bar ** (p - 2), eps)
         V = (G_V + R_T) / denominator
 
@@ -368,14 +401,14 @@ class ComplexEUCNMF(IterativeSolver):
         Ure = torch.where(safe, Zbre / mag, 1.0)
         Uim = torch.where(safe, Zbim / mag, 0.0)
 
-        T_new = T_new / T_new.sum(dim=0)
+        T_new = T_new / self._bins_sum(T_new.sum(dim=0))
         return dict(state, basis=T_new, activation=V, phase_cos=Ure, phase_sin=Uim)
 
     def nll(self, state):
         T, V, Z = state["basis"], state["activation"], state["target"]
         recon_re = torch.einsum("fk,kft->ft", T, V[:, None, :] * state["phase_cos"])
         recon_im = torch.einsum("fk,kft->ft", T, V[:, None, :] * state["phase_sin"])
-        return ((recon_re - Z.real) ** 2 + (recon_im - Z.imag) ** 2).sum()
+        return self._shard_sum(((recon_re - Z.real) ** 2 + (recon_im - Z.imag) ** 2).sum())
 
     def finalize(self, state):
         phase = torch.atan2(state["phase_sin"], state["phase_cos"])
@@ -401,8 +434,6 @@ class MultichannelISNMF(IterativeSolver):
     numerators.
     """
 
-    mesh_slice = "10c"
-
     state_fields = ("spatial", "basis", "activation")
     record_initial_loss = False
     # the C = 2 spatial Riccati chain on compact Hermitian planes; the
@@ -413,6 +444,22 @@ class MultichannelISNMF(IterativeSolver):
         super().__init__(callbacks=None, recordable_loss=True, eps=eps, device=device)
         self.n_basis = n_basis
         self.normalize = normalize
+
+    def field_axes(self):
+        """The JAX package's shardable axes: per-bin fields with the bins,
+        the activations with the frames."""
+        return {
+            "input": {"bins": 0, "frames": 1},  # target (F, T, C, C)
+            "target_planes": {"bins": 1, "frames": 2},  # (C^2, F, T) compact
+            "bin_scale": {"bins": 0},  # (F,)
+            "spatial": {"bins": 0},  # (F, K, C, C)
+            "basis": {"bins": 0},  # (F, K)
+            "activation": {"frames": 1},  # (K, T)
+        }
+
+    def output_axes(self):
+        axes = self.field_axes()
+        return axes["spatial"], axes["basis"], axes["activation"]
 
     def prepare_state_kwargs(self, target, state_kwargs):
         n_bins, n_frames, n_channels, _ = target.shape
@@ -438,7 +485,16 @@ class MultichannelISNMF(IterativeSolver):
         # IS divergence are invariant under (X, T) -> (X / s, T / s) per bin
         # (the eps ridge turns bin-relative, documented in the JAX package);
         # finalize restores T s
-        scale = target_planes[:C].sum(dim=0).mean(dim=-1) / C  # (F,) trace mean
+        traces = target_planes[:C].sum(dim=0)  # (F, T)
+        if self._shard_group("frames") is not None:
+            # the mean over the whole frames, summed as the unsharded call
+            # sums it: the loss's floored log-determinants of the rank-1
+            # snapshots turn a one-ulp change of the scale into a visible
+            # offset (one all-gather, at init)
+            from ..parallel.mesh import shard_gather
+
+            traces = shard_gather(traces, 1, self)
+        scale = traces.mean(dim=-1) / C  # (F,) trace mean
         scale = torch.clamp(scale, min=torch.finfo(scale.dtype).tiny)
         return {
             "target_planes": target_planes / scale[:, None],
@@ -488,17 +544,21 @@ class MultichannelISNMF(IterativeSolver):
         # the pair-weighted sums round slightly negative near zero: floor 0
         inv, XXX = self._mu_operands(state)
         wc = self._spatial_coeffs(state) * compact_pair_weights(n_channels, T)[:, None, None]  # (C^2, F, K)
-        num = floor_below((wc * torch.einsum("pft,kt->pfk", XXX, V)).sum(dim=0), 0.0)  # (F, K)
-        den = (wc * torch.einsum("pft,kt->pfk", inv, V)).sum(dim=0)
+        XXX_V, inv_V = self._shard_sums(
+            [torch.einsum("pft,kt->pfk", XXX, V), torch.einsum("pft,kt->pfk", inv, V)], "frames"
+        )
+        num = floor_below((wc * XXX_V).sum(dim=0), 0.0)  # (F, K)
+        den = (wc * inv_V).sum(dim=0)
         T = T * torch.sqrt(num / floor_below(den, eps))
         state = dict(state, basis=T)
 
         # activation, X^ rebuilt with the new basis
         inv, XXX = self._mu_operands(state)
         wct = wc * T[None]  # (C^2, F, K)
-        num = floor_below(torch.einsum("pfk,pft->kt", wct, XXX), 0.0)
-        den = torch.einsum("pfk,pft->kt", wct, inv)
-        V = V * torch.sqrt(num / floor_below(den, eps))
+        num, den = self._shard_sums(
+            [torch.einsum("pfk,pft->kt", wct, XXX), torch.einsum("pfk,pft->kt", wct, inv)], "bins"
+        )
+        V = V * torch.sqrt(floor_below(num, 0.0) / floor_below(den, eps))
         state = dict(state, activation=V)
 
         # spatial (Riccati): frame GEMMs against V, then the solve on the
@@ -506,8 +566,9 @@ class MultichannelISNMF(IterativeSolver):
         inv, XXX = self._mu_operands(state)
         if self.riccati_planes and n_channels == 2:
             # the whole chain on compact planes (C^2, K, F)
-            A_p = torch.einsum("kt,pft->pkf", V, inv)
-            Z_p = torch.einsum("kt,pft->pkf", V, XXX)
+            A_p, Z_p = self._shard_sums(
+                [torch.einsum("kt,pft->pkf", V, inv), torch.einsum("kt,pft->pkf", V, XXX)], "frames"
+            )
             H_p = hermitian_compact_from_entries(lambda c, d: H[:, :, c, d].transpose(0, 1), n_channels)
             H_p = solve_riccati_hermitian_compact(A_p, sandwich_hermitian_compact(H_p, Z_p))
             diag, off = H_p[:n_channels] + eps, H_p[n_channels:]
@@ -517,11 +578,13 @@ class MultichannelISNMF(IterativeSolver):
             H_new = expand_hermitian_compact(torch.cat([diag, off]))  # (C, C, K, F)
             return dict(state, spatial=H_new.permute(3, 2, 0, 1))
 
-        def contract_t(planes):
-            small = torch.einsum("pft,kt->fkp", planes, V)  # (F, K, C^2)
-            return expand_hermitian_compact_trailing(small, n_channels)
-
-        H = solve_riccati(contract_t(inv), H @ contract_t(XXX) @ H)
+        small_inv, small_xxx = self._shard_sums(
+            [torch.einsum("pft,kt->fkp", inv, V), torch.einsum("pft,kt->fkp", XXX, V)], "frames"
+        )  # (F, K, C^2) each
+        H = solve_riccati(
+            expand_hermitian_compact_trailing(small_inv, n_channels),
+            H @ expand_hermitian_compact_trailing(small_xxx, n_channels) @ H,
+        )
         H = H + eps * torch.eye(n_channels, dtype=H.dtype, device=H.device)
         if self.normalize:
             H = H / torch.diagonal(H, dim1=-2, dim2=-1).sum(dim=-1)[..., None, None]
@@ -543,7 +606,7 @@ class MultichannelISNMF(IterativeSolver):
         wX = hermitian_eigvalsh_planes(herm_planes(Xp))
         wH = hermitian_eigvalsh_planes(herm_planes(Xh))
         logdet = (torch.log(floor_below(wX, eps)) - torch.log(floor_below(wH, eps))).sum(dim=0)
-        return (trace - logdet - Xp.shape[0]).sum()
+        return self._shard_sum((trace - logdet - Xp.shape[0]).sum())
 
     def _input_frame_basis(self, state):
         return state["basis"] * state["bin_scale"][:, None]

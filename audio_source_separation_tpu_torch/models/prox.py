@@ -21,6 +21,12 @@ State: ``{"input", "input_normalized" (F, C, T), "demix_filter" (F, N, C),
 "dual" (F, N, T), "estimation" (N, F, T)}``.  ``dual`` warm-starts;
 ``estimation`` is derived from ``W`` (a passed one is ignored).  Callbacks
 run after iterations only (``prox.py:95-102``).  No kernel is on this path.
+
+Under a mesh (the JAX package's ``field_axes``) the per-bin operator shards
+with the bins or the frames.  In bins mode the spectral norm is a maximum
+over the shards (one all-reduce at init) and the group-l2 norms over
+frequency are all-reduced; in frames mode the Grams and the adjoint's sums
+over frames are.  The NLL's sums are all-reduced in either mode.
 """
 
 import torch
@@ -33,8 +39,6 @@ from ..utils.flooring import EPS
 
 class PDSBSSBase(IterativeSolver):
     """Primal-dual splitting solver base (``prox.py:13-201``)."""
-
-    mesh_slice = "10c"
 
     state_fields = ("demix_filter", "estimation", "dual")
     callback_on_init = False
@@ -56,6 +60,17 @@ class PDSBSSBase(IterativeSolver):
         self.step_prox_penalty = step_prox_penalty
         self.step = step
 
+    def field_axes(self):
+        """The JAX package's shardable axes, ``input_normalized`` in the
+        port's ``(F, C, T)`` layout."""
+        return {
+            "input": {"bins": 1, "frames": 2},
+            "input_normalized": {"bins": 0, "frames": 2},  # (F, C, T)
+            "demix_filter": {"bins": 0},
+            "dual": {"bins": 0, "frames": 2},  # (F, N, T)
+            "estimation": {"bins": 1, "frames": 2},
+        }
+
     @staticmethod
     def separate(input, demix_filter):
         return (demix_filter @ input.permute(1, 0, 2)).permute(1, 0, 2)
@@ -63,7 +78,8 @@ class PDSBSSBase(IterativeSolver):
     def init_state(self, X, demix_filter=None, estimation=None, dual=None):
         n_channels, n_bins, n_frames = X.shape
         self.n_sources = self.n_channels = n_channels
-        self.n_bins, self.n_frames = n_bins, n_frames
+        self.n_bins = self._n_bins_true if self._sharded else n_bins
+        self.n_frames = self._n_frames(X)
         if demix_filter is None:
             W = torch.eye(n_channels, dtype=X.dtype, device=X.device).repeat(n_bins, 1, 1)
         else:
@@ -74,8 +90,8 @@ class PDSBSSBase(IterativeSolver):
             y = torch.as_tensor(dual).to(device=X.device, dtype=X.dtype)
         # the block-diagonal operator's largest singular value: sqrt of the
         # largest eigenvalue of any bin's C x C Gram
-        G = torch.einsum("cft,dft->cdf", X.conj(), X)  # (C, C, F) Gram planes
-        norm = torch.sqrt(hermitian_eigvalsh_planes(G)[-1].max())
+        G = self._frames_sum(torch.einsum("cft,dft->cdf", X.conj(), X))  # (C, C, F) Gram planes
+        norm = torch.sqrt(self._shard_max(hermitian_eigvalsh_planes(G)[-1].max(), "bins"))
         return {
             "input": X,
             "input_normalized": X.permute(1, 0, 2) / norm,  # (F, C, T)
@@ -90,7 +106,7 @@ class PDSBSSBase(IterativeSolver):
 
     def _apply_adjoint(self, Xn, y):
         """``(X~^H y)(f, n, c) = sum_t conj(X(f, c, t)) y(f, n, t)``: (F, N, C)."""
-        return y @ Xn.transpose(-2, -1).conj()
+        return self._frames_sum(y @ Xn.transpose(-2, -1).conj())
 
     def prox_logdet(self, W, mu=1):
         """Singular-value shrinkage ``sigma <- (sigma + sqrt(sigma^2 + 4 mu))
@@ -175,7 +191,7 @@ class PDSBSSBase(IterativeSolver):
         return dict(state, demix_filter=W, dual=y, estimation=self.separate(X, W))
 
     def nll(self, state):
-        return self.compute_penalty(state) - batched_log_abs_det(state["demix_filter"]).sum()
+        return self.compute_penalty(state) - self._bins_sum(batched_log_abs_det(state["demix_filter"]).sum())
 
     def finalize(self, state):
         return self.separate(state["input"], state["demix_filter"])
@@ -213,20 +229,33 @@ class ProxLaplaceIVA(PDSBSSBase):
     def prox_penalty(self, z, mu=1):
         """Group-l2 shrinkage over the frequency axis of ``z (n_bins,
         n_sources, n_frames)`` (``iva.py:867-889``)."""
-        denominator = torch.sqrt(torch.sum(torch.abs(z) ** 2, dim=0))  # (n_sources, n_frames)
+        denominator = torch.sqrt(self._bins_sum(torch.sum(torch.abs(z) ** 2, dim=0)))  # (n_sources, n_frames)
         denominator = torch.where(denominator <= 0, mu, denominator)
         scale = self.regularizer * torch.clamp(1 - mu / denominator, min=0)
         return scale[None].to(z.dtype) * z
 
     def compute_penalty(self, state):
         """``C sum_{n, t} sqrt(sum_f |Y|^2)`` (``iva.py:891-904``)."""
-        return self.regularizer * torch.sqrt(torch.sum(torch.abs(state["estimation"]) ** 2, dim=1)).sum()
+        return self._penalty(self._bins_sum(torch.sum(torch.abs(state["estimation"]) ** 2, dim=1)))
+
+    def _penalty(self, power):
+        """``C sum_{n, t} sqrt(power)`` of the whole ``(N, T)`` power."""
+        return self.regularizer * self._frames_sum(torch.sqrt(power).sum())
+
+    def nll(self, state):
+        # the penalty's and the log-determinants' sums over bins in one all-reduce
+        power, logdet = self._shard_sums(
+            [torch.sum(torch.abs(state["estimation"]) ** 2, dim=1), batched_log_abs_det(state["demix_filter"]).sum()],
+            "bins",
+        )
+        return self._penalty(power) - logdet
 
     def finalize(self, state):
         X = state["input"]
         Y = self.separate(X, state["demix_filter"])
         if self.apply_projection_back:
-            scale = projection_back(Y, reference=X[self.reference_id])
+            frames_sum = self._frames_sum if self._sharded else None
+            scale = projection_back(Y, reference=X[self.reference_id], frames_sum=frames_sum)
             Y = Y * scale[..., None]
         return Y
 

@@ -29,6 +29,13 @@ As in the JAX package:
   the published ``activation`` undo it;
 * the ridges take at least 100 machine epsilons of the type
   (:func:`_dtype_eps`), a no-op at float64.
+
+Under a mesh the frames mode shards every per-frame field (the JAX
+package's ``field_axes``): the basis step's sums over frames and the NLL
+are all-reduced, in one all-reduce each, and the ``B x B`` pencil,
+Cholesky and ``eigh`` run replicated.  The bins mode does not apply (the
+tap axes are coupled): every field replicates and the call is the
+unsharded one.
 """
 
 import numpy as np
@@ -91,7 +98,6 @@ def _cholesky(A):
 
 
 class PSDTFBase(IterativeSolver):
-    mesh_slice = "10c"
     state_fields = ("basis", "activation")
     record_initial_loss = False
 
@@ -99,6 +105,21 @@ class PSDTFBase(IterativeSolver):
         super().__init__(callbacks=None, recordable_loss=True, eps=eps, device=device)
         self.n_basis = n_basis
         self.normalize = normalize
+
+    def field_axes(self):
+        """The JAX package's shardable axes: frames only."""
+        return {
+            "input": {"frames": -1},  # target (B, B, T)
+            "target_t": {"frames": 0},
+            "target_logdet": {"frames": 0},
+            "frame_scale": {"frames": 0},
+            "activation": {"frames": -1},  # (K, T)
+            "y_eigvals": {"frames": 0},  # (T, B)
+            "y_eigvecs": {"frames": 0},  # (T, B, B)
+        }
+
+    def output_axes(self):
+        return {}, {"frames": -1}
 
     def input_dtype(self, X):
         """A real target runs real, a complex one complex: float32 or
@@ -175,7 +196,7 @@ class PSDTFBase(IterativeSolver):
         quad = torch.einsum("tbi,tbi->ti", v.conj(), X.to(v.dtype) @ v).real
         trace = torch.sum(quad / w, dim=-1)
         logdet_y = torch.log(torch.clamp(w, min=_dtype_eps(self.eps, w.dtype))).sum(dim=-1)
-        return torch.sum(trace - state["target_logdet"] + logdet_y - n)
+        return self._frames_sum(torch.sum(trace - state["target_logdet"] + logdet_y - n))
 
     def finalize(self, state):
         return state["basis"], state["activation"] * state["frame_scale"][None, :]
@@ -239,8 +260,10 @@ class LDPSDTF(PSDTFBase):
         eps = self.eps
         Hc = H.to(V.dtype)
         YXY = _ridge(inv_Y @ X.to(inv_Y.dtype) @ inv_Y, eps)
-        P = _ridge(torch.einsum("kt,tij->kij", Hc, inv_Y), eps)
-        Q = _ridge(torch.einsum("kt,tij->kij", Hc, YXY), eps)
+        P, Q = self._shard_sums(
+            [torch.einsum("kt,tij->kij", Hc, inv_Y), torch.einsum("kt,tij->kij", Hc, YXY)], "frames"
+        )
+        P, Q = _ridge(P, eps), _ridge(Q, eps)
         L = _cholesky(Q)
         Lh = L.transpose(-2, -1).conj()
         w, u = torch.linalg.eigh(_ridge(Lh @ V @ P @ V @ L, eps))
@@ -295,7 +318,7 @@ class LDPSDTF(PSDTFBase):
         # tr(X_t Y_t^-1) = sum_i (G^H X_t G)_ii / w_ti; log det Y_t = sum log w + log det V_1
         quad = torch.einsum("bi,tbi->ti", G.conj(), X.to(G.dtype) @ G).real
         logdet_y = torch.log(w).sum(dim=-1) + state["pencil_logdet"]
-        return torch.sum((quad / w).sum(dim=-1) - state["target_logdet"] + logdet_y - X.shape[-1])
+        return self._frames_sum(torch.sum((quad / w).sum(dim=-1) - state["target_logdet"] + logdet_y - X.shape[-1]))
 
     def update_state(self, state):
         if self._use_pencil:

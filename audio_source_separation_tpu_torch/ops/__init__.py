@@ -13,7 +13,12 @@ from .covariance import (
 from .eig2 import eig2x2, generalized_eig2x2_descending
 from .fast_linalg import batched_det, batched_inv, batched_log_abs_det
 from .ip import cond_guard, ip_update
-from .ip_components import ip_sweep_from_planes, pair_products_planes, weighted_covariance_components
+from .ip_components import (
+    auxiva_ip_step_components,
+    ip_sweep_from_planes,
+    pair_products_planes,
+    weighted_covariance_components,
+)
 from .iss import iss_sweep
 
 __all__ = [
@@ -25,6 +30,7 @@ __all__ = [
     "ip_update",
     "cond_guard",
     "ip_sweep_from_planes",
+    "auxiva_ip_step_components",
     "pair_products_planes",
     "weighted_covariance_components",
     "iss_sweep",

@@ -126,6 +126,17 @@ def psd_parts_planes(P, eps=1e-12):
     return add_diag_planes(H, shift), w + shift[None]
 
 
+def psd_inv_planes(R, eps=1e-12, psd=True):
+    """Adjugate inverse of planes ``R (n, n, ...)``, n <= 3, with the
+    reference's trailing ``to_psd`` of the inverse where ``psd`` is set (the
+    input is PSD already, so that is the ``eps trace`` ridge)."""
+    inv = inv_planes(R)
+    if psd:
+        inv = herm_planes(inv)
+        inv = add_diag_planes(inv, eps * trace_planes(inv))
+    return inv
+
+
 # Trailing-axes forms: the matrix axes are the last two (``A (..., n, n)``),
 # as in ``torch.linalg``.  Closed forms up to 3 x 3, ``torch.linalg`` above.
 

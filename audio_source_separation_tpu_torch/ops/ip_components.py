@@ -563,3 +563,34 @@ def plain_grad_step_components(W_rows, X, Phi, lr, frames_sum=None, n_frames=Non
             row.append(W_rows[n][c] - lr * (moments[n, c] - inv_cols[n][c].conj()))
         new_rows.append(row)
     return new_rows
+
+
+def auxiva_ip_step_components(X, W_rows, Y, planes, eps=1e-8, threshold=1e12):
+    """One whole AuxIVA-IP iteration (Laplace contrast) in component layout:
+    the frame weights ``R = max(sqrt(sum_f |Y|^2), eps)`` of the current
+    estimates, the weighted covariances from the pair-product planes, the IP
+    row sweep, the new estimates, and the NLL ``2 sum_{n, t} sqrt(sum_f
+    |Y|^2) - 2 T sum_f log|det W_f|`` of the new filter.
+
+    The plain PyTorch counterpart of kernel K2's iteration
+    (:func:`~.fused_ip.fused_auxiva_ip_iter`), with the same NLL; no solver
+    calls it.
+
+    Args:
+        X: mixture ``(C, F, T)`` complex.
+        W_rows: demixing components, nested ``[n][c]`` of complex ``(F,)``.
+        Y: current estimates ``(N, F, T)`` complex.
+        planes: the pair-product planes of ``X``
+            (:func:`pair_products_planes`).
+    Returns:
+        ``(W_rows_new, Y_new, nll)``.
+    """
+    n_channels, n_frames = X.shape[0], X.shape[-1]
+    R = torch.clamp(torch.sqrt(torch.sum(torch.abs(Y) ** 2, dim=1)), min=eps)  # (N, T)
+    U = weighted_covariance_components(planes, 1.0 / R)
+    W_rows = ip_update_components(W_rows, U, threshold=threshold)
+    Y = separate_components(W_rows, X)
+    nll = (2 * torch.sqrt(frame_power_sums(W_rows, planes))).sum() - 2 * n_frames * (
+        log_abs_det_components(W_rows, n_channels).sum()
+    )
+    return W_rows, Y, nll

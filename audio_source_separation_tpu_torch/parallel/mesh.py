@@ -8,12 +8,17 @@ at the collectives of this module:
 
   * :func:`shard_sum` all-reduces a partial sum over the sharded dimension,
     at every reduction over the sharded axis inside the loop;
+  * :func:`shard_max` all-reduces a partial maximum (ProxLaplaceIVA's
+    spectral norm over bin shards, once at init);
   * :func:`shard_gather` all-gathers a sharded tensor along its axis, once
-    after the loop (the output and the published attributes).
+    after the loop (the output and the published attributes), and inside
+    the loop only where a solver must see a field whole (GaussIDLMA's
+    variance network in bins mode, and callbacks).
 
-Each helper counts its collectives on itself (``shard_sum.launches`` the
-all-reduces, ``shard_gather.launches`` the all-gathers), as the kernel
-wrappers count their launches; :func:`collective_counts` reads both.
+Each helper counts its collectives on itself (``shard_sum.launches`` and
+``shard_max.launches`` the all-reduces, ``shard_gather.launches`` the
+all-gathers), as the kernel wrappers count their launches;
+:func:`collective_counts` reads them.
 Tensors go to the backend as they are, on the card too: NCCL's collectives
 run on the card, and gloo takes CUDA tensors in both collectives.
 """
@@ -96,6 +101,15 @@ def all_reduce_sum(x, group):
     return y
 
 
+def all_reduce_max(x, group):
+    """The elementwise maximum of ``x`` over the ranks of ``group``, a real
+    tensor (a new tensor; counted as one all-reduce)."""
+    shard_max.launches += 1
+    y = x.detach().clone().contiguous()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
+
+
 def all_gather_cat(x, axis, group):
     """The ranks' ``x`` concatenated along ``axis`` in rank order (counted
     as one all-gather)."""
@@ -115,6 +129,14 @@ def shard_sum(x, solver, mode=None):
     return x if group is None else all_reduce_sum(x, group)
 
 
+def shard_max(x, solver, mode=None):
+    """The maximum of ``x`` over the shards of ``solver``'s sharded
+    dimension when it runs sharded in ``mode``, and ``x`` itself
+    otherwise."""
+    group = solver._shard_group(mode)
+    return x if group is None else all_reduce_max(x, group)
+
+
 def shard_gather(x, axis, solver):
     """The whole of a tensor that ``solver`` holds sharded along ``axis``
     (``x`` itself when it runs unsharded)."""
@@ -123,14 +145,15 @@ def shard_gather(x, axis, solver):
 
 
 shard_sum.launches = 0
+shard_max.launches = 0
 shard_gather.launches = 0
 
 
 def collective_counts():
     """``{"all_reduce": n, "all_gather": n}`` since the counters were last
     set to 0."""
-    return {"all_reduce": shard_sum.launches, "all_gather": shard_gather.launches}
+    return {"all_reduce": shard_sum.launches + shard_max.launches, "all_gather": shard_gather.launches}
 
 
 def reset_collective_counts():
-    shard_sum.launches = shard_gather.launches = 0
+    shard_sum.launches = shard_max.launches = shard_gather.launches = 0

@@ -89,9 +89,6 @@ class IterativeSolver:
     # the PDS and IDLMA solvers call callbacks only after iterations
     callback_on_init = True
 
-    # the slice of the port that brings this family's mesh support, where
-    # the JAX class shards its state and this one does not yet
-    mesh_slice = None
     # the mesh of use_mesh, and what this call runs sharded on
     _mesh = None
     _shard_mode = "bins"
@@ -137,12 +134,6 @@ class IterativeSolver:
         """
         if mode not in ("bins", "frames"):
             raise ValueError("mode must be 'bins' or 'frames', got {!r}".format(mode))
-        if mesh is not None and self.mesh_slice is not None:
-            raise NotImplementedError(
-                "use_mesh: {} shards its state in the JAX package; its mesh support is ported in slice {}".format(
-                    type(self).__name__, self.mesh_slice
-                )
-            )
         from ..parallel.mesh import mesh_axis
 
         self._mesh = mesh
@@ -193,12 +184,30 @@ class IterativeSolver:
         return shard_sum(x, self, mode)
 
     def _shard_sums(self, tensors, mode=None):
-        """Several partial sums of one type made whole by one all-reduce
-        (:meth:`_shard_sum` of the packed tensors)."""
+        """Several partial sums made whole by one all-reduce
+        (:meth:`_shard_sum` of the packed tensors); complex ones travel as
+        their real pairs, beside real ones of the same precision."""
         if self._shard_group(mode) is None:
             return tensors
-        whole = self._shard_sum(torch.cat([t.reshape(-1) for t in tensors]), mode)
-        return [part.reshape(t.shape) for part, t in zip(whole.split([t.numel() for t in tensors]), tensors)]
+        flat = [(torch.view_as_real(t) if t.is_complex() else t).reshape(-1) for t in tensors]
+        whole = self._shard_sum(torch.cat(flat), mode).split([f.numel() for f in flat])
+        # each sum in the layout of the partial sum it replaces, strides
+        # included, so the ops downstream run as in the unsharded call
+        return [
+            torch.empty_like(t).copy_(
+                torch.view_as_complex(part.reshape(*t.shape, 2)) if t.is_complex() else part.reshape(t.shape)
+            )
+            for part, t in zip(whole, tensors)
+        ]
+
+    def _shard_max(self, x, mode=None):
+        """``x`` maximised over the shards when this call runs sharded in
+        ``mode`` (:func:`~..parallel.mesh.shard_max`)."""
+        if not self._sharded:
+            return x
+        from ..parallel.mesh import shard_max
+
+        return shard_max(x, self, mode)
 
     def _bins_sum(self, x):
         return self._shard_sum(x, "bins")
@@ -206,18 +215,37 @@ class IterativeSolver:
     def _frames_sum(self, x):
         return self._shard_sum(x, "frames")
 
+    def _fit_less_per_bin(self, fit, per_bin):
+        """``fit - per_bin`` made whole, ``fit`` a partial sum over this
+        shard's bins and frames and ``per_bin`` one over its bins only
+        (replicated over frame shards): one all-reduce in either mode."""
+        if self._shard_world("frames") > 1:
+            return self._frames_sum(fit) - per_bin
+        return self._bins_sum(fit - per_bin)
+
     def _frames_mean(self, x):
         """The mean over frame shards of a statistic each shard divided by
         its own frame count: the global ``(1/T) sum_t``, shards being equal."""
         return self._shard_sum(x, "frames") / self._shard_world("frames")
 
     def _n_bins(self, X):
-        """The bin count of the whole (padded) input of this call."""
+        """The bin count of the whole (padded) input of this call; ``X`` is
+        a ``(C, F, T)`` shard (the other layouts pass their own count when
+        unsharded)."""
         return self._n_bins_global if self._sharded else X.shape[1]
 
     def _n_frames(self, X):
-        """The frame count of the whole input of this call."""
+        """The frame count of the whole input of this call (``X``'s last
+        axis when unsharded)."""
         return self._n_frames_global if self._sharded else X.shape[-1]
+
+    def _input_axes(self, X):
+        """``(bins axis, frames axis)`` of the input ``X``: the
+        ``field_axes`` entry of ``"input"``, where the layout is not ``(C,
+        F, T)``; a layout without bins gives ``None``."""
+        axes = self.field_axes().get("input", {"bins": 1, "frames": 2})
+        bins, frames = axes.get("bins"), axes.get("frames", -1)
+        return (None if bins is None else bins % X.ndim), frames % X.ndim
 
     def _valid_bins(self, X):
         """``(F,)`` bool mask of the bins of this padded call's shard ``X``
@@ -238,9 +266,10 @@ class IterativeSolver:
         if own.type != device.type or own_index != device.index:
             raise ValueError("use_mesh: this rank's device is {}, the solver's {}".format(device, own))
         axes = self.field_axes()
+        bin_ax, frame_ax = self._input_axes(X)
         self._bin_pad = 0
-        self._n_bins_true = X.shape[1]
-        if mode == "bins" and self._shard_pad and X.shape[1] % size:
+        self._n_bins_true = None if bin_ax is None else X.shape[bin_ax]
+        if mode == "bins" and self._shard_pad and bin_ax is not None and X.shape[bin_ax] % size:
             if not self.supports_bin_padding():
                 raise ValueError(
                     "use_mesh(pad_bins=True): {} does not support zero-bin padding in this configuration "
@@ -263,17 +292,19 @@ class IterativeSolver:
             )
         self._validate_mesh(X)
         self._full_input = X
-        self._n_bins_global, self._n_frames_global = X.shape[1], X.shape[-1]
+        self._n_bins_global = None if bin_ax is None else X.shape[bin_ax]
+        self._n_frames_global = X.shape[frame_ax]
         if in_ax is None:  # nothing of this solver shards: every rank runs it whole
             return X, state_kwargs
         self._sharded = True
-        self._bin_start = shard_bounds(X.shape[1], mesh, name)[0] if mode == "bins" else 0
+        self._bin_start = shard_bounds(X.shape[bin_ax], mesh, name)[0] if mode == "bins" else 0
         for k, v in state_kwargs.items():
             ax = axes.get(k, {}).get(mode)
             if ax is not None:
                 v = v if isinstance(v, torch.Tensor) else np.asarray(v)
                 state_kwargs[k] = take_shard(v, ax, shard_bounds(v.shape[ax], mesh, name))
-        return take_shard(X, in_ax, shard_bounds(X.shape[in_ax], mesh, name)).contiguous(), state_kwargs
+        self._shard_input = take_shard(X, in_ax, shard_bounds(X.shape[in_ax], mesh, name)).contiguous()
+        return self._shard_input, state_kwargs
 
     @contextlib.contextmanager
     def _on_shard(self, X, state_kwargs):
@@ -289,31 +320,45 @@ class IterativeSolver:
         finally:
             self._sharded, self._bin_pad = False, 0
 
+    def output_axes(self):
+        """The shardable axes of :meth:`finalize`'s output, as
+        ``field_axes`` gives a field's; a tuple of them, one per factor,
+        for the solvers that return factors."""
+        return self.field_axes()["estimation"]
+
     def _whole_output(self, output):
-        """The output of :meth:`finalize` on this shard, gathered whole and
-        cropped to the input's bins."""
+        """The output of :meth:`finalize` on this shard, each piece gathered
+        whole along its axis and cropped to the input's bins."""
         if not self._sharded:
             return output
+        axes = self.output_axes()
+        if isinstance(output, tuple):
+            return tuple(self._gather_whole(v, a) for v, a in zip(output, axes))
+        return self._gather_whole(output, axes)
+
+    def _gather_whole(self, value, axes):
+        """``value`` gathered along its axis of this call's mode (``axes``
+        as a field's entry of ``field_axes``), cropped to the input's bins."""
         from ..parallel.mesh import shard_gather
 
-        axis = self.field_axes()["estimation"][self._shard_mode]
-        return self._crop_bins(shard_gather(output, axis % output.ndim, self), 1)
+        axis = axes.get(self._shard_mode)
+        if axis is not None and isinstance(value, torch.Tensor) and value.ndim:
+            value = shard_gather(value, axis % value.ndim, self)
+        return self._crop_bins(value, axes.get("bins"))
 
     def _global_state(self, state):
         """The state as a whole: each sharded field gathered along its axis
-        (the input is the whole one already), cropped to the input's bins."""
+        (the shard's own input is the whole one already), cropped to the
+        input's bins."""
         if not self._sharded:
             return state
-        from ..parallel.mesh import shard_gather
-
-        axes, mode = self.field_axes(), self._shard_mode
+        axes = self.field_axes()
         out = {}
         for k, v in state.items():
-            if k == "input":
-                v = self._full_input
-            elif isinstance(v, torch.Tensor) and v.ndim and axes.get(k, {}).get(mode) is not None:
-                v = shard_gather(v, axes[k][mode] % v.ndim, self)
-            out[k] = self._crop_bins(v, axes.get(k, {}).get("bins"))
+            if v is self._shard_input:
+                out[k] = self._crop_bins(self._full_input, axes.get(k, {}).get("bins"))
+            else:
+                out[k] = self._gather_whole(v, axes.get(k, {}))
         return out
 
     def _crop_bins(self, value, axis):

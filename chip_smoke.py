@@ -100,7 +100,14 @@ Phases (each asserts; any failure exits non-zero):
      bin with N = 3); LDPSDTF at K = 2 (the pencil) x 60 and K = 3 x 20 on
      the JAX benchmark's Gram targets (64 taps x 469 frames), the first 20
      losses against CPU float64 (at float32's gap), no kernel, ms per
-     iteration;
+     iteration; then the off-default source routes at 1024 blocks x 5,
+     each against its default route on the card at that row's float32
+     hold: Kondo, Ikeshita and TIPSDTA(1000) with source_compact=False
+     (the complex planes), Kondo and TIPSDTA with source_pencil=True (the
+     K = 2 pencil streams, also held at float64: TIPSDTA at complex128 on
+     the card, Kondo on the CPU, at tests/test_ipsdta.py's pencil holds);
+     Kondo's K1 per bin 5 in 5 on every route; ms an iteration beside the
+     default route's;
  12. the harness, batch_separate and the sharded steps at full width, on
      eight seeded 60 s two-source mixtures (8 x 2 x 2049 x 469, drawn after
      every other phase's): batch_separate over AuxLaplaceIVA IP (K2 240 in
@@ -119,7 +126,10 @@ Phases (each asserts; any failure exits non-zero):
      on the separated 60 s signals on the card and the CPU (1e-4 dB), both
      times; the example scripts ``examples.separate --method auxiva`` and
      ``examples.walkthrough`` on the card, their artefacts in
-     ``build/phase12``;
+     ``build/phase12``; then auxiva_ip_step_components (no kernel) x 20
+     from the identity on phase 3's mixture against K2 x 20 (20 in 20):
+     each step's NLL within 1e-4, W within twice the runs' own float32 gap
+     from CPU float64, its NLLs against the port's CPU float64 run;
  13. the profiling tools and the mesh (``torch.distributed``, one rank
      per device): ``benchmark_solver`` on the main path (1000 against 100
      iterations) beside phase 3's ms per iteration, and
@@ -130,15 +140,28 @@ Phases (each asserts; any failure exits non-zero):
      iteration), AuxLaplaceIVA IP x 20 in frames mode (K1 20 in 20, no K2)
      and GaussILRMA(10) x 20 in bins mode (K1 per bin 20 in 20), each
      against the same call unsharded, batch_separate on a (1, 1) mesh and
-     make_sharded_train_step x 100 against batched_auxiva_ip_step; at world
+     make_sharded_train_step x 100 against batched_auxiva_ip_step; then
+     slice 10c's families in bins and frames mode, each against the same
+     call unsharded (1e-5), with the collectives and ms an iteration sharded
+     and unsharded: FastMultichannelISNMF(10) x 20 and GaussIDLMA with phase
+     9's network x 20 (K1 per bin 20 in 20 each; IDLMA's bins mode
+     gathers the network's input once an iteration), MNMF Sawada(10) x 5
+     and Ozerov(10) x 10, ISNMF(10) and ComplexEUCNMF(10) x 50 on X[0],
+     CovarianceISNMF(10) at C = 2 x 20, ProxLaplaceIVA x 50, and LDPSDTF at
+     K = 2 x 20 in frames mode on phase 11's Gram target; at world
      size 2, two gloo ranks on the one card (spawned; they load phase 2's
      kernels): AuxLaplaceIVA IP x 100 with pad_bins (2049 bins, 1025 a rank
      through K2) and AuxGaussIVA IP x 100 on the first 2048 bins (1024 a
      rank through K2 with the whole bin count), AuxLaplaceIVA IP
      x 20 in frames mode on a seeded 470-frame mixture (235 a rank), Kondo
      GaussIPSDTA x 5 on the first 2048 bins in 1024 blocks (512 a rank, K1
-     per bin), each against the same call unsharded here at its family's
-     tolerance, and the stages of ``tools/dryrun_multichip.py``;
+     per bin), FastMNMF(10) x 20 on the first 2048 bins (K1 per bin 20 in
+     20 a rank), GaussIDLMA x 20 in frames mode at 470 frames (K1 per bin
+     20 in 20 a rank), CovarianceISNMF(10) x 20 at 2048 bins, ProxLaplaceIVA
+     x 50 at 2048 bins and LDPSDTF(2) x 20 in frames mode at 470 frames,
+     each against the same call unsharded here at its family's tolerance
+     (slice 10c's outputs within 1e-3 of their largest entry), and the
+     stages of ``tools/dryrun_multichip.py``;
  14. the script's seconds, one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
      line ``{"ok": true, "device": {...}}``.
 
@@ -220,6 +243,7 @@ from audio_source_separation_tpu_torch.ops.fused_ip import (
 )
 from audio_source_separation_tpu_torch.ops.ip_components import (
     _covariance_planes,
+    auxiva_ip_step_components,
     pair_products_planes,
     separate_components,
 )
@@ -1352,6 +1376,26 @@ PSDTF_CASES = [("ldpsdtf_k2", 2, ITERS_PSDTF2, 1e-2, ITERS_SHORT, 10), ("ldpsdtf
 IPSDTA_TIMING = (5, 2)
 LOSS_OFF_ONLY = {"t_nu1000", "kondo_b9", "ldpsdtf_k3"}
 IPSDTA_SI_SDR_BAR = 2.0  # dB, tests/test_ipsdta.py's
+# the off-default source routes at 1024 blocks (B = 3) x ITERS_ROUTE: key,
+# class, kwargs, the route switches, K1 launches per iteration, the default
+# row it is held against.  Each float32 run is held to its default row's
+# float32 hold (IPSDTA_CASES: the losses it compares, at its tolerance).  The
+# pencil's floors differ from the default route's by design, so it is held
+# at float64 too, at the holds of
+# tests/test_ipsdta.py::test_source_pencil_full_solver_trajectory (and its
+# TIPSDTA twin; losses rtol, output atol and rtol): TIPSDTA at complex128 on
+# the card against the default route at complex128, Kondo (whose K1 has no
+# complex128 instance) on the CPU, its losses against the default row's CPU
+# float64 run
+ITERS_ROUTE = 5
+IPSDTA_ROUTE_CASES = [
+    ("kondo_planes", GaussIPSDTA, {"author": "Kondo"}, {"source_compact": False}, 1, "kondo"),
+    ("ikeshita_planes", GaussIPSDTA, {"author": "Ikeshita"}, {"source_compact": False}, 0, "ikeshita"),
+    ("t_nu1000_planes", TIPSDTA, {"nu": 1000}, {"source_compact": False}, 0, "t_nu1000"),
+    ("kondo_pencil", GaussIPSDTA, {"author": "Kondo"}, {"source_pencil": True}, 1, "kondo"),
+    ("t_nu1000_pencil", TIPSDTA, {"nu": 1000}, {"source_pencil": True}, 0, "t_nu1000"),
+]
+PENCIL_HOLDS = {"kondo": (1e-8, 1e-8, 1e-6), "t_nu1000": (3e-5, 1e-6, 1e-4)}
 
 
 def at_complex128(solver):
@@ -1404,6 +1448,90 @@ def timings(res, key, X, make, n, warm):
     res["timing_s"] = time.perf_counter() - start
 
 
+def with_switches(solver, switches):
+    for switch, value in switches.items():
+        setattr(solver, switch, value)
+    return solver
+
+
+def block_psd_routes(mixture, default_rows, failed):
+    """The off-default IPSDTA source routes (``IPSDTA_ROUTE_CASES``) x 5 from
+    the seed-111 init at 1024 blocks, each against its default route on the
+    card: K1 per bin once a Kondo iteration on every route and never else,
+    the losses against the default route's at that row's float32 hold (the
+    output's gap beside), the pencil also at float64, ms an iteration (loss
+    off) beside the default row's."""
+    X64 = stft(mixture, fft_size=FFT_SIZE, hop_size=HOP_SIZE, device="cpu")
+    runs, out = {}, {}
+
+    def run(cls, kw, switches, precision):
+        """A route's seeded run, made once: on the card at float32 (through
+        ``drive``, counts included) or complex128, or on the CPU at float64
+        (``IPSDTA_MATCH`` losses): ``(Y, loss, res)``."""
+        key = (cls.__name__, tuple(kw.items()), tuple(switches.items()), precision)
+        if key not in runs:
+            make = lambda **more: with_switches(cls(n_basis=2, **kw, **more), switches)  # noqa: E731
+            np.random.seed(SEED)
+            if precision == "f32":
+                _, Y, _, loss, res = seeded_drive(make, mixture, ITERS_ROUTE)
+            elif precision == "c128":
+                model = at_complex128(make())
+                counts_zero()
+                Y = model(X64.cuda(), iteration=ITERS_ROUTE)
+                loss, res = np.asarray(model.loss), counts()
+            else:
+                model = make(device="cpu")
+                Y = model(X64, iteration=IPSDTA_MATCH - 1)
+                loss, res = np.asarray(model.loss), {}
+            runs[key] = (Y.cpu(), loss, res)
+        return runs[key]
+
+    X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE)
+    for key, cls, kw, switches, k1_per_iteration, default in IPSDTA_ROUTE_CASES:
+        row_start = time.perf_counter()
+        Y, loss, res = run(cls, kw, switches, "f32")
+        Y0, loss0, _ = run(cls, kw, {}, "f32")
+        held, rtol = default_rows[default]["losses_held"], default_rows[default]["tolerance"]
+        gaps = np.abs(loss - loss0) / np.abs(loss0)
+        res = dict(res, switches=switches, default_row=default, output_gap_f32=output_gap(Y, Y0),
+                   loss_gaps_f32=gaps.tolist(), losses_held=held, tolerance=rtol)  # fmt: skip
+        checks = {
+            "K1 {} in {}".format(ITERS_ROUTE * k1_per_iteration, ITERS_ROUTE):
+            res["k1_launches"] == ITERS_ROUTE * k1_per_iteration and res["k2_launches"] == 0,
+            "loss length": len(loss) == ITERS_ROUTE + 1,
+            "losses {} within {} of the default route's".format(held, rtol): gaps[held].max() <= rtol,
+        }  # fmt: skip
+        if "source_pencil" in switches:
+            rtol64, atol_out, rtol_out = PENCIL_HOLDS[default]
+            res["holds_f64"] = PENCIL_HOLDS[default]
+            if k1_per_iteration:  # on the CPU, against the default row's CPU float64 losses
+                start = time.perf_counter()
+                _, loss64, _ = run(cls, kw, switches, "cpu")
+                ref = np.asarray(default_rows[default]["cpu_f64_losses"])
+                res["loss_gaps_cpu_f64"] = (np.abs(loss64 - ref) / np.abs(ref)).tolist()
+                res["cpu_s"] = time.perf_counter() - start
+            else:
+                Y64, loss64, _ = run(cls, kw, switches, "c128")
+                Y064, loss064, _ = run(cls, kw, {}, "c128")
+                res["loss_gaps_c128"] = (np.abs(loss64 - loss064) / np.abs(loss064)).tolist()
+                res["output_gap_c128"] = output_gap(Y64, Y064)
+                checks["complex128 output within atol {} rtol {}".format(atol_out, rtol_out)] = bool(
+                    torch.all((Y64 - Y064).abs() <= atol_out + rtol_out * Y064.abs())
+                )
+            float64_gaps = res.get("loss_gaps_cpu_f64", res.get("loss_gaps_c128"))
+            checks["float64 losses within {} of the default route's".format(rtol64)] = max(float64_gaps) <= rtol64
+        record_checks(failed, "route_" + key, checks)
+        make = lambda recordable_loss, cls=cls, kw=kw, switches=switches: with_switches(  # noqa: E731
+            cls(n_basis=2, recordable_loss=recordable_loss, **kw), switches
+        )
+        np.random.seed(SEED)
+        res["per_iter_loss_off"] = per_iteration(X, False, make, *IPSDTA_TIMING)
+        res["default_per_iter_loss_off"] = default_rows[default]["per_iter_loss_off"]
+        res["row_s"] = time.perf_counter() - row_start
+        out[key] = res
+    return out
+
+
 def block_psd(mixture, images, mixture3, images3, failed):
     """GaussIPSDTA (Kondo, Ikeshita) and TIPSDTA(nu=1000) x 20 at the JAX
     benchmark rows' widths (n_basis = 2, 1024 blocks: B = 3, the compact
@@ -1439,7 +1567,7 @@ def block_psd(mixture, images, mixture3, images3, failed):
             at_iteration=int(gaps["card"].argmax()), cpu_f32_vs_cpu_f64_max_rel=float(gaps["f32"].max()),
             cpu_f32_at_iteration=int(gaps["f32"].argmax()), losses_compared=IPSDTA_MATCH,
             losses_held=np.flatnonzero(held).tolist(), held_max_rel=float(gaps["card"][held].max()),
-            gaps=gaps["card"].tolist(), cpu_f32_gaps=gaps["f32"].tolist(), tolerance=rtol,
+            gaps=gaps["card"].tolist(), cpu_f32_gaps=gaps["f32"].tolist(), tolerance=rtol, cpu_f64_losses=ref.tolist(),
         )
         checks = {
             "K1 launches": res["k1_launches"] == ITERS_IPSDTA * k1_per_iteration and res["k2_launches"] == 0,
@@ -1462,6 +1590,10 @@ def block_psd(mixture, images, mixture3, images3, failed):
             res["device_ms_per_iter"] = device_ms_per_iteration(timed, X, n=3)  # 4000 kernels an iteration
         res["row_s"] = time.perf_counter() - row_start
         out[key] = res
+
+    start = time.perf_counter()
+    out["routes"] = block_psd_routes(mixture, out, failed)
+    out["routes"]["phase_s"] = time.perf_counter() - start
 
     # the quality geometry: 256 blocks, B = 9, the matrix source step and VCD
     def b9(**more):
@@ -1815,6 +1947,66 @@ def harness_rows(rng, failed, workdir):
     return out
 
 
+ITERS_COMPONENTS = N_MATCH  # auxiva_ip_step_components against K2, and its CPU float64 reference
+
+
+def components_row(X, X_cpu, failed):
+    """``auxiva_ip_step_components`` (the plain AuxIVA-IP iteration in
+    component layout) x 20 from the identity on phase 3's mixture against K2
+    x 20 from the same start: each step's NLL, and ``W`` at the end held to
+    twice the larger of the two runs' own distance from the CPU float64
+    run's; its 20 NLLs against the port's CPU float64 run."""
+    start = time.perf_counter()
+    X = X.contiguous()  # K2 takes a contiguous mixture
+    F = X.shape[1]
+
+    def components(X_, n):
+        eye = torch.eye(2, dtype=X_.dtype, device=X_.device)
+        rows = [[eye[n, c].expand(F) for c in range(2)] for n in range(2)]
+        Y, planes, nlls = X_, pair_products_planes(X_), []
+        for _ in range(n):
+            rows, Y, nll = auxiva_ip_step_components(X_, rows, Y, planes, eps=EPS, threshold=THRESHOLD)
+            nlls.append(nll)
+        return torch.stack([torch.stack(row) for row in rows]), torch.stack(nlls).cpu().numpy()
+
+    def fused(X_, n):
+        W = torch.eye(2, dtype=X_.dtype, device=X_.device)[:, :, None].expand(2, 2, F).contiguous()
+        psum = (X_.abs() ** 2).sum(dim=1).contiguous()
+        nlls = []
+        for _ in range(n):
+            W, psum, _, nll = fused_auxiva_ip_iter(X_, W, psum, eps=EPS, threshold=THRESHOLD)
+            nlls.append(nll)
+        return W, torch.stack(nlls).cpu().numpy()
+
+    counts_zero()
+    step_start = time.perf_counter()
+    W_c, nll_c = components(X, ITERS_COMPONENTS)  # the NLLs' transfer synchronises
+    components_ms = (time.perf_counter() - step_start) * 1e3 / ITERS_COMPONENTS
+    components_counts = counts()
+    counts_zero()
+    step_start = time.perf_counter()
+    W_k, nll_k = fused(X, ITERS_COMPONENTS)
+    k2_ms = (time.perf_counter() - step_start) * 1e3 / ITERS_COMPONENTS
+    res = {"steps": ITERS_COMPONENTS, "components_counts": components_counts, **counts(),
+           "components_ms_per_step": components_ms, "k2_ms_per_step": k2_ms}  # fmt: skip
+    W64, nll64 = components(X_cpu, ITERS_COMPONENTS)
+    W64_k, _ = fused(X_cpu, ITERS_COMPONENTS)  # K2's plain version at float64
+    w_gap, own = rel_err(W_c, W_k), max(rel_err(W_c.cpu().to(W64.dtype), W64), rel_err(W_k.cpu().to(W64.dtype), W64_k))
+    nll_gaps, cpu_gaps = np.abs(nll_c - nll_k) / np.abs(nll_k), np.abs(nll_c - nll64) / np.abs(nll64)
+    res.update(w_gap=w_gap, w_own_f32_gap=own, nll_gaps_vs_k2=nll_gaps.tolist(),
+               nll_vs_cpu_f64_max_rel=float(cpu_gaps.max()), nll_first=float(nll_c[0]), nll_last=float(nll_c[-1]),
+               row_s=time.perf_counter() - start)  # fmt: skip
+    record_checks(failed, "auxiva_ip_step_components", {
+        "K2 {0} in {0}".format(ITERS_COMPONENTS): res["k2_launches"] == ITERS_COMPONENTS and res["k1_launches"] == 0,
+        "no kernel in the components' steps": components_counts["k1_launches"] == components_counts["k2_launches"] == 0,
+        "NLLs within {} of K2's".format(LOSS_MATCH_RTOL): nll_gaps.max() <= LOSS_MATCH_RTOL,
+        "W within twice the runs' own float32 gap of K2's": w_gap <= 2 * own,
+        "NLLs within {} of CPU float64".format(LOSS_MATCH_RTOL): cpu_gaps.max() <= LOSS_MATCH_RTOL,
+        "finite": bool(np.isfinite(nll_c).all() and torch.isfinite(W_c).all()),
+    })  # fmt: skip
+    return res
+
+
 def harness_and_batch(failed):
     """Phase 12: eight seeded 60 s mixtures through batch_separate, the
     sharded steps, the harness and the example scripts."""
@@ -1844,6 +2036,18 @@ def harness_and_batch(failed):
 # phase 13: the mesh (torch.distributed), profiling
 # --------------------------------------------------------------------------- #
 ITERS_MESH, ITERS_MESH_SHORT, ITERS_MESH_IPSDTA = 100, 20, 5
+ITERS_MESH_SAWADA, ITERS_MESH_OZEROV, ITERS_MESH_FACTOR = 5, 10, 50
+# world size 2 against the unsharded call, slice 10c's outputs: the float32
+# order of the shards' sums, amplified by the per-bin solves (this phase's
+# IVA rows read up to 1.9e-4 of the largest entry on an H100).  CovarianceISNMF's
+# float32 Riccati chain is ill-conditioned in some bins (its float32 loss
+# leaves float64 by up to 0.15, phase 8): a 1e-7 change of its sums' order
+# moved its factors by 0.11 of their largest entry on an H100, so its
+# float32 output is held to twice the larger of the two calls' own distance
+# from the same call at complex128 on the card, and the sharded call at
+# complex128 to that distance
+MESH_W2_OUTPUT_RTOL = 1e-3
+WORLD2_F64_WITNESS = ("cov_isnmf_bins",)
 N_SAMPLES_470 = 960_512  # 470 frames at stft(4096, 2048): 235 a rank
 MESH_W1_RTOL = 1e-5  # world size 1 against the unsharded call: the same kernels, the NLL by another formula
 # 900 differenced iterations: 400 against 40 left the window on an H100
@@ -1861,8 +2065,17 @@ def mesh_counts():
 
 
 def output_gap(a, b):
+    """The largest gap of ``a`` to ``b`` relative to ``b``'s largest entry;
+    of factor models' outputs (tuples), the largest over the factors."""
+    if isinstance(b, tuple):
+        return max(output_gap(x, y) for x, y in zip(a, b))
     a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
     return float((a - b).abs().max() / b.abs().max())
+
+
+def output_shapes(Y):
+    """The shape of an output, or of each factor of a factor model's."""
+    return [tuple(p.shape) for p in Y] if isinstance(Y, tuple) else tuple(Y.shape)
 
 
 def loss_gap(a, b):
@@ -1870,30 +2083,34 @@ def loss_gap(a, b):
     return float(np.max(np.abs(a - b) / np.abs(b)))
 
 
-def mesh_call(make, X, iteration, mesh=None, mode="bins", pad=False):
-    """``make()(X, iteration)`` from the seed-111 init, under ``mesh`` where
-    given; the output on the host, the losses, the kernels' and the
-    collectives' counts (set to 0 just before, read just after) and the
-    seconds."""
+def mesh_call(make, X, iteration, mesh=None, mode="bins", pad=False, **call):
+    """``make()(X, iteration, **call)`` from the seed-111 init, under
+    ``mesh`` where given; the output on the host (a factor model's factors
+    as a tuple), the losses, the kernels' and the collectives' counts (set
+    to 0 just before, read just after) and the seconds."""
     np.random.seed(SEED)
     solver = make()
     if mesh is not None:
         solver.use_mesh(mesh, mode=mode, pad_bins=pad)
     mesh_counts_zero()
     start = time.perf_counter()
-    Y = solver(X, iteration=iteration)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # Ozerov's "in progress"
+        Y = solver(X, iteration=iteration, **call)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     loss = np.asarray(solver.loss)
-    assert np.isfinite(loss).all() and torch.isfinite(Y).all(), "non-finite loss or output"
-    return Y.cpu(), loss, {"iterations": iteration, "seconds": seconds, **mesh_counts()}
+    pieces = Y if isinstance(Y, tuple) else (Y,)
+    assert np.isfinite(loss).all() and all(bool(torch.isfinite(p).all()) for p in pieces), "non-finite loss or output"
+    Y = tuple(p.cpu() for p in pieces) if isinstance(Y, tuple) else Y.cpu()
+    return Y, loss, {"iterations": iteration, "seconds": seconds, **mesh_counts()}
 
 
-def mesh_per_iteration(make, X, mesh=None, mode="bins", pad=False, n=ITERS_MESH):
+def mesh_per_iteration(make, X, mesh=None, mode="bins", pad=False, n=ITERS_MESH, **call):
     """All-reduces, all-gathers and ms an iteration (loss on): an
     ``n``-iteration call less a 0-iteration call, the least of two each
     (init, the gathers and finalize cancel)."""
-    runs = {k: [mesh_call(make, X, k, mesh, mode, pad)[2] for _ in range(2)] for k in (0, n)}
+    runs = {k: [mesh_call(make, X, k, mesh, mode, pad, **call)[2] for _ in range(2)] for k in (0, n)}
     per = {k: (runs[n][0][k] - runs[0][0][k]) / n for k in ("all_reduce", "all_gather")}
     per["ms"] = (min(r["seconds"] for r in runs[n]) - min(r["seconds"] for r in runs[0])) * 1e3 / n
     return per
@@ -1911,6 +2128,63 @@ def all_reduce_ms(mesh, numel, reps=100):
         all_reduce_sum(x, group)
     torch.cuda.synchronize()
     return (time.perf_counter() - start) * 1e3 / reps
+
+
+def slice_10c_rows(X):
+    """Slice 10c's world-1 rows on phase 3's mixture: ``(key, make, input,
+    iterations, mode, call, K1 launches per iteration)``, with phase 9's
+    benchmark network and phase 8's and 11's targets."""
+    W1, W2 = variance_mlp_weights(X.shape[1])
+    idlma_call = {"dnn": torch_dnn(VarianceMLP(W1, W2).cuda())}
+    fast = functools.partial(FastMultichannelISNMF, n_basis=BATCH_BASIS)
+    sawada = functools.partial(MultichannelISNMF, n_basis=FACTOR_BASIS)
+    ozerov = functools.partial(MultichannelISNMF, n_basis=FACTOR_BASIS, author="Ozerov")
+    isnmf = functools.partial(ISNMF, n_basis=FACTOR_BASIS)
+    complex_euc = functools.partial(ComplexEUCNMF, n_basis=FACTOR_BASIS)
+    cov = functools.partial(CovarianceISNMF, n_basis=FACTOR_BASIS)
+    targets = factor_targets(X, X)
+    gram = torch.as_tensor(gram_target(2, X.shape[-1]), dtype=torch.float32, device=X.device)
+    rows = []
+    for mode in ("bins", "frames"):
+        rows += [
+            ("fastmnmf_" + mode, fast, X, ITERS_MESH_SHORT, mode, {}, 1),
+            ("idlma_" + mode, GaussIDLMA, X, ITERS_MESH_SHORT, mode, idlma_call, 1),
+            ("sawada_" + mode, sawada, X, ITERS_MESH_SAWADA, mode, {}, 0),
+            ("ozerov_" + mode, ozerov, X, ITERS_MESH_OZEROV, mode, {}, 0),
+            ("isnmf_" + mode, isnmf, targets["power"], ITERS_MESH_FACTOR, mode, {}, 0),
+            ("complex_eucnmf_" + mode, complex_euc, targets["spectrogram"], ITERS_MESH_FACTOR, mode, {}, 0),
+            ("cov_isnmf_" + mode, cov, targets["covariance"], ITERS_MESH_SHORT, mode, {}, 0),
+            ("prox_" + mode, ProxLaplaceIVA, X, ITERS_MESH_FACTOR, mode, {}, 0),
+        ]
+    return rows + [("ldpsdtf_frames", functools.partial(LDPSDTF, n_basis=2), gram, ITERS_MESH_SHORT, "frames", {}, 0)]
+
+
+def slice_10c_world_one(X, mesh, failed):
+    """Slice 10c's families at world size 1: each call against the same call
+    unsharded (output and losses within ``MESH_W1_RTOL``), its K1 count,
+    the collectives an iteration (no all-gather in the loop but GaussIDLMA's
+    network input in bins mode, one), ms an iteration sharded and
+    unsharded."""
+    start = time.perf_counter()
+    out = {}
+    for key, make, Xk, iteration, mode, call, k1_per_iteration in slice_10c_rows(X):
+        Y, loss, res = mesh_call(make, Xk, iteration, mesh, mode, **call)
+        Y1, loss1, single = mesh_call(make, Xk, iteration, **call)
+        res.update(mode=mode, shape=list(Xk.shape), output_gap=output_gap(Y, Y1), loss_gap=loss_gap(loss, loss1),
+                   unsharded_seconds=single["seconds"],
+                   per_iteration=mesh_per_iteration(make, Xk, mesh, mode, n=iteration, **call),
+                   unsharded_per_iteration=mesh_per_iteration(make, Xk, n=iteration, **call))  # fmt: skip
+        out[key] = res
+        gathers = 1 if key == "idlma_bins" else 0
+        record_checks(failed, "mesh_w1_" + key, {
+            "K1 {} in {}, no K2".format(iteration * k1_per_iteration, iteration):
+            res["k1_launches"] == iteration * k1_per_iteration and res["k2_launches"] == 0,
+            "{} all-gather an iteration".format(gathers): res["per_iteration"]["all_gather"] == gathers,
+            "an all-reduce an iteration": res["per_iteration"]["all_reduce"] >= 1,
+            "output and losses within {}".format(MESH_W1_RTOL): max(res["output_gap"], res["loss_gap"]) <= MESH_W1_RTOL,
+        })  # fmt: skip
+    out["phase_s"] = time.perf_counter() - start
+    return out
 
 
 def mesh_world_one(X, failed):
@@ -1991,6 +2265,7 @@ def mesh_world_one(X, failed):
             "W and NLL within {}".format(MESH_W1_RTOL): max(res["w_gap"], res["nll_gap"]) <= MESH_W1_RTOL,
             "finite": bool(torch.isfinite(W_sh).all() and torch.isfinite(nll_sh).all()),
         })
+        out["slice_10c"] = slice_10c_world_one(X, mesh, failed)
     finally:
         dist.destroy_process_group()
     return out
@@ -2008,9 +2283,14 @@ def mesh_rank(rank, world, store, workdir):
         inputs = torch.load(workdir / "inputs.pt")
         X, X470 = inputs["X"].cuda(), inputs["X470"].cuda()
         saved = {"all_reduce_ms_939_floats": all_reduce_ms(mesh, 2 * X.shape[-1] + 1)}
-        for key, make, Xk, iteration, mode, pad in mesh_world_two_calls(X, X470):
-            Y, loss, res = mesh_call(make, Xk, iteration, mesh, mode, pad)
+        for key, make, Xk, iteration, mode, pad, call in mesh_world_two_calls(X, X470):
+            Y, loss, res = mesh_call(make, Xk, iteration, mesh, mode, pad, **call)
             saved[key] = {"output": Y, "loss": loss, **res}
+            # init's and finalize's gathers: the loop's are the difference
+            saved[key]["all_gather_no_loop"] = mesh_call(make, Xk, 0, mesh, mode, pad, **call)[2]["all_gather"]
+            if key in WORLD2_F64_WITNESS:
+                witness = functools.partial(lambda make: at_complex128(make()), make)
+                saved[key]["output_c128"] = mesh_call(witness, Xk, iteration, mesh, mode, pad, **call)[0]
             if key == "laplace_ip_bins_pad":
                 saved[key]["per_iteration"] = mesh_per_iteration(make, Xk, mesh, mode, pad)
         start = time.perf_counter()
@@ -2022,18 +2302,36 @@ def mesh_rank(rank, world, store, workdir):
         dist.destroy_process_group()
 
 
+# the world-2 calls' K1 launches per iteration a rank (K2 for the IVA IP
+# bins calls, one)
+WORLD2_K1 = {"laplace_ip_frames": 1, "kondo_bins": 1, "fastmnmf_bins": 1, "idlma_frames": 1, "cov_isnmf_bins": 0,
+             "prox_bins": 0, "ldpsdtf_frames": 0}  # fmt: skip
+
+
 def mesh_world_two_calls(X, X470):
-    """``(key, make, input, iterations, mode, pad_bins)`` of each world-2 call."""
+    """``(key, make, input, iterations, mode, pad_bins, call)`` of each
+    world-2 call."""
     kondo = functools.partial(GaussIPSDTA, n_basis=2, n_blocks=1024)
     # the Gauss contrast divides by the bin count, so padded bins are not
     # neutral for it (it takes no padding, as in the JAX package): 2048 bins
     even = X[:, :2048].contiguous()
+    W1, W2 = variance_mlp_weights(X470.shape[1])
+    gram = torch.as_tensor(gram_target(2, X470.shape[-1]), dtype=torch.float32, device=X.device)
     return [
-        ("laplace_ip_bins_pad", AuxLaplaceIVA, X, ITERS_MESH, "bins", True),
-        ("gauss_ip_bins", AuxGaussIVA, even, ITERS_MESH, "bins", False),
-        ("laplace_ip_frames", AuxLaplaceIVA, X470, ITERS_MESH_SHORT, "frames", False),
-        ("kondo_bins", kondo, even, ITERS_MESH_IPSDTA, "bins", False),
-    ]
+        ("laplace_ip_bins_pad", AuxLaplaceIVA, X, ITERS_MESH, "bins", True, {}),
+        ("gauss_ip_bins", AuxGaussIVA, even, ITERS_MESH, "bins", False, {}),
+        ("laplace_ip_frames", AuxLaplaceIVA, X470, ITERS_MESH_SHORT, "frames", False, {}),
+        ("kondo_bins", kondo, even, ITERS_MESH_IPSDTA, "bins", False, {}),
+        # slice 10c
+        ("fastmnmf_bins", functools.partial(FastMultichannelISNMF, n_basis=BATCH_BASIS), even, ITERS_MESH_SHORT,
+         "bins", False, {}),
+        ("idlma_frames", GaussIDLMA, X470, ITERS_MESH_SHORT, "frames", False,
+         {"dnn": torch_dnn(VarianceMLP(W1, W2).to(X.device))}),
+        ("cov_isnmf_bins", functools.partial(CovarianceISNMF, n_basis=FACTOR_BASIS),
+         torch.einsum("cft,dft->ftcd", even, even.conj()).contiguous(), ITERS_MESH_SHORT, "bins", False, {}),
+        ("prox_bins", ProxLaplaceIVA, even, ITERS_MESH_FACTOR, "bins", False, {}),
+        ("ldpsdtf_frames", functools.partial(LDPSDTF, n_basis=2), gram, ITERS_MESH_SHORT, "frames", False, {}),
+    ]  # fmt: skip
 
 
 def mesh_world_two(X, X470, failed):
@@ -2052,27 +2350,36 @@ def mesh_world_two(X, X470, failed):
     saved = torch.load(workdir / "world2.pt", weights_only=False)
     out = {"spawn_s": spawn_s, "dryrun_multichip": saved.pop("dryrun_multichip"),
            "all_reduce_ms_939_floats_rank0": saved.pop("all_reduce_ms_939_floats")}
-    for key, make, Xk, iteration, mode, pad in mesh_world_two_calls(X, X470):
+    for key, make, Xk, iteration, mode, pad, call in mesh_world_two_calls(X, X470):
         res = saved[key]
-        Y1, loss1, single = mesh_call(make, Xk, iteration)
+        Y1, loss1, single = mesh_call(make, Xk, iteration, **call)
         n = IPSDTA_MATCH if key == "kondo_bins" else N_MATCH
         rtol = 1e-3 if key == "kondo_bins" else LOSS_MATCH_RTOL
-        out[key] = {k: v for k, v in res.items() if k not in ("output", "loss")}
+        out[key] = {k: v for k, v in res.items() if k not in ("output", "loss", "output_c128")}
         out[key].update(mode=mode, pad_bins=pad, shape=list(Xk.shape), output_gap=output_gap(res["output"], Y1),
                         loss_gap=loss_gap(res["loss"][:n], loss1[:n]), losses_compared=n,
                         unsharded_seconds=single["seconds"], unsharded_k1=single["k1_launches"],
                         unsharded_k2=single["k2_launches"])  # fmt: skip
         checks = {
-            "output shape": tuple(res["output"].shape) == tuple(Y1.shape),
+            "output shape": output_shapes(res["output"]) == output_shapes(Y1),
             "first {} losses within {}".format(n, rtol): out[key]["loss_gap"] <= rtol,
-            "no all-gather beyond the call's": res["all_gather"] <= 8,
+            "no all-gather in the loop": res["all_gather"] == res["all_gather_no_loop"],
         }
         if key.endswith(("_ip_bins_pad", "_ip_bins")):
             checks["K2 {0} in {0} a rank".format(iteration)] = res["k2_launches"] == iteration
         else:
-            checks["K1 {0} in {0} a rank, no K2".format(iteration)] = (
-                res["k1_launches"] == iteration and res["k2_launches"] == 0
+            k1 = iteration * WORLD2_K1[key]
+            checks["K1 {} in {} a rank, no K2".format(k1, iteration)] = (
+                res["k1_launches"] == k1 and res["k2_launches"] == 0
             )
+        if key in WORLD2_F64_WITNESS:
+            Y1_64 = mesh_call(lambda make=make: at_complex128(make()), Xk, iteration, **call)[0]
+            own = max(output_gap(Y1, Y1_64), output_gap(res["output"], res["output_c128"]))
+            out[key].update(own_f32_vs_c128=own, output_gap_c128=output_gap(res["output_c128"], Y1_64))
+            checks["output within twice the calls' own float32 gap"] = out[key]["output_gap"] <= 2 * own
+            checks["complex128 output within that gap"] = out[key]["output_gap_c128"] <= own
+        elif key in ("fastmnmf_bins", "idlma_frames", "prox_bins", "ldpsdtf_frames"):
+            checks["output within {}".format(MESH_W2_OUTPUT_RTOL)] = out[key]["output_gap"] <= MESH_W2_OUTPUT_RTOL
         record_checks(failed, "mesh_w2_" + key, checks)
     return out
 
@@ -2233,12 +2540,19 @@ def main():
     block["phase_s"] = time.perf_counter() - start
     print(json.dumps({"block_psd": block}), flush=True)
     assert not block_failed, block_failed
-    block_keys = [key for key in block if key != "phase_s"]
-    block_k1_no_kernel = sum(block[key]["k1_launches"] for key in block_keys if not key.startswith("kondo"))
+    routes = block["routes"]
+    route_keys = [key for key in routes if key != "phase_s"]
+    block_keys = [key for key in block if key not in ("phase_s", "routes")]
+    block_k1_no_kernel = sum(block[key]["k1_launches"] for key in block_keys if not key.startswith("kondo")) + sum(
+        routes[key]["k1_launches"] for key in route_keys if not key.startswith("kondo")
+    )
     block_k2 = sum(block[key]["k2_launches"] for key in block_keys)
+    block_k2 += sum(routes[key]["k2_launches"] for key in route_keys)
     start = time.perf_counter()
     phase12_failed = []
     phase12 = harness_and_batch(phase12_failed)
+    X2_cpu = stft(mix2[0], fft_size=FFT_SIZE, hop_size=HOP_SIZE, device="cpu")
+    phase12["auxiva_ip_step_components"] = components_row(X2, X2_cpu, phase12_failed)
     phase12["phase_s"] = time.perf_counter() - start
     print(json.dumps({"harness_and_batch": phase12}), flush=True)
     assert not phase12_failed, phase12_failed
@@ -2247,6 +2561,8 @@ def main():
     print(json.dumps({"mesh": mesh}), flush=True)
     assert not mesh_failed, mesh_failed
     mesh_w1, mesh_w2 = mesh["world_1_nccl"], mesh["world_2_gloo"]
+    w1_10c = mesh_w1["slice_10c"]
+    w1_10c_keys = [key for key in w1_10c if key != "phase_s"]
     if args.profile:
         prof = profile_c2(X2, ROOT / "chiprun_out" / "profile_c2.txt")
         print(json.dumps({"profile_c2": prof}), flush=True)
@@ -2295,6 +2611,8 @@ def main():
                 "ipsdta_kondo_c2": block["kondo"]["k1_launches"],
                 "ipsdta_kondo_b9_c2": block["kondo_b9"]["k1_launches"],
                 "ipsdta_kondo_c3": block["kondo_c3"]["k1_launches"],
+                "ipsdta_kondo_planes_c2": routes["kondo_planes"]["k1_launches"],
+                "ipsdta_kondo_pencil_c2": routes["kondo_pencil"]["k1_launches"],
                 "ipsdta_ikeshita_t_psdtf": block_k1_no_kernel,
                 "batch_ilrma_c2": phase12["batch_ilrma_c2"]["k1_launches"],
                 "batch_fast_mnmf_c2": phase12["batch_fast_mnmf_c2"]["k1_launches"],
@@ -2307,6 +2625,12 @@ def main():
                 "mesh_w1_laplace_ip_bins": mesh_w1["laplace_ip_bins"]["k1_launches"],
                 "mesh_w2_laplace_ip_frames_rank0": mesh_w2["laplace_ip_frames"]["k1_launches"],
                 "mesh_w2_kondo_bins_rank0": mesh_w2["kondo_bins"]["k1_launches"],
+                **{"mesh_w1_" + key: w1_10c[key]["k1_launches"] for key in w1_10c_keys},
+                "mesh_w2_fastmnmf_bins_rank0": mesh_w2["fastmnmf_bins"]["k1_launches"],
+                "mesh_w2_idlma_frames_rank0": mesh_w2["idlma_frames"]["k1_launches"],
+                "mesh_w2_cov_isnmf_prox_ldpsdtf_rank0": sum(
+                    mesh_w2[key]["k1_launches"] for key in ("cov_isnmf_bins", "prox_bins", "ldpsdtf_frames")
+                ),
             },
             "max_abs_err": max(c["max_abs_err"] for c in k1_all),
             "max_rel_err": max(c["rel_err"] for c in k1_all),
@@ -2337,7 +2661,9 @@ def main():
              "mesh_w1_laplace_ip_frames": mesh_w1["laplace_ip_frames"]["k2_launches"],
              "mesh_w1_batch_separate_1x1": mesh_w1["batch_separate_1x1"]["k2_launches"],
              "mesh_w2_laplace_ip_bins_pad_rank0": mesh_w2["laplace_ip_bins_pad"]["k2_launches"],
-             "mesh_w2_laplace_ip_frames_rank0": mesh_w2["laplace_ip_frames"]["k2_launches"]},
+             "mesh_w2_laplace_ip_frames_rank0": mesh_w2["laplace_ip_frames"]["k2_launches"],
+             "mesh_w1_slice_10c": sum(w1_10c[key]["k2_launches"] for key in w1_10c_keys),
+             "held_against_auxiva_ip_step_components": phase12["auxiva_ip_step_components"]["k2_launches"]},
             K2_RTOL,
         ),
         k2_entry(

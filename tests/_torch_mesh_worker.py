@@ -28,10 +28,14 @@ from audio_source_separation_tpu_torch.parallel import mesh as port_mesh  # noqa
 
 SEED = 111
 # each case: the solver (class name in both packages, keywords), the mixture
-# (C, F, T), the mode, pad_bins, iterations, the world sizes it runs at, a
-# warm start, and what it raises where it must
+# (C, F, T), the input made from it, the mode, pad_bins, iterations, the
+# world sizes it runs at, a warm start, the route switches set on the
+# solver, and what it raises where it must
 IPSDTA = {"n_basis": 2, "n_blocks": 16, "spatial_iteration": 2}
 IPSDTA_B4 = {"n_basis": 2, "n_blocks": 8, "spatial_iteration": 2}
+PLANES = {"source_compact": False}
+PENCIL = {"source_pencil": True}
+ALL_WORLDS = (2, 3, 4)
 CASES = {
     "iva_ip_bins": dict(solver=("AuxLaplaceIVA", {}), mode="bins", worlds=(2, 3, 4)),
     "iva_ip_frames": dict(solver=("AuxLaplaceIVA", {}), mode="frames", worlds=(2, 3, 4)),
@@ -108,6 +112,75 @@ CASES = {
     "tipsdta_b4_frames": dict(solver=("TIPSDTA", IPSDTA_B4), shape=(2, 32, 16), mode="frames", iteration=2),
     "ipsdta_misaligned_raise": dict(solver=("GaussIPSDTA", IPSDTA), shape=(2, 34, 16), mode="bins", iteration=1,
                                     raises=("ValueError", "whole blocks")),  # fmt: skip
+    # the off-default IPSDTA source routes: planes (source_compact=False) and
+    # the K = 2 pencil streams
+    "ipsdta_kondo_planes_bins": dict(solver=("GaussIPSDTA", IPSDTA), shape=(2, 32, 16), mode="bins", iteration=2,
+                                     attrs=PLANES, worlds=(2, 4)),  # fmt: skip
+    "ipsdta_kondo_planes_frames": dict(solver=("GaussIPSDTA", IPSDTA), shape=(2, 32, 16), mode="frames",
+                                       iteration=2, attrs=PLANES),  # fmt: skip
+    "ipsdta_ikeshita_planes_frames": dict(solver=("GaussIPSDTA", dict(IPSDTA, author="Ikeshita")),
+                                          shape=(2, 32, 16), mode="frames", iteration=2, attrs=PLANES,
+                                          worlds=(2, 4)),  # fmt: skip
+    "ipsdta_ikeshita_planes_bins": dict(solver=("GaussIPSDTA", dict(IPSDTA, author="Ikeshita")), shape=(2, 32, 16),
+                                        mode="bins", iteration=2, attrs=PLANES),  # fmt: skip
+    "tipsdta_planes_bins": dict(solver=("TIPSDTA", IPSDTA), shape=(2, 32, 16), mode="bins", iteration=2,
+                                attrs=PLANES),  # fmt: skip
+    "tipsdta_planes_frames": dict(solver=("TIPSDTA", IPSDTA), shape=(2, 32, 16), mode="frames", iteration=2,
+                                  attrs=PLANES),  # fmt: skip
+    "ipsdta_kondo_pencil_bins": dict(solver=("GaussIPSDTA", IPSDTA), shape=(2, 32, 16), mode="bins", iteration=2,
+                                     attrs=PENCIL, worlds=(2, 4)),  # fmt: skip
+    "ipsdta_kondo_pencil_frames": dict(solver=("GaussIPSDTA", IPSDTA), shape=(2, 32, 16), mode="frames",
+                                       iteration=2, attrs=PENCIL),  # fmt: skip
+    "tipsdta_pencil_bins": dict(solver=("TIPSDTA", IPSDTA), shape=(2, 32, 16), mode="bins", iteration=2,
+                                attrs=PENCIL),  # fmt: skip
+    "tipsdta_pencil_frames": dict(solver=("TIPSDTA", IPSDTA), shape=(2, 32, 16), mode="frames", iteration=2,
+                                  attrs=PENCIL),  # fmt: skip
+    # slice 10c: the MNMF family, IDLMA, the NMF family, ProxLaplaceIVA, LDPSDTF
+    "fastmnmf_bins": dict(solver=("FastMultichannelISNMF", {"n_basis": 3}), mode="bins", worlds=ALL_WORLDS),
+    "fastmnmf_frames": dict(solver=("FastMultichannelISNMF", {"n_basis": 3}), mode="frames", worlds=ALL_WORLDS),
+    "fastmnmf_svd_frames": dict(solver=("FastMultichannelISNMF", {"n_basis": 3, "guard": "svd"}), mode="frames"),
+    "fastmnmf_c3_bins": dict(solver=("FastMultichannelISNMF", {"n_basis": 2}), shape=(3, 24, 18), mode="bins"),
+    "sawada_bins": dict(solver=("MultichannelISNMF", {"n_basis": 2}), mode="bins", worlds=ALL_WORLDS),
+    "sawada_frames": dict(solver=("MultichannelISNMF", {"n_basis": 2}), mode="frames", worlds=ALL_WORLDS),
+    "sawada_c3_frames": dict(solver=("MultichannelISNMF", {"n_basis": 2}), shape=(3, 24, 18), mode="frames"),
+    "ozerov_bins": dict(solver=("MultichannelISNMF", {"n_basis": 2, "author": "Ozerov"}), mode="bins",
+                        worlds=ALL_WORLDS),  # fmt: skip
+    "ozerov_frames": dict(solver=("MultichannelISNMF", {"n_basis": 2, "author": "Ozerov"}), mode="frames",
+                          worlds=ALL_WORLDS),  # fmt: skip
+    "ozerov_anneal_frames": dict(solver=("MultichannelISNMF", {"n_basis": 2, "author": "Ozerov", "annealing": True,
+                                                               "annealing_iterations": 3}), mode="frames"),  # fmt: skip
+    "idlma_bins": dict(solver=("GaussIDLMA", {}), mode="bins", worlds=ALL_WORLDS, dnn=True),
+    "idlma_frames": dict(solver=("GaussIDLMA", {}), mode="frames", worlds=ALL_WORLDS, dnn=True),
+    "idlma_svd_frames": dict(solver=("GaussIDLMA", {"guard": "svd"}), mode="frames", dnn=True),
+    "idlma_svd_bins": dict(solver=("GaussIDLMA", {"guard": "svd"}), mode="bins", dnn=True),
+    "isnmf_bins": dict(solver=("ISNMF", {"n_basis": 4}), input="power", mode="bins", worlds=ALL_WORLDS),
+    "isnmf_frames": dict(solver=("ISNMF", {"n_basis": 4}), input="power", mode="frames", worlds=ALL_WORLDS),
+    "eucnmf_bins": dict(solver=("EUCNMF", {"n_basis": 3, "domain": 1.5}), input="power", mode="bins"),
+    "klnmf_frames": dict(solver=("KLNMF", {"n_basis": 3}), input="power", mode="frames"),
+    "tnmf_bins": dict(solver=("TNMF", {"n_basis": 3, "nu": 5.0}), input="power", mode="bins"),
+    "cauchy_frames": dict(solver=("CauchyNMF", {"n_basis": 3}), input="power", mode="frames"),
+    "cauchy_me_bins": dict(solver=("CauchyNMF", {"n_basis": 3, "algorithm": "me"}), input="power", mode="bins"),
+    "cauchy_fast_frames": dict(solver=("CauchyNMF", {"n_basis": 3, "algorithm": "mm_fast"}), input="power",
+                               mode="frames"),  # fmt: skip
+    "complex_eucnmf_bins": dict(solver=("ComplexEUCNMF", {"n_basis": 3}), input="channel", mode="bins",
+                                worlds=ALL_WORLDS),  # fmt: skip
+    "complex_eucnmf_frames": dict(solver=("ComplexEUCNMF", {"n_basis": 3}), input="channel", mode="frames",
+                                  worlds=ALL_WORLDS),  # fmt: skip
+    "cov_isnmf_bins": dict(solver=("CovarianceISNMF", {"n_basis": 3}), input="covariance", mode="bins",
+                           worlds=ALL_WORLDS),  # fmt: skip
+    "cov_isnmf_frames": dict(solver=("CovarianceISNMF", {"n_basis": 3}), input="covariance", mode="frames",
+                             worlds=ALL_WORLDS),  # fmt: skip
+    "cov_isnmf_c3_frames": dict(solver=("CovarianceISNMF", {"n_basis": 2}), shape=(3, 24, 18), input="covariance",
+                                mode="frames"),  # fmt: skip
+    "prox_bins": dict(solver=("ProxLaplaceIVA", {"step": 0.5}), mode="bins", worlds=ALL_WORLDS),
+    "prox_frames": dict(solver=("ProxLaplaceIVA", {"step": 0.5}), mode="frames", worlds=ALL_WORLDS),
+    "prox_c3_bins": dict(solver=("ProxLaplaceIVA", {}), shape=(3, 24, 18), mode="bins"),
+    "ldpsdtf_frames": dict(solver=("LDPSDTF", {"n_basis": 2}), shape=(2, 6, 18), input="gram", mode="frames",
+                           worlds=ALL_WORLDS),  # fmt: skip
+    "ldpsdtf_k3_frames": dict(solver=("LDPSDTF", {"n_basis": 3}), shape=(2, 6, 18), input="gram", mode="frames"),
+    "ldpsdtf_bins": dict(solver=("LDPSDTF", {"n_basis": 2}), shape=(2, 6, 18), input="gram", mode="bins"),
+    "isnmf_pad_raise": dict(solver=("ISNMF", {"n_basis": 2}), shape=(2, 25, 18), input="power", mode="bins",
+                            pad=True, raises=("ValueError", "does not support")),  # fmt: skip
 }
 for _case in CASES.values():
     _case.setdefault("shape", (2, 24, 18))
@@ -118,6 +191,9 @@ for _case in CASES.values():
     _case.setdefault("raises", None)
     _case.setdefault("callbacks", False)
     _case.setdefault("axis", None)
+    _case.setdefault("input", "mixture")
+    _case.setdefault("attrs", {})
+    _case.setdefault("dnn", False)
 # batch_separate over dp x tp: solvers, members (C, F, T), iterations
 BATCH = dict(solvers=(("AuxLaplaceIVA", {}), ("GaussILRMA", {"n_basis": 2})), shape=(4, 2, 24, 18), iteration=3)
 
@@ -133,6 +209,49 @@ def mixture(shape, seed=7):
     return np.einsum("cn,...nft->...cft", A, S)
 
 
+def case_input(case):
+    """The input of a case, made from its seeded mixture ``(C, F, T)``: the
+    mixture, the power ``|x_0|^2 (F, T)`` of the NMF family, the channel
+    ``x_0 (F, T)`` of ComplexEUCNMF, the covariances ``(F, T, C, C)`` of
+    CovarianceISNMF, or LDPSDTF's ``(B, B, T)`` Gram target with ``B`` the
+    mixture's bins."""
+    X = mixture(case["shape"])
+    kind = case["input"]
+    if kind == "mixture":
+        return X
+    if kind == "power":
+        return np.abs(X[0]) ** 2
+    if kind == "channel":
+        return X[0]
+    if kind == "covariance":
+        return np.einsum("cft,dft->ftcd", X, X.conj())
+    if kind == "gram":
+        rng = np.random.RandomState(5)
+        B, T = X.shape[1:]
+        bases = [rng.randn(B, B) for _ in range(2)]
+        gram = np.einsum("kij,kt->ijt", np.stack([a @ a.T + 0.5 * np.eye(B) for a in bases]), np.abs(X[:2, 0]) + 0.2)
+        return gram
+    raise ValueError(kind)
+
+
+def dnn_weights(n_bins, seed=9):
+    """The seeded weights ``(W1 (F, 8), W2 (8, F))`` of a small
+    frequency-mixing variance network (IDLMA's cases)."""
+    rng = np.random.RandomState(seed)
+    return rng.randn(n_bins, 8) * 0.1, rng.randn(8, n_bins) * 0.1
+
+
+def torch_dnn(n_bins):
+    """``max(relu(a W1) W2, 1e-3)`` over the bins of ``a (S, F, T)``."""
+    W1, W2 = (torch.as_tensor(w) for w in dnn_weights(n_bins))
+
+    def dnn(amp):
+        h = torch.relu(torch.einsum("sft,fh->sht", amp, W1.to(amp.dtype)))
+        return torch.clamp(torch.einsum("sht,hf->sft", h, W2.to(amp.dtype)), min=1e-3)
+
+    return dnn
+
+
 def warm_filter(shape, seed=3):
     """A seeded warm-start demixing filter ``(F, C, C)`` near the identity."""
     C, F, _ = shape
@@ -140,21 +259,29 @@ def warm_filter(shape, seed=3):
     return np.tile(np.eye(C), (F, 1, 1)) + 0.1j * rng.randn(F, C, C)
 
 
-def make_solver(package, spec):
+def make_solver(package, spec, attrs=None):
     name, kwargs = spec
     kwargs = dict(kwargs)
     if package is port:
         kwargs["device"] = "cpu"
-    return getattr(package, name)(**kwargs)
+    solver = getattr(package, name)(**kwargs)
+    for key, value in (attrs or {}).items():
+        setattr(solver, key, value)
+    return solver
 
 
-def call_kwargs(case):
-    return {"demix_filter": warm_filter(case["shape"])} if case["warm"] else {}
+def call_kwargs(case, dnn=None):
+    """The call's keywords: the warm start, and the variance network (``dnn``
+    as the package builds it) where the case takes one."""
+    kwargs = {"demix_filter": warm_filter(case["shape"])} if case["warm"] else {}
+    if case["dnn"]:
+        kwargs["dnn"] = dnn if dnn is not None else torch_dnn(case["shape"][1])
+    return kwargs
 
 
 def _run(case, mesh, iteration):
     np.random.seed(SEED)
-    solver = make_solver(port, case["solver"])
+    solver = make_solver(port, case["solver"], case["attrs"])
     if case["callbacks"]:
         # what a callback sees: the published attributes' shapes, the losses so far
         solver.seen = []
@@ -163,17 +290,26 @@ def _run(case, mesh, iteration):
         solver.use_mesh(mesh, mode=case["mode"], axis_name=case["axis"], pad_bins=case["pad"])
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
-        out = solver(mixture(case["shape"]), iteration=iteration, **call_kwargs(case))
+        out = solver(case_input(case), iteration=iteration, **call_kwargs(case))
     return solver, out
 
 
 def _shape(x):
-    """The shape of a published attribute (empty where there is none)."""
+    """The shape of a published attribute (empty where there is none; the
+    first factor's for the factor models)."""
+    x = x[0] if isinstance(x, tuple) else x
     return np.asarray(() if x is None else tuple(x.shape), dtype=np.int64)
 
 
 def _numpy(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _outputs(prefix, out):
+    """``{prefix + "0": first piece, ...}``: the output, or each factor of a
+    factor model's output."""
+    pieces = out if isinstance(out, tuple) else (out,)
+    return {"{}{}".format(prefix, i): _numpy(piece) for i, piece in enumerate(pieces)}
 
 
 def run_case(case, mesh, rank):
@@ -191,13 +327,14 @@ def run_case(case, mesh, rank):
     _run(case, mesh, n + 2)
     second = port_mesh.collective_counts()
     result = {
-        "output": _numpy(out),
+        **_outputs("output", out),
+        "n_outputs": len(out) if isinstance(out, tuple) else 1,
         "loss": np.asarray(solver.loss),
         "all_reduce": first["all_reduce"],
         "all_gather": first["all_gather"],
         "all_reduce_per_iteration": (second["all_reduce"] - first["all_reduce"]) / 2,
         "all_gather_per_iteration": (second["all_gather"] - first["all_gather"]) / 2,
-        "demix_filter_shape": _shape(solver.demix_filter),
+        "demix_filter_shape": _shape(getattr(solver, "demix_filter", None)),
         "estimation_shape": _shape(solver.estimation),
         "input_shape": _shape(solver.input),
     }
@@ -205,7 +342,7 @@ def run_case(case, mesh, rank):
         result["seen"] = np.asarray(solver.seen)
     if rank == 0:
         single, single_out = _run(case, None, n)
-        result["single_output"], result["single_loss"] = _numpy(single_out), np.asarray(single.loss)
+        result.update(_outputs("single_output", single_out), single_loss=np.asarray(single.loss))
     return result
 
 

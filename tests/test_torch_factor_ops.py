@@ -28,7 +28,6 @@ PORT = SimpleNamespace(fl=port_fl, linalg=port_linalg, div=port_div, ops=port_op
 DEFERRED_OPS = {
     # the port keeps complex tensors: no real-pair boundary
     "Pair", "jit_complex", "pack", "realify", "to_host", "unpack",
-    "auxiva_ip_step_components",  # the port bench's headline step
 }  # fmt: skip
 
 
@@ -122,6 +121,15 @@ def test_psd_parts_planes(rng, n):
     non-Hermitian planes (the shift is taken), at two ridges."""
     A = _planes(rng.randn(4, 5, n, n) + 1j * rng.randn(4, 5, n, n))
     same(lambda lib, A: [lib.fl.psd_parts_planes(A), lib.fl.psd_parts_planes(A, eps=1e-3)], A)
+
+
+@pytest.mark.parametrize("psd", [True, False], ids=["psd", "plain"])
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_psd_inv_planes(rng, n, psd):
+    """The adjugate inverse of PSD planes (its inputs are projected), with
+    the trailing ``to_psd`` ridge or without it, at two ridges."""
+    P = _planes(_psd(rng, (4, 5), n))
+    same(lambda lib, P: [lib.fl.psd_inv_planes(P, eps=e, psd=psd) for e in (1e-12, 1e-3)], P)
 
 
 @pytest.mark.parametrize("n", [1, 2, 3])

@@ -147,6 +147,23 @@ def test_ip_update_components(rng, C, guard):
 
 
 @CHANNELS
+def test_auxiva_ip_step_components(rng, C):
+    """Three chained iterations from the identity filter: the filters, the
+    estimates and each iteration's NLL."""
+    X = make_mixture(rng, n_channels=C, n_bins=F, n_frames=T)
+    rows = [[np.full(F, 1.0 + 0j if n == c else 0j) for c in range(C)] for n in range(C)]
+    ours = (_torch(rows), torch.as_tensor(X), tip.pair_products_planes(torch.as_tensor(X)))
+    theirs = (_jax(rows), jnp.asarray(X), jip.pair_products_planes(jnp.asarray(X)))
+    for _ in range(3):
+        W_o, Y_o, nll_o = tip.auxiva_ip_step_components(torch.as_tensor(X), ours[0], ours[1], ours[2])
+        W_t, Y_t, nll_t = jip.auxiva_ip_step_components(jnp.asarray(X), theirs[0], theirs[1], theirs[2])
+        _close(W_o, W_t)
+        _close(Y_o, Y_t, atol=1e-12)
+        np.testing.assert_allclose(float(nll_o), float(nll_t), rtol=RTOL)
+        ours, theirs = (W_o, Y_o, ours[2]), (W_t, Y_t, theirs[2])
+
+
+@CHANNELS
 def test_log_abs_det_components(rng, C):
     rows = _rows(rng, C, C)
     _close(tip.log_abs_det_components(_torch(rows), C), jip.log_abs_det_components(_jax(rows), C))

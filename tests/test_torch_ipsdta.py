@@ -7,7 +7,11 @@ compares the loss trajectory (rtol 1e-9), the final ``demix_filter``,
 (rtol 1e-9, atol 1e-12 of the largest entry).  The cases cover each route:
 the compact source steps at B = 2 (12 bins in 6 blocks) and at a padded
 B = 3 (10 bins in 4 blocks of 2, 2, 3 and 3), the matrix steps at B = 4 (13
-bins in 4 blocks), the planes VCD at C = 3 and the matrix VCD at C = 4.
+bins in 4 blocks), the planes VCD at C = 3 and the matrix VCD at C = 4, and
+the off-default switches at B <= 3, each against the JAX package's same
+route: the complex planes source steps (``source_compact=False``, with the
+VCD's and the fixed point's complex inverses) and the K = 2 pencil streams
+(``source_pencil=True``).
 Each JAX run is shared by its case's three tests through a module-scoped
 cache.  Init, warm start, callbacks, checkpoints, the raises and the K1
 route are in ``test_torch_ipsdta_state.py``.
@@ -24,7 +28,8 @@ from conftest import make_mixture
 
 ITERATIONS, N_FRAMES, N_BASIS = 3, 24, 2
 KONDO, IKESHITA, T3 = ("GaussIPSDTA", {"author": "Kondo"}), ("GaussIPSDTA", {"author": "Ikeshita"}), ("TIPSDTA", {"nu": 3.0})
-# (class name, kwargs), C, n_bins, n_blocks
+PLANES, PENCIL = {"source_compact": False}, {"source_pencil": True}
+# (class name, kwargs), C, n_bins, n_blocks[, the route switches]
 CASES = [
     (KONDO, 2, 12, 6),
     (IKESHITA, 2, 12, 6),
@@ -37,22 +42,31 @@ CASES = [
     (T3, 2, 13, 4),
     (KONDO, 3, 12, 4),
     (KONDO, 4, 12, 6),
+    (KONDO, 2, 12, 6, PLANES),
+    (KONDO, 3, 10, 4, PLANES),
+    (IKESHITA, 2, 10, 4, PLANES),
+    (T3, 2, 10, 4, PLANES),
+    (KONDO, 2, 12, 6, PENCIL),
+    (KONDO, 2, 10, 4, dict(PENCIL, **PLANES)),
+    (T3, 2, 10, 4, PENCIL),
 ]
 FIELDS = ("demix_filter", "basis", "activation", "fixed_point")
 
 
 def _case_id(case):
-    (name, kwargs), n_channels, n_bins, n_blocks = case
-    parts = [name] + ["{}={}".format(k, v) for k, v in kwargs.items()]
+    (name, kwargs), n_channels, n_bins, n_blocks = case[:4]
+    parts = [name] + ["{}={}".format(k, v) for k, v in {**kwargs, **(case[4] if len(case) > 4 else {})}.items()]
     return "-".join(parts + ["C{}".format(n_channels), "F{}".format(n_bins), "nb{}".format(n_blocks)])
 
 
 def run(package, case, **more):
     """``package``'s solver on the case's mixture from the seed-111 draws:
     the solver and its output."""
-    (name, kwargs), n_channels, n_bins, n_blocks = case
+    (name, kwargs), n_channels, n_bins, n_blocks = case[:4]
     X = make_mixture(np.random.RandomState(111), n_channels=n_channels, n_bins=n_bins, n_frames=N_FRAMES)
     solver = getattr(package, name)(n_basis=N_BASIS, n_blocks=n_blocks, **kwargs, **more)
+    for switch, value in (case[4] if len(case) > 4 else {}).items():
+        setattr(solver, switch, value)
     np.random.seed(111)
     return solver, solver(X, iteration=ITERATIONS)
 

@@ -4,7 +4,8 @@ point), warm start, callbacks, ``recordable_loss=False``, ``save_state``, a
 JAX Ikeshita checkpoint resumed through ``state_from_jax`` with its
 ``fixed_point``, the raises, and where the covariances go: Kondo's VCD makes
 exactly one call of kernel K1's wrapper per iteration with per-bin ``(S, F,
-T)`` weights, on every route, and Ikeshita, TIPSDTA and LDPSDTF make none.
+T)`` weights, on every route (the off-default source routes too), and
+Ikeshita, TIPSDTA and LDPSDTF make none.
 The loss trajectories are in ``test_torch_ipsdta.py``.
 """
 
@@ -187,29 +188,6 @@ def test_resume_jax_ikeshita_checkpoint(jax_runs):
     np.testing.assert_allclose(to_np(ours.fixed_point), np.asarray(jax_solver.fixed_point), rtol=1e-9, atol=1e-12)
 
 
-@pytest.mark.parametrize(
-    "solver,switch,n_basis",
-    [("kondo", "source_compact", 2), ("ikeshita", "source_compact", 2), ("t", "source_compact", 3),
-     ("kondo", "source_pencil", 2), ("t", "source_pencil", 2)],
-)  # fmt: skip
-def test_unported_variants_raise(solver, switch, n_basis):
-    """``source_compact=False`` at B <= 3 and ``source_pencil=True`` at
-    ``n_basis == 2`` (the JAX package's off-default variants) raise, naming
-    the ROADMAP item; at B = 4 the matrix route runs either way."""
-    value = switch == "source_pencil"
-    model = getattr(port, SOLVERS[solver][0])(n_basis=n_basis, n_blocks=6, device="cpu",
-                                              **SOLVERS[solver][1])  # fmt: skip
-    setattr(model, switch, value)
-    with pytest.raises(NotImplementedError, match="is not ported"):
-        model(mixture(), iteration=1)
-    matrix = build(port, solver, n_blocks=4)
-    setattr(matrix, switch, value)
-    np.random.seed(111)
-    Y = matrix(mixture(n_bins=13), iteration=1)
-    np.random.seed(111)
-    np.testing.assert_allclose(to_np(Y), to_np(build(port, solver, n_blocks=4)(mixture(n_bins=13), iteration=1)))
-
-
 def test_ikeshita_ignores_the_pencil_switch():
     """The pencil streams are an MM variant: Ikeshita's EM runs with it set,
     as in the JAX package."""
@@ -239,21 +217,29 @@ def test_entry_points_default_to_cuda(monkeypatch):
             make()
 
 
+PLANES, PENCIL = {"source_compact": False}, {"source_pencil": True}
+
+
 @pytest.mark.parametrize(
-    "solver,n_channels,n_bins,n_blocks,calls",
+    "solver,n_channels,n_bins,n_blocks,calls,switches",
     [
-        ("kondo", 2, 12, 6, 3),  # compact source steps, planes VCD
-        ("kondo", 2, 10, 4, 3),  # padded
-        ("kondo", 2, 13, 4, 3),  # matrix source steps and matrix VCD (B = 4)
-        ("kondo", 3, 12, 4, 3),  # planes VCD at C = 3 (N = 3 weight rows)
-        ("kondo", 4, 12, 6, 3),  # matrix VCD at C = 4
-        ("ikeshita", 2, 12, 6, 0),
-        ("ikeshita", 2, 13, 4, 0),
-        ("t", 2, 12, 6, 0),
-        ("t", 2, 13, 4, 0),
+        ("kondo", 2, 12, 6, 3, {}),  # compact source steps, planes VCD
+        ("kondo", 2, 10, 4, 3, {}),  # padded
+        ("kondo", 2, 13, 4, 3, {}),  # matrix source steps and matrix VCD (B = 4)
+        ("kondo", 3, 12, 4, 3, {}),  # planes VCD at C = 3 (N = 3 weight rows)
+        ("kondo", 4, 12, 6, 3, {}),  # matrix VCD at C = 4
+        ("kondo", 2, 12, 6, 3, PLANES),  # complex planes source steps and VCD inverses
+        ("kondo", 3, 10, 4, 3, PLANES),
+        ("kondo", 2, 10, 4, 3, PENCIL),  # the K = 2 pencil streams
+        ("ikeshita", 2, 12, 6, 0, {}),
+        ("ikeshita", 2, 13, 4, 0, {}),
+        ("ikeshita", 2, 12, 6, 0, PLANES),
+        ("t", 2, 12, 6, 0, {}),
+        ("t", 2, 13, 4, 0, {}),
+        ("t", 2, 10, 4, 0, PENCIL),
     ],
 )
-def test_covariance_goes_through_k1_per_bin(monkeypatch, solver, n_channels, n_bins, n_blocks, calls):
+def test_covariance_goes_through_k1_per_bin(monkeypatch, solver, n_channels, n_bins, n_blocks, calls, switches):
     """Kondo's VCD covariances are one call of K1's wrapper per iteration,
     whatever the number of sweeps, with per-bin ``(S, F, T)`` weights,
     contiguous and of the mixture's real type as the CUDA kernel takes
@@ -273,8 +259,11 @@ def test_covariance_goes_through_k1_per_bin(monkeypatch, solver, n_channels, n_b
 
     monkeypatch.setattr(port_ipsdta, "weighted_covariance_planes", counted)
     monkeypatch.setattr("audio_source_separation_tpu_torch.ops.covariance.weighted_covariance", forbidden)
+    model = build(port, solver, n_blocks=n_blocks)
+    for switch, value in switches.items():
+        setattr(model, switch, value)
     np.random.seed(111)
-    build(port, solver, n_blocks=n_blocks)(X, iteration=3)
+    model(X, iteration=3)
     assert shapes == [(n_channels, n_bins, X.shape[-1])] * calls
 
 

@@ -11,12 +11,17 @@ every case's results to files; the tests below hold them one by one:
     calls crop to the input's bins;
   * the collective pattern, from the counters: no all-gather inside the
     loop (but for the callbacks, which see the state gathered whole every
-    iteration), at least one all-reduce an iteration, and exactly one where
-    an iteration is one K2 launch (AuxIVA-IP at C = 2 in bins mode);
+    iteration, and GaussIDLMA's variance network in bins mode, which sees
+    its input gathered whole once an iteration), at least one all-reduce an
+    iteration (none where nothing shards: FDICA, LDPSDTF's bins mode), and
+    exactly one where an iteration is one K2 launch (AuxIVA-IP at C = 2 in
+    bins mode);
   * the cases that must raise do;
-  * the counterparts of ``tests/test_mesh_runtime.py``'s IVA, ILRMA and
-    IPSDTA cases against the JAX package's ``use_mesh`` on as many of the
-    8 virtual CPU devices, at each family's parity tolerance.
+  * the counterparts of ``tests/test_mesh_runtime.py``'s cases (IVA,
+    ILRMA, IPSDTA and its source routes, the MNMF and NMF families,
+    IDLMA, ProxLaplaceIVA, LDPSDTF) against the JAX package's
+    ``use_mesh`` on as many of the 8 virtual CPU devices, at each family's
+    parity tolerance, at small shapes.
 """
 
 import os
@@ -26,6 +31,7 @@ import warnings
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 from jax.sharding import Mesh
@@ -41,6 +47,11 @@ MATCH = [(name, w) for name, case in worker.CASES.items() if case["raises"] is N
 RAISE = [(name, w) for name, case in worker.CASES.items() if case["raises"] is not None for w in case["worlds"]]
 # one K2 launch, and so one all-reduce, an iteration
 K2_CASES = {"iva_ip_bins", "iva_gauss_bins", "iva_gauss_floor_bins", "iva_pad_ip", "iva_pad_warm"}
+# nothing of the solver shards: no collective at all
+REPLICATED = {"fdica_bins", "ldpsdtf_bins"}
+# the variance network mixes the frequencies: its input is gathered whole
+# along the bins once an iteration
+GATHER_IN_LOOP = {"idlma_bins", "idlma_svd_bins"}
 # the counterparts of tests/test_mesh_runtime.py held against JAX's use_mesh
 JAX_CASES = [
     ("iva_ip_bins", 3),
@@ -56,17 +67,35 @@ JAX_CASES = [
     ("ipsdta_kondo_bins", 2),
     ("ipsdta_kondo_frames", 2),
     ("ipsdta_ikeshita_bins", 2),
+    ("fastmnmf_bins", 3),  # test_mesh_runtime.py:105
+    ("sawada_bins", 3),  # :261
+    ("sawada_frames", 2),
+    ("ozerov_bins", 2),  # :269
+    ("fastmnmf_frames", 2),  # :286
+    ("ipsdta_kondo_planes_bins", 2),  # :314, with source_compact=False
+    ("ipsdta_ikeshita_planes_frames", 2),
+    ("ipsdta_ikeshita_frames", 2),  # :333, the compact route
+    ("cov_isnmf_bins", 2),  # :362
+    ("cov_isnmf_frames", 2),
+    ("idlma_bins", 3),  # :411
+    ("idlma_frames", 2),
+    ("prox_bins", 3),  # :429
+    ("prox_frames", 2),
+    ("isnmf_bins", 3),  # :438
+    ("isnmf_frames", 2),
+    ("complex_eucnmf_bins", 3),  # :504
+    ("complex_eucnmf_frames", 2),
+    ("ldpsdtf_frames", 3),  # :528
 ]
-SLICE_10C = [
-    lambda: port.FastMultichannelISNMF(device="cpu"),
-    lambda: port.MultichannelISNMF(device="cpu"),
-    lambda: port.ISNMF(device="cpu"),
-    lambda: port.ComplexEUCNMF(device="cpu"),
-    lambda: port.CovarianceISNMF(device="cpu"),
-    lambda: port.ProxLaplaceIVA(device="cpu"),
-    lambda: port.GaussIDLMA(device="cpu"),
-    lambda: port.LDPSDTF(device="cpu"),
-]
+# the losses that hold log(w + eps) of the rank-1 observed covariances'
+# eigenvalues (Sawada's MNMF, CovarianceISNMF): the zero eigenvalue comes out
+# as rounding noise of about 1e-16 of the largest, which moves log(w + eps)
+# by noise / eps, so the two packages' closed forms (and the JAX package's
+# sharded frame sums of CovarianceISNMF's scale) leave an offset that the
+# iterations do not change, about 1e-7 of the loss here (the JAX package's
+# own mesh test holds that case at rtol 1e-6).  These compare the trajectory
+# less its offset at rtol 1e-9 and bound the offset by 1e-6 of the loss
+DATA_LOGDET_OFFSET = {"sawada_bins", "sawada_frames", "cov_isnmf_bins", "cov_isnmf_frames"}
 
 
 @pytest.fixture(scope="module")
@@ -119,11 +148,17 @@ def _assert_output(ours, ref, rel=1e-10):
     np.testing.assert_allclose(ours, ref, rtol=0, atol=rel * np.abs(ref).max())
 
 
+def _outputs(result, prefix="output"):
+    """The output of a case (the factors of a factor model) as a list."""
+    return [result["{}{}".format(prefix, i)] for i in range(int(result["n_outputs"]))]
+
+
 @pytest.mark.parametrize("name,world", MATCH, ids=_ids(MATCH))
 def test_sharded_matches_unsharded(spawned, name, world):
     out = spawned(world)
     result = _load(out, name)
-    _assert_output(result["output"], result["single_output"])
+    for ours, ref in zip(_outputs(result), _outputs(result, "single_output")):
+        _assert_output(ours, ref)
     if name.startswith("ilrma_pad"):
         # padded bins add an iteration-independent log(eps) constant
         offsets = result["loss"] - result["single_loss"]
@@ -132,7 +167,8 @@ def test_sharded_matches_unsharded(spawned, name, world):
         np.testing.assert_allclose(result["loss"], result["single_loss"], rtol=1e-10)
     for rank in range(1, world):
         other = _load(out, name, rank)
-        np.testing.assert_array_equal(other["output"], result["output"])
+        for theirs, ours in zip(_outputs(other), _outputs(result)):
+            np.testing.assert_array_equal(theirs, ours)
         np.testing.assert_array_equal(other["loss"], result["loss"])
 
 
@@ -141,9 +177,11 @@ def test_collective_pattern(spawned, name, world):
     result = _load(spawned(world), name)
     if worker.CASES[name]["callbacks"]:  # callbacks see the state published whole every iteration
         assert result["all_gather_per_iteration"] >= 1
+    elif name in GATHER_IN_LOOP:
+        assert result["all_gather_per_iteration"] == 1
     else:
         assert result["all_gather_per_iteration"] == 0, "a sharded field was gathered inside the loop"
-    if name == "fdica_bins":  # FDICA replicates: nothing shards, nothing is reduced
+    if name in REPLICATED:
         assert result["all_reduce"] == result["all_gather"] == 0
     elif name in K2_CASES:
         assert result["all_reduce_per_iteration"] == 1
@@ -153,12 +191,18 @@ def test_collective_pattern(spawned, name, world):
 
 @pytest.mark.parametrize("name,world", MATCH, ids=_ids(MATCH))
 def test_published_geometry(spawned, name, world):
-    """Output and attributes have the input's geometry, padded calls too."""
+    """Output and attributes have the input's geometry, padded calls too;
+    a factor model's factors have the unsharded call's shapes."""
     case, result = worker.CASES[name], _load(spawned(world), name)
+    outputs = _outputs(result)
+    assert [o.shape for o in outputs] == [o.shape for o in _outputs(result, "single_output")]
+    assert tuple(result["estimation_shape"]) == outputs[0].shape
+    if case["input"] != "mixture":
+        assert tuple(result["input_shape"]) == worker.case_input(case).shape
+        return
     C, F, T = case["shape"]
     N = case["solver"][1].get("n_sources", C)
-    assert tuple(result["output"].shape) == (N, F, T)
-    assert tuple(result["estimation_shape"]) == (N, F, T)
+    assert outputs[0].shape == (N, F, T)
     assert tuple(result["input_shape"])[1:] == (F, T)
     if result["demix_filter_shape"].size:
         assert tuple(result["demix_filter_shape"])[:2] == (F, N)
@@ -246,20 +290,42 @@ def _jax_mesh(world, axis="bins"):
     return Mesh(np.array(jax.devices()[:world]), axis_names=(axis,))
 
 
+def _jax_dnn(n_bins):
+    """The worker's variance network on JAX arrays (``worker.torch_dnn``)."""
+    W1, W2 = (jnp.asarray(w) for w in worker.dnn_weights(n_bins))
+
+    def dnn(amp):
+        h = jnp.maximum(jnp.einsum("sft,fh->sht", amp, W1), 0.0)
+        return jnp.maximum(jnp.einsum("sht,hf->sft", h, W2), 1e-3)
+
+    return dnn
+
+
 @pytest.mark.parametrize("name,world", JAX_CASES, ids=_ids(JAX_CASES))
 def test_sharded_matches_jax_use_mesh(spawned, name, world):
     case, result = worker.CASES[name], _load(spawned(world), name)
     np.random.seed(worker.SEED)
-    solver = worker.make_solver(jax_models, case["solver"])
+    cls, kwargs = case["solver"]
+    solver = worker.make_solver(jax_models, (cls, dict(kwargs, jax_dnn=True) if case["dnn"] else kwargs), case["attrs"])
     solver.use_mesh(_jax_mesh(world), mode=case["mode"], pad_bins=case["pad"])
+    call = worker.call_kwargs(case, dnn=_jax_dnn(case["shape"][1]) if case["dnn"] else None)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
-        ref = np.asarray(solver(worker.mixture(case["shape"]), iteration=case["iteration"], **worker.call_kwargs(case)))
-    np.testing.assert_allclose(result["loss"], np.asarray(solver.loss), rtol=1e-9)
-    if name.startswith("ipsdta"):
-        np.testing.assert_allclose(result["output"], ref, rtol=1e-9, atol=1e-12 * np.abs(ref).max())
+        ref = solver(worker.case_input(case), iteration=case["iteration"], **call)
+    theirs = np.asarray(solver.loss)
+    if name in DATA_LOGDET_OFFSET:
+        offsets = result["loss"] - theirs
+        assert np.abs(offsets[0]) <= 1e-6 * np.abs(theirs).max()
+        np.testing.assert_allclose(offsets, offsets[0], rtol=0, atol=1e-9 * np.abs(theirs).max())
     else:
-        np.testing.assert_allclose(result["output"], ref, atol=1e-8)
+        np.testing.assert_allclose(result["loss"], theirs, rtol=1e-9)
+    refs = [np.asarray(r) for r in (ref if isinstance(ref, tuple) else (ref,))]
+    assert len(refs) == int(result["n_outputs"])
+    for ours, theirs in zip(_outputs(result), refs):
+        if name.startswith(("ipsdta", "ldpsdtf")):
+            np.testing.assert_allclose(ours, theirs, rtol=1e-9, atol=1e-12 * np.abs(theirs).max())
+        else:
+            np.testing.assert_allclose(ours, theirs, atol=1e-8)
 
 
 def test_batch_separate_dp_tp_matches_jax(spawned):
@@ -273,14 +339,6 @@ def test_batch_separate_dp_tp_matches_jax(spawned):
         )  # fmt: skip
         np.testing.assert_allclose(result[name + "_output"], outputs, atol=1e-8)
         np.testing.assert_allclose(result[name + "_loss"], np.asarray(losses), rtol=1e-9)
-
-
-@pytest.mark.parametrize("make", SLICE_10C, ids=lambda make: type(make()).__name__)
-def test_slice_10c_family_use_mesh_raises(make):
-    solver = make()
-    with pytest.raises(NotImplementedError, match="slice 10c"):
-        solver.use_mesh(object(), mode="bins")
-    assert solver._mesh is None
 
 
 def test_use_mesh_mode_raises():
