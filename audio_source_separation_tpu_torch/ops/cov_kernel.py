@@ -20,6 +20,7 @@ from collections import namedtuple
 import torch
 
 from . import _build
+from ..runtime.cost_model import charged
 from .ip_components import _covariance_planes, pair_products_planes
 
 
@@ -153,6 +154,18 @@ def _scratch_for(device, stream, plan, n_sums):
     return part, tickets
 
 
+def k1_cost(C, N, F, T, per_bin, x_itemsize, w_itemsize):
+    """K1's compulsory ``(bytes, flops)`` for a ``(C, F, T)`` mixture of
+    ``x_itemsize``-byte elements and ``(N, T)`` weights (``(N, F, T)`` with
+    ``per_bin``) of ``w_itemsize``: ``X`` and the weights read once, the
+    ``(C^2, F, N)`` planes at ``X``'s real type written once; ``F T (3 C^2
+    + 2 C^2 N)`` FLOPs (the pair-product planes, then the contraction).
+    Whatever runs it, launch plan and frame splits aside."""
+    n_weights = N * F * T if per_bin else N * T
+    n_bytes = C * F * T * x_itemsize + n_weights * w_itemsize + C * C * F * N * (x_itemsize // 2)
+    return n_bytes, F * T * (3 * C * C + 2 * C * C * N)
+
+
 def weighted_covariance_planes(X, weights):
     """K1: compact weighted covariance ``(C^2, F, N)``.
 
@@ -162,7 +175,20 @@ def weighted_covariance_planes(X, weights):
         weights: ``(N, T)`` real weights (``1/R``), or per-bin ``(N, F, T)``
             ones, any N >= 1.  On CUDA they must be contiguous float32 on
             the same device.
+
+    Inside a cost count (:mod:`~..runtime.cost_model`) a call is charged
+    :func:`k1_cost` on either route.
     """
+
+    def cost():
+        C, F, T = X.shape
+        return k1_cost(C, weights.shape[0], F, T, weights.ndim == 3, X.element_size(), weights.element_size())
+
+    with charged("K1", cost):
+        return _weighted_covariance_planes(X, weights)
+
+
+def _weighted_covariance_planes(X, weights):
     if X.device.type == "cpu":
         return weighted_covariance_planes_plain(X, weights)
     if X.device.type != "cuda":

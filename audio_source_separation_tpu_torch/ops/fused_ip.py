@@ -34,6 +34,7 @@ from collections import namedtuple
 import torch
 
 from . import _build
+from ..runtime.cost_model import charged
 from .ip_components import (
     ip_update_components,
     log_abs_det_components,
@@ -178,6 +179,17 @@ def _check_operand(name, t, dtype, shape, device):
         )
 
 
+def k2_cost(F, T, x_itemsize):
+    """K2's compulsory ``(bytes, flops)`` at ``(2, F, T)`` with
+    ``x_itemsize``-byte complex elements: ``X`` read once, ``W`` read and
+    written, ``psum`` read and written and the two statistics (``logdet``
+    and the NLL) written at the real type; ``62 F T`` FLOPs (the weighted
+    covariances 26 and the new rows' power sums 36 a bin and frame).
+    Whatever runs it, launch plan and streaming aside."""
+    real = x_itemsize // 2
+    return 2 * F * T * x_itemsize + 2 * 4 * F * x_itemsize + 2 * 2 * T * real + 2 * real, 62 * F * T
+
+
 def fused_auxiva_ip_iter(X, W, psum, eps=EPS, threshold=THRESHOLD, contrast="laplace", n_bins=None):
     """K2: one fused AuxIVA-IP iteration (see the module docstring).
 
@@ -186,7 +198,15 @@ def fused_auxiva_ip_iter(X, W, psum, eps=EPS, threshold=THRESHOLD, contrast="lap
     on one device, at any ``F`` and ``T``; ``contrast`` picks the kernel's
     instance and ``n_bins`` (default ``F``) is the Gauss contrast's bin
     count.
+
+    Inside a cost count (:mod:`~..runtime.cost_model`) a call is charged
+    :func:`k2_cost` on either route.
     """
+    with charged("K2", lambda: k2_cost(X.shape[1], X.shape[2], X.element_size())):
+        return _fused_auxiva_ip_iter(X, W, psum, eps, threshold, contrast, n_bins)
+
+
+def _fused_auxiva_ip_iter(X, W, psum, eps, threshold, contrast, n_bins):
     code = _contrast_code(contrast)
     if X.device.type == "cpu":
         return fused_auxiva_ip_iter_plain(

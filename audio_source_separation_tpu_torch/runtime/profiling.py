@@ -10,8 +10,9 @@
   * :func:`measure_memory_bandwidth`: the device's sustained memory rate on a
     float32 triad, the denominator of a roofline share;
   * :func:`state_payload_bytes`: the byte size of a solver's post-init state;
-  * :func:`scan_cost_analysis`: raises, since the port has no compiler cost
-    model.
+  * :func:`scan_cost_analysis`: the bytes and FLOPs of one solver iteration,
+    counted as it runs (:func:`iteration_cost`, by the rules of
+    :mod:`.cost_model`).
 
 Times on the card come from CUDA events (:mod:`~..tools.timing`'s route);
 on the CPU from ``time.perf_counter`` after a synchronise.
@@ -25,7 +26,8 @@ import warnings
 import numpy as np
 import torch
 
-from .solver import full_f32_matmuls
+from .cost_model import CostCounter
+from .solver import IterativeSolver, full_f32_matmuls
 
 
 @contextlib.contextmanager
@@ -76,6 +78,16 @@ def _min_seconds(fn, device, windows):
     return best
 
 
+def _init_state(solver, X):
+    """The solver's post-init state on ``X``, as its call makes it:
+    ``_to_input``, ``prepare_state_kwargs`` (the host draws), ``init_state``.
+    Run inside :func:`~.solver.full_f32_matmuls`."""
+    Xt = solver._to_input(X)
+    solver.input = Xt
+    kwargs = solver.prepare_state_kwargs(Xt, {})
+    return solver.init_state(Xt, **{k: v for k, v in kwargs.items() if v is not None})
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -105,11 +117,8 @@ def benchmark_solver(solver, X, iteration=30, warmup=True, short=None, update_fn
         raise ValueError("benchmark_solver needs 0 < short < iteration, got {} and {}".format(short, iteration))
 
     with full_f32_matmuls():
-        Xt = solver._to_input(X)
-        solver.input = Xt
-        kwargs = solver.prepare_state_kwargs(Xt, {})
-        state = solver.init_state(Xt, **{k: v for k, v in kwargs.items() if v is not None})
-        device = Xt.device
+        state = _init_state(solver, X)
+        device = solver.input.device
 
         def run(n):
             s = state
@@ -134,13 +143,66 @@ def benchmark_solver(solver, X, iteration=30, warmup=True, short=None, update_fn
     return 1.0 / marginal, compile_seconds
 
 
+def iteration_cost(solver, X, update_fn=None):
+    """Count one iteration of ``solver`` on ``X`` as it runs: a
+    :class:`~.cost_model.CostCounter` with the ``bytes``, ``flops``, kernel
+    ``charges`` and per-op rows of one ``update_fn(state)`` (default
+    ``solver.update_state``), by the rules of :mod:`.cost_model`.
+
+    The post-init state is built as :func:`state_payload_bytes` builds it,
+    on the solver's device (the card unless the solver was made with
+    ``device="cpu"``), inside :func:`~.solver.full_f32_matmuls`, uncounted;
+    the host draws are those of the solver's own call.  Then one update runs
+    for real under the counter; the NLL is not counted.  The solver's
+    attributes are restored afterwards, so its next call gives what a fresh
+    solver's would, and a caller's input tensor is copied, never updated.
+    Under :meth:`~.solver.IterativeSolver.use_mesh` the count is that of
+    the whole unsharded iteration on one device, with no collective, as the
+    JAX package's count is on the CPU.
+
+    What it leaves out: the port carries the fields the JAX package derives
+    again at the top of every scan iteration (``scan_restore_state``), so
+    that recompute, which the JAX count holds, is not in this one.  What it
+    counts follows the device: where ``torch.linalg`` dispatches other aten
+    ops on CUDA than on the CPU (one cuSOLVER call against LAPACK's pieces),
+    a solver's CPU and card counts differ there, as they may in IPSDTA's
+    ``_eigh_wide``, which cuts its complex128 eigensolves into chunks of
+    8192 blocks; K1 and K2 charge the same on both.  A failure while
+    counting, a kernel's build or launch included, raises.
+    """
+    if not isinstance(solver, IterativeSolver):
+        raise TypeError("iteration_cost counts an IterativeSolver's iteration, got {}".format(type(solver).__name__))
+    if solver.device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; make the solver with device='cpu' to count on the host")
+    if update_fn is None:
+        update_fn = solver.update_state
+    attributes = dict(vars(solver))
+    counter = CostCounter()
+    try:
+        with full_f32_matmuls():
+            if isinstance(X, torch.Tensor):
+                X = X.clone()  # an update in place must not reach the caller's tensor
+            state = _init_state(solver, X)
+            _sync(solver.device)
+            with counter:
+                update_fn(state)
+            _sync(solver.device)
+    finally:
+        vars(solver).clear()
+        vars(solver).update(attributes)
+    return counter
+
+
 def scan_cost_analysis(solver, X, iteration=None, short=None, update_fn=None):
-    """The JAX package reads XLA's compiled cost model of one iteration;
-    PyTorch runs eagerly and the port has no such model, so this raises."""
-    raise NotImplementedError(
-        "scan_cost_analysis reads XLA's compiled cost model; the PyTorch port runs eagerly and has none "
-        "(time the loop with benchmark_solver, and count bytes with state_payload_bytes)"
-    )
+    """The bytes and FLOPs of one solver iteration, ``(bytes_per_iter,
+    flops_per_iter)`` as Python floats, counted as the iteration runs
+    (:func:`iteration_cost`; the rules are :mod:`.cost_model`'s).  The JAX
+    package reads XLA's cost model of its compiled scan body instead, so
+    the two counts differ by fusion, by that recompute and by the layouts.
+    ``iteration`` and ``short`` are accepted for the signature's symmetry
+    with :func:`benchmark_solver` and ignored."""
+    counter = iteration_cost(solver, X, update_fn=update_fn)
+    return float(counter.bytes), float(counter.flops)
 
 
 def state_payload_bytes(solver, X):
@@ -150,10 +212,7 @@ def state_payload_bytes(solver, X):
     K2's ``psum`` where the JAX package carries pair products), so the
     number differs from the JAX package's."""
     with full_f32_matmuls():
-        Xt = solver._to_input(X)
-        solver.input = Xt
-        kwargs = solver.prepare_state_kwargs(Xt, {})
-        state = solver.init_state(Xt, **{k: v for k, v in kwargs.items() if v is not None})
+        state = _init_state(solver, X)
     return sum(v.numel() * v.element_size() for v in state.values() if isinstance(v, torch.Tensor))
 
 

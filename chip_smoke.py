@@ -162,7 +162,21 @@ Phases (each asserts; any failure exits non-zero):
      each against the same call unsharded here at its family's tolerance
      (slice 10c's outputs within 1e-3 of their largest entry), and the
      stages of ``tools/dryrun_multichip.py``;
- 14. the script's seconds, one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
+ 14. the cost model (``runtime/profiling.py::iteration_cost``, the count
+     behind ``scan_cost_analysis``) at 2 x 2049 x 469 on phase 3's mixture
+     (C = 3 on phase 5's): one iteration of AuxLaplaceIVA and AuxGaussIVA
+     IP (K2), AuxLaplaceIVA IP at C = 3 (K1), GaussILRMA(10) IP,
+     FastMultichannelISNMF(10), GaussIDLMA with phase 9's network and Kondo
+     GaussIPSDTA (K1 per bin), and with no kernel MNMF Sawada(10) and
+     Ozerov(10), ISNMF(10) on |X[0]|^2, CovarianceISNMF(10) on the
+     covariances, LDPSDTF(2) on phase 11's Gram target, GradLaplaceFDICA and
+     ProxLaplaceIVA; each counted on the card (the kernels' launches during
+     the count equal its charges, one a count for the kernel families) and
+     on the CPU at the card's dtype (equal on the K2 path, the ratio printed
+     for the others), its rate by ``benchmark_solver`` (short windows above
+     10 ms an iteration), and one line of bytes and FLOPs an iteration, GB/s,
+     the share of phase 13's ``measure_memory_bandwidth`` reading and FLOP/s;
+ 15. the script's seconds, one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
      line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds K2's Gauss instance at both shapes, K2 (both contrasts)
@@ -232,6 +246,7 @@ from audio_source_separation_tpu_torch.examples import separate, walkthrough
 from audio_source_separation_tpu_torch.ops import _build
 from audio_source_separation_tpu_torch.ops.covariance import pair_products
 from audio_source_separation_tpu_torch.ops.cov_kernel import (
+    k1_cost,
     k1_launch_plan,
     weighted_covariance_planes,
     weighted_covariance_planes_plain,
@@ -239,6 +254,7 @@ from audio_source_separation_tpu_torch.ops.cov_kernel import (
 from audio_source_separation_tpu_torch.ops.fused_ip import (
     fused_auxiva_ip_iter,
     fused_auxiva_ip_iter_plain,
+    k2_cost,
     k2_launch_plan,
 )
 from audio_source_separation_tpu_torch.ops.ip_components import (
@@ -264,6 +280,7 @@ from audio_source_separation_tpu_torch.parallel.mesh import (
     reset_collective_counts,
 )
 from audio_source_separation_tpu_torch.runtime import benchmark_solver, measure_memory_bandwidth
+from audio_source_separation_tpu_torch.runtime.profiling import iteration_cost
 from audio_source_separation_tpu_torch.tools import dryrun_multichip
 from audio_source_separation_tpu_torch.tools.timing import l2_flusher, median_ms
 from audio_source_separation_tpu_torch.utils import (
@@ -410,9 +427,7 @@ def k1_case(gen, C, F, T, N=None, per_bin=False):
     ]:
         times[prefix + "ms"] = median_ms(fn)
         times[prefix + "cold_ms"] = median_ms(fn, before=flush)
-    n_bytes = X.numel() * 8 + w.numel() * 4 + out.numel() * 4
-    n_flops = F * T * (3 * C * C + 2 * C * C * w.shape[0])  # pair products + contraction
-    bound_ms, bound_by = bound(n_bytes, n_flops)
+    bound_ms, bound_by = bound(*k1_cost(C, w.shape[0], F, T, per_bin, X.element_size(), w.element_size()))
     return {
         "C": C, "N": w.shape[0], "F": F, "T": T, "per_bin": per_bin, "plan": plan._asdict(),
         "max_abs_err": float((out - ref).abs().max()), "rel_err": err, **times,
@@ -452,9 +467,7 @@ def k2_case(gen, F, T, contrast="laplace", n_bins=None):
     assert max(w_err, p_err) <= rtol and nll_err <= K2_RTOL, ("K2", contrast, w_err, p_err, nll_err)
     ms = median_ms(lambda: fused_auxiva_ip_iter(X, W, psum, **kw))
     plain_ms = median_ms(lambda: fused_auxiva_ip_iter_plain(X, W, psum, **kw))
-    n_bytes = X.numel() * 8 + 2 * W.numel() * 8 + 2 * psum.numel() * 4 + 8
-    n_flops = F * T * 62  # covariance (26) + separation power sums (36) per (f, t)
-    bound_ms, bound_by = bound(n_bytes, n_flops)
+    bound_ms, bound_by = bound(*k2_cost(F, T, X.element_size()))
     return {
         "F": F, "T": T, "n_bins": n_bins or F, "contrast": contrast, "plan": k2_launch_plan(F, T)._asdict(),
         "max_abs_err": float(max((out[0] - ref[0]).abs().max(), (out[1] - ref[1]).abs().max())),
@@ -2414,6 +2427,104 @@ def mesh_phase(X, c2, failed):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: the cost model
+# --------------------------------------------------------------------------- #
+# benchmark_solver's (iteration, short) by a family's time an iteration (§5
+# of PERF.md): under 0.1 ms, 0.1-10 ms, over 10 ms
+COST_WINDOWS = {"fast": (1000, 100), "mid": (30, 3), "slow": (4, 2)}
+
+
+def cost_rows(mlp_weights):
+    """Phase 14's families: ``(key, make(device), input key, kernel charged
+    once an iteration or None, benchmark window)``; ``mlp_weights`` are
+    phase 9's network's."""
+    W1, W2 = mlp_weights
+
+    def idlma(device):
+        solver = GaussIDLMA(device=device)
+        solver.dnn = torch_dnn(VarianceMLP(W1, W2).to(device))
+        return solver
+
+    return [
+        ("laplace_ip_c2", lambda d: AuxLaplaceIVA(device=d), "X", "K2", "fast"),
+        ("gauss_ip_c2", lambda d: AuxGaussIVA(device=d), "X", "K2", "fast"),
+        ("laplace_ip_c3", lambda d: AuxLaplaceIVA(device=d), "X3", "K1", "mid"),
+        ("gauss_ilrma_10", lambda d: GaussILRMA(n_basis=10, device=d), "X", "K1", "mid"),
+        ("fast_mnmf_10", lambda d: FastMultichannelISNMF(n_basis=10, device=d), "X", "K1", "mid"),
+        ("gauss_idlma", idlma, "X", "K1", "mid"),
+        ("ipsdta_kondo", lambda d: GaussIPSDTA(n_basis=2, device=d), "X", "K1", "slow"),
+        ("mnmf_sawada_10", lambda d: MultichannelISNMF(n_basis=10, device=d), "X", None, "slow"),
+        ("mnmf_ozerov_10", lambda d: MultichannelISNMF(n_basis=10, author="Ozerov", device=d), "X", None, "mid"),
+        ("isnmf_10", lambda d: ISNMF(n_basis=10, device=d), "power", None, "mid"),
+        ("cov_isnmf_10", lambda d: CovarianceISNMF(n_basis=10, device=d), "covariance", None, "slow"),
+        ("ldpsdtf_2", lambda d: LDPSDTF(n_basis=2, device=d), "gram", None, "mid"),
+        ("grad_fdica", lambda d: GradLaplaceFDICA(lr=0.1, device=d), "X", None, "mid"),
+        ("prox", lambda d: ProxLaplaceIVA(device=d), "X", None, "mid"),
+    ]
+
+
+def cost_model(X, X3, copy_gb_s, failed):
+    """Phase 14: ``iteration_cost`` of one iteration of each family on the
+    card (the kernels' launches during the count equal their charges) and
+    on the CPU at the card's dtype (equal on the K2 path; the ratio
+    elsewhere), the rate by ``benchmark_solver``, and from them GB/s, its
+    share of phase 13's copy rate, and FLOP/s."""
+    start = time.perf_counter()
+    inputs = {
+        "X": X, "X3": X3, "power": X[0].abs() ** 2,
+        "covariance": torch.einsum("cft,dft->ftcd", X, X.conj()),
+        "gram": torch.as_tensor(gram_target(2, X.shape[-1]), dtype=torch.float32, device=X.device),
+    }
+    out = {"copy_gb_s": copy_gb_s}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # Ozerov's "in progress"
+        for key, make, input_key, kernel, window in cost_rows(variance_mlp_weights(X.shape[1])):
+            row_start = time.perf_counter()
+            target = inputs[input_key]
+            np.random.seed(SEED)
+            counts_zero()
+            card = iteration_cost(make("cuda"), target)
+            launched = {"K1": weighted_covariance_planes.launches, "K2": fused_auxiva_ip_iter.launches}
+            np.random.seed(SEED)
+            cpu = iteration_cost(make("cpu"), target.cpu())
+            iteration, short = COST_WINDOWS[window]
+            np.random.seed(SEED)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always", RuntimeWarning)
+                ips, _ = benchmark_solver(make("cuda"), target, iteration=iteration, short=short)
+            res = out[key] = {
+                "shape": list(target.shape), "dtype": str(target.dtype).replace("torch.", ""),
+                "bytes_per_iter": card.bytes, "flops_per_iter": card.flops,
+                "charges": card.charges, "launches_during_count": launched,
+                "cpu_bytes_per_iter": cpu.bytes, "cpu_flops_per_iter": cpu.flops,
+                "cpu_over_card_bytes": cpu.bytes / card.bytes, "cpu_over_card_flops": cpu.flops / card.flops,
+                "iters_per_s": ips, "ms_per_iter": 1e3 / ips, "window": [iteration, short],
+                "jitter_warning": bool(caught),
+                "gb_s": card.bytes * ips / 1e9, "share_of_copy_rate": card.bytes * ips / 1e9 / copy_gb_s,
+                "flops_per_s": card.flops * ips,
+                "ops_per_iter": sum(row[0] for row in card.by_op.values()),
+                "costly_ops_per_iter": sum(row[0] for row in card.by_op.values() if row[1] or row[2]),
+                "top_ops_by_bytes": sorted(card.by_op, key=lambda op: -card.by_op[op][1])[:4],
+                "row_s": time.perf_counter() - row_start,
+            }
+            print("cost_model {}: {:.0f} B/it, {:.0f} FLOP/it, {:.4g} ms/it, {:.1f} GB/s, {:.4f} of the copy rate, "
+                  "{:.4g} GFLOP/s, {} ops/it ({} that count); CPU/card bytes {:.4f}, FLOPs {:.4f}".format(
+                      key, card.bytes, card.flops, res["ms_per_iter"], res["gb_s"], res["share_of_copy_rate"],
+                      res["flops_per_s"] / 1e9, res["ops_per_iter"], res["costly_ops_per_iter"],
+                      res["cpu_over_card_bytes"], res["cpu_over_card_flops"]), flush=True)
+            checks = {
+                "launches equal charges": launched == {k: card.charges.get(k, 0) for k in launched},
+                "one charge of its kernel": card.charges == ({kernel: 1} if kernel else {}),
+                "positive finite counts": all(math.isfinite(v) and v > 0 for v in (card.bytes, card.flops)),
+            }
+            if kernel == "K2":
+                checks["CPU count equals the card's"] = (cpu.bytes, cpu.flops) == (card.bytes, card.flops)
+            record_checks(failed, "cost_" + key, checks)
+    out["phase_s"] = time.perf_counter() - start
+    return out
+
+
 def profile_c2(X, path):
     """torch.profiler table of a 20-iteration C = 2 solver call, and the
     device time of each kernel per iteration."""
@@ -2563,6 +2674,12 @@ def main():
     mesh_w1, mesh_w2 = mesh["world_1_nccl"], mesh["world_2_gloo"]
     w1_10c = mesh_w1["slice_10c"]
     w1_10c_keys = [key for key in w1_10c if key != "phase_s"]
+    cost_failed = []
+    X3 = stft(mix3[0].astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE)
+    costs = cost_model(X2, X3, mesh["profiling"]["memory_bandwidth_gb_s"], cost_failed)
+    print(json.dumps({"cost_model": costs}), flush=True)
+    assert not cost_failed, cost_failed
+    cost_k1 = sum(row["launches_during_count"]["K1"] for row in costs.values() if isinstance(row, dict))
     if args.profile:
         prof = profile_c2(X2, ROOT / "chiprun_out" / "profile_c2.txt")
         print(json.dumps({"profile_c2": prof}), flush=True)
@@ -2631,6 +2748,7 @@ def main():
                 "mesh_w2_cov_isnmf_prox_ldpsdtf_rank0": sum(
                     mesh_w2[key]["k1_launches"] for key in ("cov_isnmf_bins", "prox_bins", "ldpsdtf_frames")
                 ),
+                "cost_model": cost_k1,
             },
             "max_abs_err": max(c["max_abs_err"] for c in k1_all),
             "max_rel_err": max(c["rel_err"] for c in k1_all),
@@ -2663,7 +2781,8 @@ def main():
              "mesh_w2_laplace_ip_bins_pad_rank0": mesh_w2["laplace_ip_bins_pad"]["k2_launches"],
              "mesh_w2_laplace_ip_frames_rank0": mesh_w2["laplace_ip_frames"]["k2_launches"],
              "mesh_w1_slice_10c": sum(w1_10c[key]["k2_launches"] for key in w1_10c_keys),
-             "held_against_auxiva_ip_step_components": phase12["auxiva_ip_step_components"]["k2_launches"]},
+             "held_against_auxiva_ip_step_components": phase12["auxiva_ip_step_components"]["k2_launches"],
+             "cost_model_laplace_ip_c2": costs["laplace_ip_c2"]["launches_during_count"]["K2"]},
             K2_RTOL,
         ),
         k2_entry(
@@ -2672,7 +2791,8 @@ def main():
             {"gauss_ip_c2": fam2["gauss_ip"]["k2_launches"], "factorisation": factor_launches["k2"],
              "fdica_prox_beamformers": slice5_launches["k2"], "mnmf": mnmf_k2, "block_psd": block_k2,
              "mesh_w1_gauss_ip_bins": mesh_w1["gauss_ip_bins"]["k2_launches"],
-             "mesh_w2_gauss_ip_bins_rank0": mesh_w2["gauss_ip_bins"]["k2_launches"]},
+             "mesh_w2_gauss_ip_bins_rank0": mesh_w2["gauss_ip_bins"]["k2_launches"],
+             "cost_model_gauss_ip_c2": costs["gauss_ip_c2"]["launches_during_count"]["K2"]},
             K2_GAUSS_RTOL,
         ),
     ]

@@ -145,6 +145,11 @@ def test_port_imports_with_jax_blocked():
         assert utils.convolutive_mixture(refs, rirs)[0].shape == (2, 300)
         from audio_source_separation_tpu_torch.parallel import mesh, make_mesh_2d, make_sharded_train_step
         from audio_source_separation_tpu_torch.runtime import profiling, benchmark_solver, measure_memory_bandwidth
+        from audio_source_separation_tpu_torch.runtime import cost_model, scan_cost_analysis
+        from audio_source_separation_tpu_torch.ops.cov_kernel import k1_cost
+        from audio_source_separation_tpu_torch.ops.fused_ip import k2_cost
+        assert scan_cost_analysis(AuxLaplaceIVA(device="cpu"), X) == tuple(map(float, k2_cost(5, 8, 16)))
+        assert scan_cost_analysis(port.GaussILRMA(n_basis=2, device="cpu"), X)[0] > k1_cost(2, 2, 5, 8, True, 16, 8)[0]
         from audio_source_separation_tpu_torch.tools import dryrun_multichip
         sys.path.insert(0, "tests")
         import _torch_mesh_worker

@@ -21,7 +21,6 @@ from audio_source_separation_tpu_torch.runtime import (
     IterationTimer,
     benchmark_solver,
     measure_memory_bandwidth,
-    scan_cost_analysis,
     state_payload_bytes,
     trace,
 )
@@ -133,11 +132,6 @@ def test_state_payload_bytes_is_the_init_state(rng, make):
     state = solver.init_state(Xt, **solver.prepare_state_kwargs(Xt, {}))
     assert ours == sum(v.numel() * v.element_size() for v in state.values())
     assert ours >= Xt.numel() * Xt.element_size()
-
-
-def test_scan_cost_analysis_raises(rng):
-    with pytest.raises(NotImplementedError, match="cost model"):
-        scan_cost_analysis(port.AuxLaplaceIVA(device="cpu"), make_mixture(rng))
 
 
 @pytest.mark.parametrize("pairs", [False, True], ids=["direct", "pairs"])
