@@ -54,12 +54,8 @@ complex, demixing filters ``(n_bins, n_sources, n_channels)``, output
 
 __version__ = "0.1.0"
 
-from .algorithm import (  # noqa: F401
-    apply_projection_back,
-    minimum_distortion_principle,
-    projection_back,
-    solve_riccati,
-)
+from .algorithm import minimum_distortion_principle, projection_back, solve_riccati  # noqa: F401
+from .algorithm.projection_back import apply_projection_back  # noqa: F401
 from .models import (  # noqa: F401
     EUCNMF,
     EUCNTF,

@@ -1,6 +1,13 @@
-from .linalg import solve_riccati  # noqa: F401
-from .minimum_distortion_principle import (  # noqa: F401
+from .linalg import solve_riccati
+from .minimum_distortion_principle import (
     generalized_minimum_distortion_principle,
     minimum_distortion_principle,
 )
-from .projection_back import apply_projection_back, projection_back  # noqa: F401
+from .projection_back import projection_back
+
+__all__ = [
+    "projection_back",
+    "minimum_distortion_principle",
+    "generalized_minimum_distortion_principle",
+    "solve_riccati",
+]

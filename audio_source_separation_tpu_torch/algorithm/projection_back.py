@@ -68,7 +68,8 @@ def projection_back(Y, reference, frames_sum=None):
     if frames_sum is not None:
         YYH, XYH = frames_sum(torch.cat([YYH, XYH], dim=1)).split([n_sources, n_channels], dim=1)
     # A = XYH inv(YYH)  <=>  YYH^H A^H = XYH^H
-    A = torch.linalg.solve(YYH.transpose(-2, -1).conj(), XYH.transpose(-2, -1).conj())
+    # the _ex form skips the error check, which would wait on the device
+    A = torch.linalg.solve_ex(YYH.transpose(-2, -1).conj(), XYH.transpose(-2, -1).conj()).result
     A = A.transpose(-2, -1).conj_physical()  # (F, C, N)
     if n_dims == 2:
         return A[:, 0, :].transpose(0, 1)

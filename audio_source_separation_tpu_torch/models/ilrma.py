@@ -209,6 +209,12 @@ class ILRMABase(IVABase):
             fit = self.callbacks is not None
             self.demix_filter = self.compute_demix_filter(state["estimation"], state["input"]) if fit else None
 
+    def capturable(self):
+        """GaussILRMA (IP, ISS, IP2), TILRMA and ConsistentGaussILRMA,
+        but under the ``svd`` guard, whose ``torch.linalg.svdvals`` copies
+        to the host inside the step (ISS takes no guard)."""
+        return self._is_iss or self.guard != "svd"
+
     def __repr__(self):
         return "ILRMA(n_basis={}, partitioning={}, normalize={})".format(
             self.n_basis, self.partitioning, self.normalize

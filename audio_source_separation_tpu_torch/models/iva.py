@@ -383,6 +383,12 @@ class AuxIVABase(IVABase):
             state["step_count"] = torch.as_tensor(k, dtype=torch.int64, device=X.device).reshape(())
         return state
 
+    def capturable(self):
+        """Every spatial update but under the ``svd`` guard, whose
+        ``torch.linalg.svdvals`` copies to the host inside the step (ISS
+        takes no guard).  The overdetermined solver keeps the eager loop."""
+        return self.algorithm_spatial == "ISS" or self.guard != "svd"
+
     # the updates
     def update_state(self, state):
         if self.algorithm_spatial in _IP_UPDATES:
@@ -535,6 +541,9 @@ class AuxGaussIVA(AuxIVABase):
     def contrast_nll(self, psum, n_bins):
         return n_bins * torch.log(floor_below(psum / n_bins, self.eps)).sum()
 
+    def capturable(self):
+        return self.algorithm_spatial not in _PAIRWISE_UPDATES and super().capturable()
+
     def _update_pairwise(self, state):
         raise NotImplementedError("In progress...")
 
@@ -558,6 +567,9 @@ class OverAuxIVABase(AuxIVABase):
     def __init__(self, algorithm_spatial, n_sources=None, **kwargs):
         super().__init__(algorithm_spatial=algorithm_spatial, **kwargs)
         self.n_sources = n_sources
+
+    def capturable(self):
+        return False
 
     def finalize(self, state):
         return self._estimates(state)

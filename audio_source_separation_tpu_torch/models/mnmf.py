@@ -677,6 +677,11 @@ class FastMultichannelISNMF(MultichannelNMFBase):
         self.threshold = threshold
         self.guard = guard
 
+    def capturable(self):
+        """Every guard but ``svd``, whose ``torch.linalg.svdvals`` copies
+        to the host inside the step."""
+        return self.guard != "svd"
+
     def prepare_state_kwargs(self, input, state_kwargs):
         n_channels, n_bins, n_frames = input.shape
         n_sources = self.n_sources or n_channels

@@ -96,6 +96,9 @@ class NMFBase(IterativeSolver):
         axes = self.field_axes()
         return axes["basis"], axes["activation"]
 
+    def capturable(self):
+        return True
+
     def prepare_state_kwargs(self, target, state_kwargs):
         n_bins, n_frames = target.shape[-2], target.shape[-1]
         if "basis" not in state_kwargs:
@@ -342,6 +345,9 @@ class ComplexEUCNMF(IterativeSolver):
     def output_axes(self):
         axes = self.field_axes()
         return axes["basis"], axes["activation"], axes["phase"]
+
+    def capturable(self):
+        return True
 
     def prepare_state_kwargs(self, target, state_kwargs):
         n_bins, n_frames = target.shape

@@ -49,6 +49,9 @@ class NTFBase(IterativeSolver):
     def reconstruct(self, state):
         return _reconstruct(state["partitioning"], state["basis"], state["activation"])
 
+    def capturable(self):
+        return True
+
     def finalize(self, state):
         return state["partitioning"], state["basis"], state["activation"]
 

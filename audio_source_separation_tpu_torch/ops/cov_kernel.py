@@ -138,7 +138,8 @@ def _entry():
 
 
 # (device index, stream) -> (split rows, tickets); the kernel leaves the
-# tickets at zero, so they are zeroed only when allocated
+# tickets at zero, so they are zeroed only when allocated.  A captured graph
+# takes the scratch of its capture stream (:func:`take_scratch`)
 _scratch = {}
 
 
@@ -146,12 +147,24 @@ def _scratch_for(device, stream, plan, n_sums):
     key = (device.index, stream)
     part, tickets = _scratch.get(key, (None, None))
     n_part = plan.groups * plan.splits * n_sums
-    if part is None or part.numel() < n_part:
+    grow_part = part is None or part.numel() < n_part
+    grow_tickets = tickets is None or tickets.numel() < plan.groups
+    if (grow_part or grow_tickets) and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("K1's scratch for this stream must exist before capture: launch it once eagerly there first")
+    if grow_part:
         part = torch.empty((n_part,), dtype=torch.float32, device=device)
-    if tickets is None or tickets.numel() < plan.groups:
+    if grow_tickets:
         tickets = torch.zeros((plan.groups,), dtype=torch.int32, device=device)
     _scratch[key] = (part, tickets)
     return part, tickets
+
+
+def take_scratch(device, stream):
+    """Remove and return the scratch of ``stream`` on ``device`` (``None``
+    where there is none): a captured graph keeps the scratch its launches
+    were captured with, and a later capture on a stream of the pool gets
+    its own."""
+    return _scratch.pop((device.index, stream), None)
 
 
 def k1_cost(C, N, F, T, per_bin, x_itemsize, w_itemsize):

@@ -154,7 +154,8 @@ def _entry():
 
 
 # (device index, stream) -> (partial rows, tickets); the kernel leaves the
-# tickets' counters at zero, so they are zeroed only when allocated
+# tickets' counters at zero, so they are zeroed only when allocated.  A
+# captured graph takes the scratch of its capture stream (:func:`take_scratch`)
 _scratch = {}
 
 
@@ -162,12 +163,23 @@ def _scratch_for(device, stream, plan):
     key = (device.index, stream)
     part, tickets = _scratch.get(key, (None, None))
     n_part = plan.groups * (plan.row_stride + 1) + 1  # rows, root sums, logdet
-    if part is None or part.numel() < n_part:
+    grow = part is None or part.numel() < n_part
+    if (grow or tickets is None) and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("K2's scratch for this stream must exist before capture: launch it once eagerly there first")
+    if grow:
         part = torch.empty((n_part,), dtype=torch.float32, device=device)
     if tickets is None:
         tickets = torch.zeros((3,), dtype=torch.int32, device=device)
     _scratch[key] = (part, tickets)
     return part, tickets
+
+
+def take_scratch(device, stream):
+    """Remove and return the scratch of ``stream`` on ``device`` (``None``
+    where there is none): a captured graph keeps the scratch its launches
+    were captured with, and a later capture on a stream of the pool gets
+    its own."""
+    return _scratch.pop((device.index, stream), None)
 
 
 def _check_operand(name, t, dtype, shape, device):

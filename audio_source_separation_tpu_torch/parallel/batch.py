@@ -2,8 +2,11 @@
 
 ``batch_separate`` runs each example's functional-core loop (``init_state``,
 ``update_state``, ``nll``, ``finalize``) in turn on the solver's device, so
-each example launches exactly what its own ``solver(X)`` call launches;
-outputs and losses are stacked on the device and cross to the host once.
+each example launches exactly what its own ``solver(X)`` call launches:
+on a card, for a capturable solver, its first iteration eagerly and the
+rest as replays of the step's graph, one capture for every member of the
+shape (:mod:`~..runtime.graph`); outputs and losses are stacked on the
+device and cross to the host once.
 
   * every mixture in a batch shares its shape and the hyperparameters;
   * the host-RNG default inits are drawn for every example first, in the
@@ -20,6 +23,7 @@ batch.
 import numpy as np
 import torch
 
+from ..runtime.graph import replay_loop
 from ..runtime.solver import full_f32_matmuls
 from .mesh import all_gather_cat, shard_bounds
 
@@ -106,14 +110,18 @@ def _batch_separate(solver, inputs, iteration, state_kwargs, host, mesh):
             solver.use_mesh(tp, mode="bins")
             with solver._on_shard(Xs[b], kw) as (X, kw):
                 state = solver.init_state(X, **kw)
-                example_losses = []
-                for _ in range(iteration):
-                    state = solver.update_state(state)
-                    if record:
-                        example_losses.append(solver.nll(state))
+                if solver._uses_graph(X.device):
+                    state, example_losses = replay_loop(solver, state, iteration, record)
+                else:
+                    example_losses = []
+                    for _ in range(iteration):
+                        state = solver.update_state(state)
+                        if record:
+                            example_losses.append(solver.nll(state))
                 outputs.append(solver._whole_output(solver.finalize(state)))
             if record:
-                losses.append(torch.stack(example_losses) if example_losses else Xs.real.new_zeros((0,)))
+                flat = [v.reshape(-1) for v in example_losses]
+                losses.append(torch.cat(flat) if flat else Xs.real.new_zeros((0,)))
     finally:
         solver._mesh, solver._shard_mode, solver._shard_axis_name, solver._shard_pad = meshed
     outputs = _stack(outputs)

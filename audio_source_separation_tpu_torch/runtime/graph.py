@@ -1,0 +1,380 @@
+"""The captured solver loop: one step as a CUDA graph, replayed.
+
+The JAX package runs a solver's iteration loop as one ``jax.lax.scan``
+jitted once per (shape, iteration-count) signature, with no host round trip
+inside the loop (``audio_source_separation_tpu/runtime/solver.py:12-14``;
+the scan is built by ``_scan_fn`` at ``:317`` and cached by ``_get_jit``).
+On a CUDA card the counterpart is a CUDA graph of one step, captured once
+per signature and replayed once an iteration (:func:`graph_loop`):
+
+  * init and the first iteration run eagerly.  For a new signature the first
+    iteration runs on the graph's own stream, so the kernels are built and
+    loaded and their scratch is allocated before capture: K1's and K2's
+    wrappers keep scratch and tickets per stream and refuse to allocate them
+    during a capture.  After capture the graph takes that scratch out of
+    the wrappers' tables, so each graph owns its own, though capture streams
+    come from PyTorch's pool and repeat.
+  * one step is captured on static state buffers (:class:`StepGraph`):
+    ``update_state`` and, when the loss is recorded, ``nll``.  The step's
+    outputs are copied back onto its inputs inside the graph; a field the
+    step passes through unchanged is not copied.  The loss goes into a
+    device buffer at a device-side counter, so no index is baked into the
+    graph, and crosses to the host in one transfer.
+  * the graph replays ``iteration - 1`` times on the caller's stream, then
+    ``finalize`` runs eagerly on copies of the static buffers: neither the
+    output nor a published attribute aliases them, so a later call, which
+    overwrites them, cannot reach what a caller holds.
+  * capture runs each kernel wrapper once and bumps its ``launches``
+    count; the change is taken back after capture and added at every
+    replay, so each count still says how many launches the card ran.
+
+The graphs are cached on the solver, keyed by what the captured step reads:
+the post-init state's fields, shapes and dtypes, the device, and every
+plain Python attribute of the solver (a scalar, a string or ``None``, such
+as ``recordable_loss``, a hyperparameter, or what ``prepare_state_kwargs``
+sets for a member of a batch).  A later call of the same signature copies
+its first iteration's state into the static buffers and replays; it does
+not capture again.  With callbacks the graph replays once an iteration and
+the state is published, as copies, before the callbacks run, as the JAX
+package steps its jitted body from Python when it has callbacks.
+
+What it does not do: unroll several steps into one graph, or run a mesh
+(``use_mesh`` keeps the eager loop).  A solver says by ``capturable()``
+whether its configuration's step can be captured (no host read, no op that
+synchronises); one that says so and fails to capture raises
+:class:`GraphCaptureError`, naming the line, and never falls back to the
+eager loop.  On the CPU nothing is captured: a solver whose
+``_emulate_graph`` is set runs the same static-buffer path, each replay an
+eager call of the step, which is how the CPU tests hold it.
+"""
+
+import contextlib
+import gc
+import os
+import time
+import traceback
+
+import torch
+
+# losses kept on the device between transfers
+LOSS_SLOTS = 1024
+
+
+class GraphCaptureError(RuntimeError):
+    """A step declared capturable could not be captured or replayed."""
+
+
+def _kernels():
+    """The kernels' wrapper modules: K2's, K1's."""
+    from ..ops import cov_kernel, fused_ip
+
+    return fused_ip, cov_kernel
+
+
+def _counted():
+    """The kernel wrappers whose ``launches`` a replay adds to."""
+    fused_ip, cov_kernel = _kernels()
+    return fused_ip.fused_auxiva_ip_iter, cov_kernel.weighted_covariance_planes
+
+
+def _launch_counts():
+    return tuple(fn.launches for fn in _counted())
+
+
+def _set_launch_counts(counts):
+    for fn, n in zip(_counted(), counts):
+        fn.launches = n
+
+
+def _add_launch_counts(delta):
+    for fn, n in zip(_counted(), delta):
+        fn.launches += n
+
+
+def _signature(state):
+    """``((field, shape, dtype), ...)`` of a state of tensors; a field that
+    is not a tensor raises (the graph would bake its value in)."""
+    signature = []
+    for k in sorted(state):
+        v = state[k]
+        if not isinstance(v, torch.Tensor):
+            raise GraphCaptureError("state field {!r} is a {}, not a tensor".format(k, type(v).__name__))
+        signature.append((k, tuple(v.shape), v.dtype))
+    return tuple(signature)
+
+
+def _plain(value):
+    if value is None or isinstance(value, (bool, int, float, str)):
+        return True
+    return isinstance(value, tuple) and all(_plain(v) for v in value)
+
+
+def _scalars(solver):
+    """The solver's plain attributes, ``((name, value), ...)``: whatever of
+    them the step reads is in the cache key."""
+    return tuple(sorted((k, v) for k, v in vars(solver).items() if _plain(v)))
+
+
+def _same_view(a, b):
+    return a is b or (
+        a.data_ptr() == b.data_ptr() and a.shape == b.shape and a.stride() == b.stride() and a.dtype == b.dtype
+    )
+
+
+def _storage(t):
+    return t.untyped_storage().data_ptr()
+
+
+def _failing_line(err):
+    """``file:line (code)`` of the innermost frame of ``err`` outside torch."""
+    torch_dir = os.path.dirname(torch.__file__)
+    frames = [f for f in traceback.extract_tb(err.__traceback__) if not f.filename.startswith(torch_dir)]
+    if not frames:
+        return "an unknown line"
+    f = frames[-1]
+    return "{}:{} ({})".format(f.filename, f.lineno, (f.line or "").strip())
+
+
+@contextlib.contextmanager
+def on_stream(stream):
+    """Run the block on ``stream`` (``None``: where it is), ordered after
+    the caller's stream's work and before its later work."""
+    if stream is None:
+        yield
+        return
+    caller = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(caller)
+    with torch.cuda.stream(stream):
+        yield
+    caller.wait_stream(stream)
+
+
+def _device_of(state):
+    return next(iter(state.values())).device
+
+
+def new_stream(device):
+    """A graph's own capture stream on ``device``; ``None`` off CUDA."""
+    return torch.cuda.Stream(device) if device.type == "cuda" else None
+
+
+class StepGraph:
+    """One step, ``update`` and optionally ``loss``, captured on static
+    copies of ``state`` (the state after an eager step on ``stream``, the
+    current stream when this is made); ``loss_like`` is a loss of that
+    step, whose type the loss buffer takes.  ``stream=None`` emulates the
+    graph: each replay calls the step eagerly on the static buffers.
+    """
+
+    def __init__(self, name, state, update, loss=None, loss_like=None, stream=None):
+        self.name = name
+        self.signature = _signature(state)
+        self.device = _device_of(state)
+        self._update, self._loss = update, loss
+        self.static = {k: v.clone() for k, v in state.items()}
+        self.loss_buf = self.slot = None
+        if loss is not None:
+            self.loss_buf = loss_like.new_zeros((LOSS_SLOTS,))
+            self.slot = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        before = _launch_counts()
+        start = time.perf_counter()
+        try:
+            if stream is None:
+                # run once on copies, for the signature check, the
+                # pass-through fields and the launches of a step
+                static = {k: v.clone() for k, v in self.static.items()}
+                slots = None if loss is None else (self.loss_buf.clone(), self.slot.clone())
+                self.identity = self._step(static, slots)
+                self.graph = None
+            else:
+                self.graph, self.identity = self._capture(stream)
+                # replays need no Python: dropping the step's bound methods
+                # leaves no cycle through the solver's cache, so a solver and
+                # its graphs are freed when the solver is, never by the
+                # cycle collector in the middle of another capture
+                self._update = self._loss = None
+            self.launches = tuple(after - b for after, b in zip(_launch_counts(), before))
+        finally:
+            _set_launch_counts(before)
+        # seconds to capture (emulated: to run the step once)
+        self.capture_s = time.perf_counter() - start
+
+    def _capture(self, stream):
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize(self.device)
+        slots = None if self._loss is None else (self.loss_buf, self.slot)
+        # no collection during the capture: a graph freed there would
+        # release its memory, which a capture forbids, and void this one
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            return self._captured(graph, stream, slots)
+        finally:
+            if collecting:
+                gc.enable()
+
+    def _captured(self, graph, stream, slots):
+        with torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode="global")
+            try:
+                identity = self._step(self.static, slots)
+            except Exception as err:
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                if isinstance(err, GraphCaptureError):
+                    raise
+                raise GraphCaptureError(
+                    "{} declares its step capturable, but capture failed at {}: {}".format(
+                        self.name, _failing_line(err), str(err).splitlines()[0] if str(err) else type(err).__name__
+                    )
+                ) from err
+            try:
+                graph.capture_end()
+            except RuntimeError as err:
+                raise GraphCaptureError("{}: capture of its step failed: {}".format(self.name, err)) from err
+        # the scratch the captured launches point at is this graph's alone
+        self.scratch = [module.take_scratch(self.device, stream.cuda_stream) for module in _kernels()]
+        return graph, identity
+
+    def _step(self, static, slots):
+        """The captured step: update, loss at the slot, outputs copied back
+        onto the inputs.  Returns the fields passed through unchanged."""
+        out = self._update(static)
+        if _signature(out) != self.signature:
+            raise GraphCaptureError(
+                "{}: a captured step must keep its state's fields, shapes and dtypes; it maps {} to {}".format(
+                    self.name, self.signature, _signature(out)
+                )
+            )
+        if slots is not None:
+            loss_buf, slot = slots
+            loss_buf.index_copy_(0, slot, self._loss(out).reshape(1))
+            slot.add_(1)
+        identity = frozenset(k for k, v in out.items() if _same_view(v, static[k]))
+        inputs = {_storage(v) for v in static.values()}
+        # an output that shares memory with an input is copied first, so no
+        # copy-back reads what another has already written
+        pending = {k: (v.clone() if _storage(v) in inputs else v) for k, v in out.items() if k not in identity}
+        for k, v in pending.items():
+            static[k].copy_(v)
+        return identity
+
+    def load(self, state):
+        """Copy ``state`` (the state after a call's eager step) into the
+        static buffers."""
+        if _signature(state) != self.signature:
+            raise GraphCaptureError(
+                "{}: the state {} does not match the captured {}".format(self.name, _signature(state), self.signature)
+            )
+        for k, v in state.items():
+            self.static[k].copy_(v)
+
+    def replay(self, n=1):
+        """``n`` steps; the launch counts gain a step's launches each."""
+        for _ in range(n):
+            if self.graph is not None:
+                self.graph.replay()
+            else:
+                before = _launch_counts()
+                try:
+                    slots = None if self._loss is None else (self.loss_buf, self.slot)
+                    self._step(self.static, slots)
+                finally:
+                    _set_launch_counts(before)
+            _add_launch_counts(self.launches)
+
+    def run(self, n):
+        """``n`` steps from the loaded state; returns their losses as 1-D
+        device tensors at the loss's type (none without a loss), copied out
+        of the buffer every ``LOSS_SLOTS`` steps."""
+        chunks = []
+        while n > 0:
+            m = min(n, LOSS_SLOTS)
+            if self.slot is not None:
+                self.slot.zero_()
+            self.replay(m)
+            if self.loss_buf is not None:
+                chunks.append(self.loss_buf[:m].clone())
+            n -= m
+        return chunks
+
+    def snapshot(self, state):
+        """The static state as fresh tensors; a pass-through field is
+        ``state``'s own (the loaded state's, never a static buffer)."""
+        return {k: (state[k] if k in self.identity else v.clone()) for k, v in self.static.items()}
+
+
+def _graph_cache(solver):
+    """The solver's graphs by signature (made on first use)."""
+    return vars(solver).setdefault("_graph_cache", {})
+
+
+def _first_step_graph(solver, state, record):
+    """One eager step of ``solver`` from its post-init ``state``, then the
+    step's graph: a cached one of the same signature, loaded with the new
+    state, or one captured now, the eager step run on the graph's own
+    stream.  Returns ``(state after the step, its loss or None, graph)``."""
+    update, loss = solver.update_state, (solver.nll if record else None)
+    key = (_signature(state), str(_device_of(state)), _scalars(solver))
+    cache = _graph_cache(solver)
+    graph = cache.get(key)
+    if graph is not None:
+        state = update(state)
+        value = None if loss is None else loss(state)
+        graph.load(state)
+        return state, value, graph
+    stream = new_stream(_device_of(state))
+    with on_stream(stream):
+        state = update(state)
+        value = None if loss is None else loss(state)
+        graph = StepGraph(type(solver).__name__, state, update, loss, loss_like=value, stream=stream)
+    cache[key] = graph
+    return state, value, graph
+
+
+def replay_loop(solver, state, iteration, record):
+    """``iteration`` steps from the post-init ``state``: the first eager,
+    the rest replayed.  Returns ``(final state, losses)``, the state as
+    fresh tensors and the losses as a list of device tensors (empty unless
+    ``record``)."""
+    if iteration < 1:
+        return state, []
+    state, value, graph = _first_step_graph(solver, state, record)
+    losses = [value] if record else []
+    losses.extend(graph.run(iteration - 1))
+    return (graph.snapshot(state) if iteration > 1 else state), losses
+
+
+def graph_loop(solver, X, iteration, state_kwargs):
+    """:meth:`~.solver.IterativeSolver._eager_loop`'s counterpart: the same
+    init, losses, callbacks, publishing and output, the iterations after
+    the first replayed from the step's graph."""
+    state = solver.init_state(X, **state_kwargs)
+    solver._publish(state)
+    record = bool(solver.recordable_loss)
+    losses = []
+    if record and solver.record_initial_loss:
+        losses.append(solver.nll(state))
+    if solver.callbacks is None:
+        final, steps = replay_loop(solver, state, iteration, record)
+        solver._flush_losses(losses + steps)
+        solver._publish(final)
+    else:
+        solver._flush_losses(losses)
+        if solver.callback_on_init:
+            solver._on_callback()
+        final = state
+        if iteration > 0:
+            final, value, graph = _first_step_graph(solver, state, record)
+            for i in range(iteration):
+                if i:
+                    chunk = graph.run(1)
+                    value = chunk[0][0] if record else None
+                    final = graph.snapshot(final)
+                if record:
+                    solver.loss.append(float(value))
+                solver._publish(final)
+                solver._on_callback()
+    output = solver._whole_output(solver.finalize(final))
+    solver.estimation = output
+    return output

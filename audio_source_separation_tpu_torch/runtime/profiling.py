@@ -6,7 +6,8 @@
   * :class:`IterationTimer`: a callback that stamps the host clock at each
     call;
   * :func:`benchmark_solver`: a solver's sustained iterations per second,
-    differenced over two loop lengths;
+    differenced over two loop lengths, of the loop its call runs (the
+    captured step replayed, on a card, for a capturable solver);
   * :func:`measure_memory_bandwidth`: the device's sustained memory rate on a
     float32 triad, the denominator of a roofline share;
   * :func:`state_payload_bytes`: the byte size of a solver's post-init state;
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from .cost_model import CostCounter
+from .graph import StepGraph, new_stream, on_stream
 from .solver import IterativeSolver, full_f32_matmuls
 
 
@@ -102,12 +104,16 @@ def benchmark_solver(solver, X, iteration=30, warmup=True, short=None, update_fn
     each length timed over several windows and the least kept.  The rate is
     the differenced ``(iteration - short) / (t_long - t_short)``, so the
     fixed cost of a window cancels.  The loop runs inside
-    :func:`~.solver.full_f32_matmuls`, as the solver's own does.
+    :func:`~.solver.full_f32_matmuls`, as the solver's own does.  Where the
+    solver's call runs the captured loop (:mod:`.graph`), ``update_fn`` is
+    captured the same way, after one eager step, and each iteration is a
+    replay, as the JAX package times its jitted scan; else each is an eager
+    call.
 
     Returns ``(iterations_per_sec, compile_seconds)``.  "Compile seconds"
-    is the first call's time: the kernels' build or load and cuBLAS's
-    initialisation (there is no XLA compile here).  ``warmup`` is the JAX
-    signature's; the first call always runs.
+    is the first call's time: the kernels' build or load, cuBLAS's
+    initialisation and the step's capture (there is no XLA compile here).
+    ``warmup`` is the JAX signature's; the first call always runs.
     """
     if update_fn is None:
         update_fn = solver.update_state
@@ -119,15 +125,21 @@ def benchmark_solver(solver, X, iteration=30, warmup=True, short=None, update_fn
     with full_f32_matmuls():
         state = _init_state(solver, X)
         device = solver.input.device
-
-        def run(n):
-            s = state
-            for _ in range(n):
-                s = update_fn(s)
-            return s
-
         start = time.perf_counter()
-        run(iteration)
+        if solver._uses_graph(device):
+            stream = new_stream(device)
+            with on_stream(stream):
+                graph = StepGraph(type(solver).__name__, update_fn(state), update_fn, stream=stream)
+            run = graph.replay
+        else:
+
+            def run(n):
+                s = state
+                for _ in range(n):
+                    s = update_fn(s)
+                return s
+
+            run(iteration)
         _sync(device)
         compile_seconds = time.perf_counter() - start
         run(short)

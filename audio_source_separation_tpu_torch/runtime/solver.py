@@ -2,8 +2,12 @@
 
 A solver defines functions over an explicit **state dict**:
 ``init_state``, ``update_state`` (returns the next state dict), ``nll``
-and ``finalize``.  :class:`IterativeSolver` runs them in a Python loop on the
-solver's device and keeps the public API of the reference:
+and ``finalize``.  :class:`IterativeSolver` runs them on the solver's
+device: on a CUDA card, for a solver whose configuration is
+:meth:`~IterativeSolver.capturable`, as one step captured as a CUDA graph
+and replayed (:mod:`.graph`, the counterpart of the JAX package's jitted
+scan); otherwise in a Python loop (:meth:`~IterativeSolver._eager_loop`).
+It keeps the public API of the reference:
 ``solver = Cls(**hyper); output = solver(X, iteration=N, **state_kwargs)``,
 where ``state_kwargs`` warm-start the state (checkpoint / resume), any other
 kwargs become plain attributes for callbacks, ``solver.loss`` records the
@@ -88,6 +92,9 @@ class IterativeSolver:
     real_input = False
     # the PDS and IDLMA solvers call callbacks only after iterations
     callback_on_init = True
+    # run the captured loop's static-buffer path on the CPU too, each replay
+    # an eager step (the CPU tests' hook; nothing is captured there)
+    _emulate_graph = False
 
     # the mesh of use_mesh, and what this call runs sharded on
     _mesh = None
@@ -391,6 +398,18 @@ class IterativeSolver:
         """Host-side hook: fill in defaults that need host RNG (NumPy)."""
         return state_kwargs
 
+    def capturable(self):
+        """Whether this configuration's step (``update_state``, then
+        ``nll``) can be captured as a CUDA graph: no host read and no op
+        that synchronises.  The captured loop (:mod:`.graph`) runs the
+        solvers that say so on a CUDA card; the rest keep the eager loop."""
+        return False
+
+    def _uses_graph(self, device):
+        """Whether a call on ``device`` runs the captured loop: a capturable
+        step, no mesh, a CUDA device (or the CPU hook)."""
+        return self.capturable() and self._mesh is None and (device.type == "cuda" or self._emulate_graph)
+
     def input_dtype(self, X):
         """The type the solver runs at for the input tensor ``X``: complex64
         (``real_input``: float32) on CUDA, the input's own precision on the
@@ -441,7 +460,13 @@ class IterativeSolver:
         with full_f32_matmuls():
             return self._run(input, iteration, kwargs)
 
-    def _run(self, input, iteration, kwargs):
+    def _eager_call(self, input, iteration=100, **kwargs):
+        """``__call__`` through the eager loop on any device: the reference
+        that the captured loop is held to."""
+        with full_f32_matmuls():
+            return self._run(input, iteration, kwargs, eager=True)
+
+    def _run(self, input, iteration, kwargs, eager=False):
         X = self._to_input(input)
         self.input = X
 
@@ -453,9 +478,16 @@ class IterativeSolver:
         # the host inits above were drawn at the true bin count; a mesh pads
         # and cuts them with the input
         with self._on_shard(X, state_kwargs) as (X, state_kwargs):
-            return self._loop(X, iteration, state_kwargs)
+            if not eager and self._uses_graph(X.device):
+                from .graph import graph_loop
 
-    def _loop(self, X, iteration, state_kwargs):
+                return graph_loop(self, X, iteration, state_kwargs)
+            return self._eager_loop(X, iteration, state_kwargs)
+
+    def _eager_loop(self, X, iteration, state_kwargs):
+        """The loop with every op dispatched from the host each iteration:
+        the CPU's, a mesh's and that of the solvers that are not
+        :meth:`capturable`."""
         state = self.init_state(X, **state_kwargs)
         self._publish(state)
 
@@ -486,9 +518,10 @@ class IterativeSolver:
         return output
 
     def _flush_losses(self, losses):
-        """Copy the device-side losses to ``self.loss`` in one transfer."""
+        """Copy the device-side losses (0-d or 1-d tensors) to ``self.loss``
+        in one transfer."""
         if losses:
-            self.loss.extend(torch.stack(losses).cpu().tolist())
+            self.loss.extend(torch.cat([v.reshape(-1) for v in losses]).cpu().tolist())
             losses.clear()
 
     def _on_callback(self):

@@ -176,7 +176,22 @@ Phases (each asserts; any failure exits non-zero):
      for the others), its rate by ``benchmark_solver`` (short windows above
      10 ms an iteration), and one line of bytes and FLOPs an iteration, GB/s,
      the share of phase 13's ``measure_memory_bandwidth`` reading and FLOP/s;
- 15. the script's seconds, one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
+ 15. the captured loop (``runtime/graph.py``: one step captured as a CUDA
+     graph per signature and replayed) against the eager one
+     (``IterativeSolver._eager_call``), on phase 3's mixture at 2 x 2049 x
+     469 (C = 3 on phase 5's) and the factorisation targets of phase 8: for
+     each family of the slice (AuxLaplaceIVA and AuxGaussIVA IP at C = 2,
+     K2, and C = 3, K1; ISS; IP2; GaussILRMA(10) IP, ISS and IP2; TILRMA;
+     ConsistentGaussILRMA; FastMultichannelISNMF(10); the NMF models,
+     ComplexEUCNMF and EUCNTF) x 20 from the same draws, one line: bits or
+     gap (equal bits held on the K2 path, 1e-5 elsewhere), launches per
+     call, one capture across two calls, ms an iteration for both by
+     ``per_iteration``'s differencing, the replay's host ms and the capture
+     seconds; ``batch_separate`` over AuxLaplaceIVA IP x 30 on 8 x 2 x 2049
+     x 469 (one capture, mixtures/s against the eager loop's) and
+     ``benchmark_solver`` on the main path, graph against eager.  Every
+     earlier phase runs through the captured loop too;
+ 16. the script's seconds, one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
      line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds K2's Gauss instance at both shapes, K2 (both contrasts)
@@ -2525,6 +2540,184 @@ def cost_model(X, X3, copy_gb_s, failed):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: the captured loop against the eager one
+# --------------------------------------------------------------------------- #
+ITERS_GRAPH, GRAPH_N, GRAPH_WARM = 20, 50, 5
+# graph against eager off the K2 path: the same kernels and cuBLAS calls are
+# replayed, so equal bits are expected; the hold allows float32 sums taken in
+# another order (of the loss; of the output's largest entry)
+GRAPH_RTOL = 1e-5
+# key, constructor, input (phase 3's mixture "X2", phase 5's "X3", or a
+# factorisation target of factor_targets), K1 and K2 launches an iteration
+GRAPH_CASES = [
+    ("laplace_ip_c2", lambda: AuxLaplaceIVA(), "X2", 0, 1),
+    ("gauss_ip_c2", lambda: AuxGaussIVA(), "X2", 0, 1),
+    ("laplace_ip_c3", lambda: AuxLaplaceIVA(), "X3", 1, 0),
+    ("gauss_ip_c3", lambda: AuxGaussIVA(), "X3", 1, 0),
+    ("laplace_iss_c2", lambda: AuxLaplaceIVA(algorithm_spatial="ISS"), "X2", 0, 0),
+    ("laplace_ip2_c2", lambda: AuxLaplaceIVA(algorithm_spatial="IP2"), "X2", 1, 0),
+    ("gauss_ilrma_ip_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS), "X2", 1, 0),
+    ("gauss_ilrma_iss_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS, algorithm_spatial="ISS"), "X2", 0, 0),
+    ("gauss_ilrma_ip2_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS, algorithm_spatial="IP2"), "X2", 1, 0),
+    ("tilrma_c2", lambda: TILRMA(n_basis=BATCH_BASIS), "X2", 1, 0),
+    ("consistent_ilrma_c2", lambda: ConsistentGaussILRMA(n_basis=BATCH_BASIS, fft_size=FFT_SIZE), "X2", 1, 0),
+    ("fast_mnmf_c2", lambda: FastMultichannelISNMF(n_basis=BATCH_BASIS), "X2", 1, 0),
+    ("eucnmf", lambda: EUCNMF(n_basis=FACTOR_BASIS), "power", 0, 0),
+    ("klnmf", lambda: KLNMF(n_basis=FACTOR_BASIS), "power", 0, 0),
+    ("isnmf_mm", lambda: ISNMF(n_basis=FACTOR_BASIS), "power", 0, 0),
+    ("tnmf", lambda: TNMF(n_basis=FACTOR_BASIS), "power", 0, 0),
+    ("cauchy_mm_fast", lambda: CauchyNMF(n_basis=FACTOR_BASIS, algorithm="mm_fast"), "power", 0, 0),
+    ("complex_eucnmf", lambda: ComplexEUCNMF(n_basis=FACTOR_BASIS), "spectrogram", 0, 0),
+    ("eucntf", lambda: EUCNTF(n_basis=FACTOR_BASIS), "power_tensor", 0, 0),
+]
+
+
+def quiet(make):
+    """``make()`` without GaussILRMA ISS's "in progress" warning."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return make()
+
+
+def eager_only(solver):
+    """``solver`` on the eager loop in every entry point (the comparison's
+    other side): its step declared not capturable on this instance."""
+    solver.capturable = lambda: False
+    return solver
+
+
+def loop_ms(solver, X, eager, n=GRAPH_N, warm=GRAPH_WARM):
+    """ms an iteration of ``solver``'s call on ``X`` by CUDA events, (warm +
+    n)- less warm-iteration calls (``per_iteration``'s differencing), through
+    the eager loop or the captured one.  The init's host draws are made once
+    and passed to every call as warm starts on the card: a draw inside the
+    window (ComplexEUCNMF's phase, 2049 x 10 x 469 doubles) would leave the
+    card idle for tens of ms a call, more than the differencing can cancel."""
+    call = solver._eager_call if eager else solver
+    np.random.seed(SEED)
+    drawn = solver.prepare_state_kwargs(solver._to_input(X), {})
+    warm_start = {k: torch.as_tensor(v, device="cuda") for k, v in drawn.items() if v is not None}
+
+    def run(k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        call(X, iteration=k, **warm_start)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    run(warm)
+    short = min(run(warm) for _ in range(3))
+    long_ = min(run(warm + n) for _ in range(3))
+    return (long_ - short) / n
+
+
+def parts(output):
+    return output if isinstance(output, tuple) else (output,)
+
+
+def graph_row(key, make, X, k1_per, k2_per, failed):
+    """One family through the captured loop and the eager one (module
+    docstring, phase 15)."""
+    runs = {}
+    for mode in ("eager", "graph"):
+        np.random.seed(SEED)
+        solver = quiet(make)
+        counts_zero()
+        start = time.perf_counter()
+        out = solver._eager_call(X, iteration=ITERS_GRAPH) if mode == "eager" else solver(X, iteration=ITERS_GRAPH)
+        torch.cuda.synchronize()
+        runs[mode] = (parts(out), np.asarray(solver.loss), counts(), solver, time.perf_counter() - start)
+    (Y_e, L_e, launched_e, _, _), (Y_g, L_g, launched_g, solver, first_s) = runs["eager"], runs["graph"]
+    bits = L_e.tobytes() == L_g.tobytes() and all(torch.equal(a, b) for a, b in zip(Y_e, Y_g))
+    loss_gap = float(np.max(np.abs(L_g - L_e) / np.abs(L_e)))
+    out_gap = max(rel_err(b, a) for a, b in zip(Y_e, Y_g))
+    (graph,) = solver._graph_cache.values()
+    np.random.seed(SEED + 1)
+    counts_zero()
+    solver(X, iteration=ITERS_GRAPH)
+    launched_second = counts()
+    captures = len(solver._graph_cache)
+    same_graph = list(solver._graph_cache.values()) == [graph]
+    ms_graph = loop_ms(solver, X, eager=False)
+    ms_eager = loop_ms(quiet(make), X, eager=True)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    graph.replay(GRAPH_N)
+    host_ms = (time.perf_counter() - start) * 1e3 / GRAPH_N
+    torch.cuda.synchronize()
+    expected = {"k1_launches": k1_per * ITERS_GRAPH, "k2_launches": k2_per * ITERS_GRAPH}
+    res = {
+        "iterations": ITERS_GRAPH, "bits_equal": bits, "loss_max_rel_gap": loss_gap, "output_max_rel_gap": out_gap,
+        "launches_graph": launched_g, "launches_eager": launched_e, "launches_second_call": launched_second,
+        "captures_across_two_calls": captures, "ms_graph": ms_graph, "ms_eager": ms_eager,
+        "speedup": ms_eager / ms_graph, "replay_host_ms": host_ms, "capture_s": graph.capture_s,
+        "first_call_s": first_s, "loss_last": float(L_g[-1]),
+    }
+    checks = {
+        "launches as the eager loop's, per iteration": launched_g == launched_e == launched_second == expected,
+        "one capture across two calls": captures == 1 and same_graph,
+        "losses finite": bool(np.isfinite(L_g).all()),
+    }
+    if k2_per:
+        checks["graph equals eager bit for bit (K2)"] = bits
+    else:
+        checks["graph equals eager within {}".format(GRAPH_RTOL)] = loss_gap <= GRAPH_RTOL and out_gap <= GRAPH_RTOL
+    record_checks(failed, key, checks)
+    print(json.dumps({"graph_" + key: res}), flush=True)
+    return res
+
+
+def graph_batch_row(failed):
+    """batch_separate over AuxLaplaceIVA IP x 30 on 8 x 2 x 2049 x 469:
+    mixtures/s through the captured loop (one capture) and the eager one."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    shape = (BATCH, 2, FFT_SIZE // 2 + 1, -(-N_SAMPLES // HOP_SIZE) + 1)
+    Xs = torch.complex(torch.randn(shape, generator=gen, device="cuda"), torch.randn(shape, generator=gen, device="cuda"))
+    res, outputs = {}, {}
+    captured = AuxLaplaceIVA()
+    for mode, solver in (("eager", eager_only(AuxLaplaceIVA())), ("graph", captured), ("graph_again", captured)):
+        counts_zero()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        outputs[mode], _ = batch_separate(solver, Xs, iteration=ITERS_BATCH, host=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        res[mode] = {"mixtures_per_s": BATCH / wall, "wall_s": wall, **counts(),
+                     "captures": len(vars(solver).get("_graph_cache", {}))}
+    gap = rel_err(outputs["graph"], outputs["eager"])
+    res["output_max_rel_gap"] = gap
+    record_checks(failed, "graph_batch", {
+        "one capture for the batch": res["graph"]["captures"] == 1 and res["graph_again"]["captures"] == 1,
+        "K2 240 in 240": all(res[m]["k2_launches"] == BATCH * ITERS_BATCH for m in ("eager", "graph", "graph_again")),
+        "members bit for bit the eager loop's (K2)": bool(torch.equal(outputs["graph"], outputs["eager"])),
+    })
+    return res
+
+
+def graph_phase(X2, X3, failed):
+    """Phase 15 (module docstring)."""
+    start = time.perf_counter()
+    inputs = {"X2": X2, "X3": X3, **factor_targets(X2, X3)}
+    out = {key: graph_row(key, make, inputs[name], k1, k2, failed) for key, make, name, k1, k2 in GRAPH_CASES}
+    out["batch_laplace_ip_c2"] = graph_batch_row(failed)
+    bench = {}
+    for mode in ("graph", "eager"):
+        solver = AuxLaplaceIVA() if mode == "graph" else eager_only(AuxLaplaceIVA())
+        counts_zero()
+        ips, first_s = benchmark_solver(solver, X2, iteration=BENCH_ITERS, short=BENCH_SHORT)
+        bench[mode] = {"ms": 1e3 / ips, "first_call_s": first_s, **counts()}
+    runs = 1 + BENCH_SHORT + 4 * (BENCH_ITERS + BENCH_SHORT)
+    record_checks(failed, "graph_benchmark_solver", {
+        "K2 once an iteration, both loops": bench["graph"]["k2_launches"] == runs
+        and bench["eager"]["k2_launches"] == runs + BENCH_ITERS - 1,
+    })
+    out["benchmark_solver_main_path"] = bench
+    out["phase_s"] = time.perf_counter() - start
+    return out
+
+
 def profile_c2(X, path):
     """torch.profiler table of a 20-iteration C = 2 solver call, and the
     device time of each kernel per iteration."""
@@ -2680,6 +2873,13 @@ def main():
     print(json.dumps({"cost_model": costs}), flush=True)
     assert not cost_failed, cost_failed
     cost_k1 = sum(row["launches_during_count"]["K1"] for row in costs.values() if isinstance(row, dict))
+    graph_failed = []
+    graphs = graph_phase(X2, X3, graph_failed)
+    print(json.dumps({"graph_phase": {key: graphs[key] for key in ("batch_laplace_ip_c2", "benchmark_solver_main_path",
+                                                                   "phase_s")}}), flush=True)
+    assert not graph_failed, graph_failed
+    graph_k1 = sum(graphs[key]["launches_graph"]["k1_launches"] for key, *_ in GRAPH_CASES)
+    graph_k2 = sum(graphs[key]["launches_graph"]["k2_launches"] for key, *_ in GRAPH_CASES)
     if args.profile:
         prof = profile_c2(X2, ROOT / "chiprun_out" / "profile_c2.txt")
         print(json.dumps({"profile_c2": prof}), flush=True)
@@ -2749,6 +2949,7 @@ def main():
                     mesh_w2[key]["k1_launches"] for key in ("cov_isnmf_bins", "prox_bins", "ldpsdtf_frames")
                 ),
                 "cost_model": cost_k1,
+                "graph_phase": graph_k1,
             },
             "max_abs_err": max(c["max_abs_err"] for c in k1_all),
             "max_rel_err": max(c["rel_err"] for c in k1_all),
@@ -2782,7 +2983,8 @@ def main():
              "mesh_w2_laplace_ip_frames_rank0": mesh_w2["laplace_ip_frames"]["k2_launches"],
              "mesh_w1_slice_10c": sum(w1_10c[key]["k2_launches"] for key in w1_10c_keys),
              "held_against_auxiva_ip_step_components": phase12["auxiva_ip_step_components"]["k2_launches"],
-             "cost_model_laplace_ip_c2": costs["laplace_ip_c2"]["launches_during_count"]["K2"]},
+             "cost_model_laplace_ip_c2": costs["laplace_ip_c2"]["launches_during_count"]["K2"],
+             "graph_phase": graph_k2},
             K2_RTOL,
         ),
         k2_entry(

@@ -207,6 +207,22 @@ def test_spatial_covariance_matches_jax(rng):
     same(lambda lib, X: lib.ops.spatial_covariance(X), rng.randn(3, 7, 20) + 1j * rng.randn(3, 7, 20))
 
 
+@pytest.mark.parametrize("subpackage", ["algorithm", "transform"])
+def test_subpackage_exports_what_jax_exports(subpackage):
+    """The port's ``algorithm`` and ``transform`` export exactly the JAX
+    package's names, each importable, and a star import brings no more
+    (no ``apply_projection_back``, no submodule)."""
+    import importlib
+
+    jax_pkg = importlib.import_module("audio_source_separation_tpu." + subpackage)
+    port_pkg = importlib.import_module("audio_source_separation_tpu_torch." + subpackage)
+    assert port_pkg.__all__ == jax_pkg.__all__
+    assert all(callable(getattr(port_pkg, name)) for name in port_pkg.__all__)
+    namespace = {}
+    exec("from audio_source_separation_tpu_torch.{} import *".format(subpackage), namespace)
+    assert set(namespace) - {"__builtins__"} == set(jax_pkg.__all__)
+
+
 def test_ops_exports_what_jax_exports():
     """The port's ``ops`` exports the JAX ``ops`` names less the deferred
     ones, and each is importable."""
