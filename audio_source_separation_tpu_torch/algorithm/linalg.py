@@ -6,11 +6,13 @@ NMF's spatial update), ``H A H = B`` has the closed form
     H = A^-1/2 (A^1/2 B A^1/2)^1/2 A^-1/2,
 
 the branch the reference's eigenvector-sorting construction selects.  The
-matrix powers are closed forms at 2 x 2 and ``torch.linalg.eigh`` otherwise.
+matrix powers are closed forms at 2 x 2 and K3
+(:func:`~..ops.eigh_kernel.batched_eigh`) otherwise.
 """
 
 import torch
 
+from ..ops.eigh_kernel import batched_eigh
 from ..ops.fast_linalg import power_coefficients_2x2
 
 EPS = 1e-12
@@ -40,11 +42,12 @@ def _power_2x2(X, power, eps=0.0):
 
 def hermitian_matrix_power(X, power, eps=0.0):
     """Batched Hermitian fractional matrix power: the closed form at 2 x 2,
-    ``eigh`` otherwise.  Eigenvalues are clipped at ``eps`` (pass a
+    K3's eigendecomposition otherwise (``v f(w) v^H``: no phase of the
+    vectors changes it).  Eigenvalues are clipped at ``eps`` (pass a
     positive ``eps`` for negative powers of near-singular inputs)."""
     if X.shape[-1] == 2:
         return _power_2x2(X, power, eps=eps)
-    w, v = torch.linalg.eigh(X)
+    w, v = batched_eigh(X)
     w = torch.clamp(w, min=eps)
     pw = torch.where(w > 0, torch.where(w > 0, w, 1.0) ** power, 0.0)
     return (v * pw[..., None, :].to(v.dtype)) @ v.transpose(-2, -1).conj()

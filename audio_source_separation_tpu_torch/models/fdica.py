@@ -68,6 +68,11 @@ class GradFDICABase(FDICABase):
         self.lr = lr
         self.reference_id = reference_id
 
+    def capturable(self, X):
+        """Every configuration: the gradient step reads nothing on the host;
+        the permutation alignment runs in :meth:`finalize`, after the loop."""
+        return True
+
     def finalize(self, state):
         """Permutation alignment, then projection-back; sets the aligned
         ``demix_filter`` (``fdica.py:69-84`` of the JAX package)."""

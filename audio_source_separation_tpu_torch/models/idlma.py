@@ -9,10 +9,13 @@ and normalises the estimates by projection-back (``idlma.py:141-225``).
 
 The network runs in the loop on the solver's device: ``dnn`` is any torch
 callable, typically an ``nn.Module`` on that device, called under
-``torch.no_grad()`` on the ``(S, F, T)`` amplitude tensor; nothing goes to
-the host.  This is the counterpart of the JAX package's ``jax_dnn=True``
-scan; its ``jax_dnn=False`` mode, a host network between device stages, has
-no counterpart, so ``jax_dnn`` is accepted and changes nothing here.
+``torch.no_grad()`` on the ``(S, F, T)`` amplitude tensor.  ``jax_dnn``
+keeps the JAX package's meaning: with ``jax_dnn=True`` (its fully jitted
+scan) the network is a pure function of device tensors, and on the card
+the step, network included, is captured as a CUDA graph
+(:mod:`~..runtime.graph`); with ``jax_dnn=False`` (the default in both
+packages) the loop stays eager, as the JAX package's host-DNN loop does,
+and the network may compute anywhere and return any array.
 
 Each iteration forms the covariance by one launch of kernel K1 with the
 per-bin ``(S, F, T)`` weights (:meth:`~.iva.IVABase._ip_sweep`, as ILRMA).
@@ -125,6 +128,21 @@ class GaussIDLMA(IDLMABase):
         self.threshold = threshold
         self.guard = guard
         self.jax_dnn = jax_dnn
+
+    def capturable(self, X):
+        """With ``jax_dnn=True``, the JAX package's flag for its fully
+        jitted scan: the caller vouches that ``dnn`` is a pure function of
+        device tensors (a torch module on the solver's device, as
+        :func:`torch_dnn` wraps one), so the network runs inside the
+        captured step, and the graph is cached per network
+        (:meth:`_graph_inputs`).  With ``jax_dnn=False`` (the default) the
+        network may read or compute on the host, and the loop stays eager,
+        as JAX's host-DNN loop does.  The ``svd`` guard keeps the eager loop
+        too (``torch.linalg.svdvals`` copies to the host)."""
+        return bool(self.jax_dnn) and self.guard != "svd"
+
+    def _graph_inputs(self):
+        return (self.dnn,)
 
     def field_axes(self):
         """The JAX package's shardable axes, with the port's component

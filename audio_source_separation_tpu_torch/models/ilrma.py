@@ -209,7 +209,7 @@ class ILRMABase(IVABase):
             fit = self.callbacks is not None
             self.demix_filter = self.compute_demix_filter(state["estimation"], state["input"]) if fit else None
 
-    def capturable(self):
+    def capturable(self, X):
         """GaussILRMA (IP, ISS, IP2), TILRMA and ConsistentGaussILRMA,
         but under the ``svd`` guard, whose ``torch.linalg.svdvals`` copies
         to the host inside the step (ISS takes no guard)."""

@@ -50,6 +50,7 @@ import torch
 
 from ..ops.blocks import BlockLayout
 from ..ops.cov_kernel import weighted_covariance_planes
+from ..ops.eigh_kernel import batched_eigh
 from ..ops.fast_linalg import (
     _sum,
     add_diag_hermitian_compact,
@@ -71,7 +72,7 @@ from ..ops.fast_linalg import (
     square_hermitian_compact,
     trace_hermitian_compact,
 )
-from ..ops.ip_components import _plane_index, assemble_matrices, det_components, solve_column_components
+from ..ops.ip_components import assemble_matrices, det_components, solve_column_components
 from ..runtime.solver import real_tensor
 from ..utils.flooring import EPS, floor_below
 from .iva import IVABase
@@ -103,9 +104,9 @@ def _spectral(v, w):
 
 def _psd_parts(M, eps=EPS):
     """``(to_psd(M), its eigenvalues)``, the eigenvalues by the closed forms
-    at ``B <= 3``, else by :func:`_eigh_wide`."""
+    at ``B <= 3``, else by K3 (:func:`~..ops.fast_linalg.batched_eigvalsh`)."""
     H = _herm(M)
-    w = batched_eigvalsh(H) if H.shape[-1] <= 3 else _eigh_wide(H, vectors=False)
+    w = batched_eigvalsh(H)
     shift = eps * _trace(H) - torch.clamp(w.amin(dim=-1), max=0)
     return H + shift[..., None, None] * _eye(M), w + shift[..., None]
 
@@ -137,37 +138,10 @@ def _psd_ridge(S, eps=EPS):
     return S + (eps * _trace(S))[..., None, None] * _eye(S)
 
 
-# blocks per eigensolver call: cuSOLVER's batched solver
-# (cusolverDnXsyevBatched under PyTorch 2.11, CUDA 12.8, on an H100) refuses
-# 32,768 or more 9 x 9 blocks at its workspace query, complex64 or
-# complex128, and takes 8192; the 256-block geometry's R holds 240,128
-EIGH_CHUNK = 8192
-
-
-def _eigh_wide(H, vectors=True):
-    """``torch.linalg.eigh`` (or only the eigenvalues) of small Hermitian
-    blocks at complex128, cast back, NaN for a block with a non-finite
-    entry.  ``torch.linalg.eigh`` raises on a block it cannot decompose
-    where JAX's returns NaN, so a diverged float32 run (Ikeshita's can
-    overflow) goes on with NaN here too; and cuSOLVER's batched
-    single-precision Jacobi solver fails to converge on some finite blocks
-    where the double one does not."""
-    n = H.shape[-1]
-    finite = torch.isfinite(H).all(dim=-1).all(dim=-1)
-    Hd = torch.where(finite[..., None, None], H, 0).to(torch.complex128).reshape(-1, n, n)
-    nan = torch.tensor(float("nan"), dtype=H.real.dtype, device=H.device)
-    if not vectors:
-        w = torch.cat([torch.linalg.eigvalsh(part) for part in Hd.split(EIGH_CHUNK)])
-        return torch.where(finite[..., None], w.reshape(H.shape[:-1]).to(nan.dtype), nan)
-    w, v = (torch.cat(parts) for parts in zip(*(torch.linalg.eigh(part) for part in Hd.split(EIGH_CHUNK))))
-    w = torch.where(finite[..., None], w.reshape(H.shape[:-1]).to(nan.dtype), nan)
-    return w, torch.where(finite[..., None, None], v.reshape(H.shape).to(H.dtype), nan)
-
-
 def _psd_sqrt_fused(M, eps=EPS):
     """``to_psd(sqrt(to_psd(M)))`` from one Hermitian eigendecomposition."""
     H = _herm(M)
-    w, v = _eigh_wide(H)
+    w, v = batched_eigh(H)
     shift = eps * _trace(H) - torch.clamp(w.amin(dim=-1), max=0)
     sw = torch.sqrt(torch.clamp(w + shift[..., None], min=0))
     return _psd_ridge(_spectral(v, sw), eps=eps)
@@ -183,7 +157,7 @@ def _sqrt_and_invsqrt_after_psd(C, pad_diag, eps=EPS):
     H = _herm(C)
     n_pad = _trace(pad_diag)
     Hp = H + pad_diag
-    w, v = _eigh_wide(Hp)
+    w, v = batched_eigh(Hp)
     shift = eps * (_trace(Hp) - n_pad) - torch.clamp(w.amin(dim=-1), max=0)
     sw = torch.sqrt(torch.clamp(w + shift[..., None], min=0))
     eye = _eye(C)
@@ -321,14 +295,21 @@ class GaussIPSDTA(IPSDTABase):
     # init
     def _layout(self, n_bins):
         """The block layout of ``n_bins`` bins: the whole partition, or a
-        bins shard's share of its blocks."""
+        bins shard's share of its blocks.  Each layout is kept for the
+        solver's life: a captured step reads its tables (``runtime/graph.py``
+        caches one graph per shape)."""
         world = self._shard_world("bins")
         n_blocks = min(self.n_blocks, n_bins * world) // world
-        layout = getattr(self, "_cached_layout", None)
-        if layout is None or (layout.n_bins, layout.n_blocks) != (n_bins, n_blocks):
-            layout = BlockLayout(n_bins, n_blocks)
-            self._cached_layout = layout
-        return layout
+        layouts = vars(self).setdefault("_layouts", {})
+        if (n_bins, n_blocks) not in layouts:
+            layouts[n_bins, n_blocks] = BlockLayout(n_bins, n_blocks)
+        return layouts[n_bins, n_blocks]
+
+    def capturable(self, X):
+        """Every configuration (the Kondo and Ikeshita steps, TIPSDTA, every
+        source route) at any shape: the block and channel eigensolves run
+        on K3."""
+        return True
 
     def prepare_state_kwargs(self, input, state_kwargs):
         """Host NumPy draws in the JAX package's order: the diagonal basis
@@ -511,9 +492,13 @@ class GaussIPSDTA(IPSDTABase):
         """``sum_ij U_ij P_ij`` (or with ``conj(U_ij)``) for compact Hermitian
         ``U (S, K, B^2, nb)`` and ``P (B^2, S, T, nb)``, a real ``(S, K, T)``:
         one real product, the off-diagonal planes weighted by +-2."""
-        _, order = _plane_index(int(round(planes.shape[0] ** 0.5)))
-        w = [1.0 if c == d else (2.0 if kind == "re" or conjugate else -2.0) for kind, c, d in order]
-        wts = torch.tensor(w, dtype=UC.dtype, device=UC.device)
+        # the weights in ops/ip_components.py::_plane_index's order, filled
+        # on the device: B
+        # diagonal planes, then a (re, im) pair for each c < d
+        B = int(round(planes.shape[0] ** 0.5))
+        n_pairs = B * (B - 1) // 2
+        pairs = torch.stack([UC.new_full((n_pairs,), 2.0), UC.new_full((n_pairs,), 2.0 if conjugate else -2.0)], dim=1)
+        wts = torch.cat([UC.new_ones((B,)), pairs.reshape(-1)])
         return torch.einsum("skpb,pstb->skt", UC * wts[None, None, :, None], planes)
 
     @staticmethod
@@ -714,7 +699,8 @@ class GaussIPSDTA(IPSDTABase):
         L = torch.linalg.cholesky_ex(U1h).L
         Z = torch.linalg.solve_triangular(L, _herm(U2), upper=False)
         M = torch.linalg.solve_triangular(L, Z.transpose(-2, -1).conj(), upper=False)
-        d, Q = _eigh_wide(_herm(M))
+        # G keeps K3's phase of each column: G^H y and G E G^H take none
+        d, Q = batched_eigh(_herm(M))
         G = torch.linalg.solve_triangular(L.transpose(-2, -1).conj(), Q, upper=True)
         return G, torch.clamp(d, min=0), torch.einsum("...ji,...ji->...i", G.conj(), G).real
 

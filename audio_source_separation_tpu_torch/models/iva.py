@@ -213,6 +213,10 @@ class GradIVABase(IVABase):
         self.reference_id = reference_id
         self.apply_projection_back = apply_projection_back
 
+    def capturable(self, X):
+        """Every configuration: a gradient step reads nothing on the host."""
+        return True
+
     def finalize(self, state):
         X = state["input"]
         output = self.separate(X, state["demix_filter"])
@@ -383,10 +387,11 @@ class AuxIVABase(IVABase):
             state["step_count"] = torch.as_tensor(k, dtype=torch.int64, device=X.device).reshape(())
         return state
 
-    def capturable(self):
+    def capturable(self, X):
         """Every spatial update but under the ``svd`` guard, whose
         ``torch.linalg.svdvals`` copies to the host inside the step (ISS
-        takes no guard).  The overdetermined solver keeps the eager loop."""
+        takes no guard).  The overdetermined solver follows the same rule on
+        its reduced mixture (PCA and projection-back run outside the loop)."""
         return self.algorithm_spatial == "ISS" or self.guard != "svd"
 
     # the updates
@@ -541,8 +546,8 @@ class AuxGaussIVA(AuxIVABase):
     def contrast_nll(self, psum, n_bins):
         return n_bins * torch.log(floor_below(psum / n_bins, self.eps)).sum()
 
-    def capturable(self):
-        return self.algorithm_spatial not in _PAIRWISE_UPDATES and super().capturable()
+    def capturable(self, X):
+        return self.algorithm_spatial not in _PAIRWISE_UPDATES and super().capturable(X)
 
     def _update_pairwise(self, state):
         raise NotImplementedError("In progress...")
@@ -567,9 +572,6 @@ class OverAuxIVABase(AuxIVABase):
     def __init__(self, algorithm_spatial, n_sources=None, **kwargs):
         super().__init__(algorithm_spatial=algorithm_spatial, **kwargs)
         self.n_sources = n_sources
-
-    def capturable(self):
-        return False
 
     def finalize(self, state):
         return self._estimates(state)

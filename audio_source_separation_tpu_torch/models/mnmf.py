@@ -173,6 +173,12 @@ class MultichannelISNMF(MultichannelNMFBase):
     def _sawada(self):
         return self.author.lower() == "sawada"
 
+    def capturable(self, X):
+        """Both authors' steps, at any C: Sawada's Riccati runs on compact
+        planes at C = 2 and on K3's eigensolves above; Ozerov's EM reads
+        nothing on the host."""
+        return True
+
     def field_axes(self):
         """The JAX package's shardable axes: every per-bin field with the
         bins, the activations with the frames (the latent replicates)."""
@@ -677,7 +683,7 @@ class FastMultichannelISNMF(MultichannelNMFBase):
         self.threshold = threshold
         self.guard = guard
 
-    def capturable(self):
+    def capturable(self, X):
         """Every guard but ``svd``, whose ``torch.linalg.svdvals`` copies
         to the host inside the step."""
         return self.guard != "svd"

@@ -96,7 +96,7 @@ class NMFBase(IterativeSolver):
         axes = self.field_axes()
         return axes["basis"], axes["activation"]
 
-    def capturable(self):
+    def capturable(self, X):
         return True
 
     def prepare_state_kwargs(self, target, state_kwargs):
@@ -346,7 +346,7 @@ class ComplexEUCNMF(IterativeSolver):
         axes = self.field_axes()
         return axes["basis"], axes["activation"], axes["phase"]
 
-    def capturable(self):
+    def capturable(self, X):
         return True
 
     def prepare_state_kwargs(self, target, state_kwargs):
@@ -450,6 +450,11 @@ class MultichannelISNMF(IterativeSolver):
         super().__init__(callbacks=None, recordable_loss=True, eps=eps, device=device)
         self.n_basis = n_basis
         self.normalize = normalize
+
+    def capturable(self, X):
+        """C = 2 (the planes Riccati) and C = 3 (the matrix Riccati on K3's
+        eigensolves); C >= 4 raises at the first update."""
+        return True
 
     def field_axes(self):
         """The JAX package's shardable axes: per-bin fields with the bins,

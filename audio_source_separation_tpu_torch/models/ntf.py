@@ -49,7 +49,7 @@ class NTFBase(IterativeSolver):
     def reconstruct(self, state):
         return _reconstruct(state["partitioning"], state["basis"], state["activation"])
 
-    def capturable(self):
+    def capturable(self, X):
         return True
 
     def finalize(self, state):

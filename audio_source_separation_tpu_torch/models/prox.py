@@ -226,6 +226,12 @@ class ProxLaplaceIVA(PDSBSSBase):
         self.reference_id = reference_id
         self.apply_projection_back = apply_projection_back
 
+    def capturable(self, X):
+        """Every configuration at C = 2 only: the log-determinant's prox
+        takes ``torch.linalg.svd`` past C = 2 (:meth:`prox_logdet`), whose
+        status is read on the host, so those calls keep the eager loop."""
+        return X.shape[0] == 2
+
     def prox_penalty(self, z, mu=1):
         """Group-l2 shrinkage over the frequency axis of ``z (n_bins,
         n_sources, n_frames)`` (``iva.py:867-889``)."""

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..criterion.divergence import logdet_divergence
+from ..ops.eigh_kernel import batched_eigh
 from ..ops.fast_linalg import batched_eigvalsh
 from ..runtime.device import resolve_device
 from ..runtime.solver import IterativeSolver, real_tensor
@@ -76,9 +77,11 @@ def _ridge(X, eps):
 
 def _eigh_psd(Y, eps):
     """``(w, v)``: the eigenvalues of ``to_psd(Y)`` (shifted by the most
-    negative one, ridged) and the eigenvectors of ``Y``'s Hermitian part."""
+    negative one, ridged) and the eigenvectors of ``Y``'s Hermitian part, by
+    K3 (the loss's ``v^H X v`` and the inverse's ``v f(w) v^H`` take no
+    phase of them)."""
     Ys = _sym(Y)
-    w, v = torch.linalg.eigh(Ys)
+    w, v = batched_eigh(Ys)
     delta = torch.clamp(w.amin(dim=-1), max=0)
     return w + (_dtype_eps(eps, Y.dtype) * _trace(Ys) - delta)[..., None], v
 
@@ -222,6 +225,11 @@ class LDPSDTF(PSDTFBase):
         self.algorithm = algorithm
         self.criterion = logdet_divergence
 
+    def capturable(self, X):
+        """Both routes (the K = 2 pencil, the carried eigendecomposition)
+        at any shape: the ``B x B`` eigensolves run on K3."""
+        return True
+
     # the K = 2 pencil
     @property
     def _use_pencil(self):
@@ -229,13 +237,15 @@ class LDPSDTF(PSDTFBase):
 
     def _pencil(self, basis):
         """``(G, d, log det V_1)`` with ``G^H V_1 G = I`` and ``G^H V_2 G =
-        diag(d)``: whiten by V_1's Cholesky factor, then ``eigh``."""
+        diag(d)``: whiten by V_1's Cholesky factor, then K3's ``eigh``.  The
+        columns of ``G`` keep K3's phases, which nothing downstream sees
+        (``G diag(1/w) G^H``, ``diag(G^H X G)``)."""
         V = basis.permute(2, 0, 1)
         A1, A2 = _sym(V[0]), _sym(V[1])
         L = _cholesky(A1)
         Z = torch.linalg.solve_triangular(L, A2, upper=False)  # L^-1 A2
         M = torch.linalg.solve_triangular(L, Z.transpose(-2, -1).conj(), upper=False)
-        d, Q = torch.linalg.eigh(_sym(M))
+        d, Q = batched_eigh(_sym(M))
         d = torch.clamp(d, min=0)  # A2 is PSD up to rounding
         G = torch.linalg.solve_triangular(L.transpose(-2, -1).conj(), Q, upper=True)  # L^-H Q
         return G, d, 2 * torch.log(torch.diagonal(L).real).sum()
@@ -266,7 +276,7 @@ class LDPSDTF(PSDTFBase):
         P, Q = _ridge(P, eps), _ridge(Q, eps)
         L = _cholesky(Q)
         Lh = L.transpose(-2, -1).conj()
-        w, u = torch.linalg.eigh(_ridge(Lh @ V @ P @ V @ L, eps))
+        w, u = batched_eigh(_ridge(Lh @ V @ P @ V @ L, eps))
         # the square root is PSD by construction: its to_psd is the eps sum(w)
         # ridge in the basis u (``psdtf.py:146-149``)
         w = torch.sqrt(torch.clamp(w, min=0))

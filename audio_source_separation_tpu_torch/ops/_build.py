@@ -26,6 +26,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = {
     "weighted_covariance": "weighted_covariance.cu",
     "fused_auxiva_ip": "fused_auxiva_ip.cu",
+    "batched_eigh": "batched_eigh.cu",
 }
 
 NVCC_FLAGS = (

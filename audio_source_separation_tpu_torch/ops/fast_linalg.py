@@ -14,6 +14,8 @@ import operator
 
 import torch
 
+from .eigh_kernel import batched_eigh
+
 
 def _sum(terms):
     """The sum of tensors, without Python ``sum``'s leading ``0 +`` pass."""
@@ -225,13 +227,15 @@ def hermitian_eigvalsh_3x3(A):
 
 def batched_eigvalsh(A):
     """Ascending eigenvalues of batched Hermitian matrices; closed forms for
-    n <= 3, ``torch.linalg.eigvalsh`` otherwise."""
+    n <= 3, K3 otherwise (:func:`~.eigh_kernel.batched_eigh`: the kernel
+    on the card, ``torch.linalg.eigvalsh`` at float64 arithmetic on the
+    CPU)."""
     n = A.shape[-1]
     if n == 1:
         return A[..., 0].real
     if n <= 3:
         return _eigvalsh_trailing(A)
-    return torch.linalg.eigvalsh(A)
+    return batched_eigh(A, vectors=False)
 
 
 def batched_log_abs_det(A):
@@ -457,9 +461,7 @@ def compact_pair_weights(n, like):
     """``w (n^2,)`` with ``tr(A B) = sum_p w_p A_p B_p`` for compact
     Hermitian A, B: the diagonal planes weigh 1, each off-diagonal (re, im)
     plane 2."""
-    w = torch.full((n * n,), 2.0, dtype=like.dtype, device=like.device)
-    w[:n] = 1.0
-    return w
+    return torch.cat([like.new_ones((n,)), like.new_full((n * n - n,), 2.0)])
 
 
 def expand_hermitian_compact_trailing(small, n):

@@ -110,7 +110,7 @@ def _batch_separate(solver, inputs, iteration, state_kwargs, host, mesh):
             solver.use_mesh(tp, mode="bins")
             with solver._on_shard(Xs[b], kw) as (X, kw):
                 state = solver.init_state(X, **kw)
-                if solver._uses_graph(X.device):
+                if solver._uses_graph(X):
                     state, example_losses = replay_loop(solver, state, iteration, record)
                 else:
                     example_losses = []

@@ -237,14 +237,19 @@ def active_counter():
 def charged(kernel, cost):
     """A kernel wrapper's body: inside a count, none of its ops are
     counted, and if it returns, one call of ``kernel`` is charged at
-    ``cost()``, its ``(bytes, flops)``.  Outside a count it does nothing."""
+    ``cost()``, its ``(bytes, flops)``.  Under a capture audit
+    (:class:`~.graph.CaptureAudit`) its ops, which stand for one launch,
+    are not audited.  Outside both it does nothing."""
+    from .graph import active_audit
+
     counter = active_counter()
-    if counter is None:
-        yield
-        return
-    counter._paused += 1
+    modes = [m for m in (counter, active_audit()) if m is not None]
+    for mode in modes:
+        mode._paused += 1
     try:
         yield
     finally:
-        counter._paused -= 1
-    counter.charge(kernel, *cost())
+        for mode in modes:
+            mode._paused -= 1
+    if counter is not None:
+        counter.charge(kernel, *cost())

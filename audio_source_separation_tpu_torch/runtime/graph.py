@@ -10,7 +10,7 @@ per signature and replayed once an iteration (:func:`graph_loop`):
   * init and the first iteration run eagerly.  For a new signature the first
     iteration runs on the graph's own stream, so the kernels are built and
     loaded and their scratch is allocated before capture: K1's and K2's
-    wrappers keep scratch and tickets per stream and refuse to allocate them
+    wrappers (K3 keeps none) keep scratch and tickets per stream and refuse to allocate them
     during a capture.  After capture the graph takes that scratch out of
     the wrappers' tables, so each graph owns its own, though capture streams
     come from PyTorch's pool and repeat.
@@ -32,20 +32,23 @@ The graphs are cached on the solver, keyed by what the captured step reads:
 the post-init state's fields, shapes and dtypes, the device, and every
 plain Python attribute of the solver (a scalar, a string or ``None``, such
 as ``recordable_loss``, a hyperparameter, or what ``prepare_state_kwargs``
-sets for a member of a batch).  A later call of the same signature copies
+sets for a member of a batch), and the objects the step reads besides them
+(``_graph_inputs``: GaussIDLMA's network), which the cache holds.  A later call of the same signature copies
 its first iteration's state into the static buffers and replays; it does
 not capture again.  With callbacks the graph replays once an iteration and
 the state is published, as copies, before the callbacks run, as the JAX
 package steps its jitted body from Python when it has callbacks.
 
 What it does not do: unroll several steps into one graph, or run a mesh
-(``use_mesh`` keeps the eager loop).  A solver says by ``capturable()``
-whether its configuration's step can be captured (no host read, no op that
+(``use_mesh`` keeps the eager loop).  A solver says by ``capturable(X)``
+whether its configuration's step on the input ``X`` can be captured (no host read, no op that
 synchronises); one that says so and fails to capture raises
 :class:`GraphCaptureError`, naming the line, and never falls back to the
 eager loop.  On the CPU nothing is captured: a solver whose
 ``_emulate_graph`` is set runs the same static-buffer path, each replay an
-eager call of the step, which is how the CPU tests hold it.
+eager call of the step, which is how the CPU tests hold it; its one run
+in place of the capture is audited (:class:`CaptureAudit`) for the ops a
+capture refuses, and raises as the card would.
 """
 
 import contextlib
@@ -55,6 +58,7 @@ import time
 import traceback
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
 
 # losses kept on the device between transfers
 LOSS_SLOTS = 1024
@@ -65,16 +69,16 @@ class GraphCaptureError(RuntimeError):
 
 
 def _kernels():
-    """The kernels' wrapper modules: K2's, K1's."""
-    from ..ops import cov_kernel, fused_ip
+    """The kernels' wrapper modules: K2's, K1's, K3's."""
+    from ..ops import cov_kernel, eigh_kernel, fused_ip
 
-    return fused_ip, cov_kernel
+    return fused_ip, cov_kernel, eigh_kernel
 
 
 def _counted():
     """The kernel wrappers whose ``launches`` a replay adds to."""
-    fused_ip, cov_kernel = _kernels()
-    return fused_ip.fused_auxiva_ip_iter, cov_kernel.weighted_covariance_planes
+    fused_ip, cov_kernel, eigh_kernel = _kernels()
+    return fused_ip.fused_auxiva_ip_iter, cov_kernel.weighted_covariance_planes, eigh_kernel.batched_eigh
 
 
 def _launch_counts():
@@ -125,14 +129,62 @@ def _storage(t):
     return t.untyped_storage().data_ptr()
 
 
-def _failing_line(err):
-    """``file:line (code)`` of the innermost frame of ``err`` outside torch."""
+def _innermost_line(frames):
+    """``file:line (code)`` of the innermost of ``frames`` outside torch."""
     torch_dir = os.path.dirname(torch.__file__)
-    frames = [f for f in traceback.extract_tb(err.__traceback__) if not f.filename.startswith(torch_dir)]
+    frames = [f for f in frames if not f.filename.startswith(torch_dir)]
     if not frames:
         return "an unknown line"
     f = frames[-1]
     return "{}:{} ({})".format(f.filename, f.lineno, (f.line or "").strip())
+
+
+def _failing_line(err):
+    """``file:line (code)`` of the innermost frame of ``err`` outside torch."""
+    return _innermost_line(traceback.extract_tb(err.__traceback__))
+
+
+# what a capture refuses, by aten op: each reads on the host or copies from it
+UNCAPTURABLE = {
+    "_local_scalar_dense": "reads a value on the host (.item(), float(t), bool(t))",
+    "lift_fresh": "builds a tensor from host data inside the step",
+    "_linalg_check_errors": "checks a linear-algebra status on the host",
+    "_linalg_eigh": "is torch.linalg.eigh, whose status cuSOLVER reads on the host",
+    "_linalg_svd": "is torch.linalg.svd, whose status cuSOLVER reads on the host",
+    "nonzero": "sizes its output from the data on the host",
+    "masked_select": "sizes its output from the data on the host",
+}
+
+
+class CaptureAudit(TorchDispatchMode):
+    """The CPU's stand-in for a capture's refusals: inside ``with
+    CaptureAudit(name):`` an aten op of :data:`UNCAPTURABLE` raises
+    :class:`GraphCaptureError` naming the line, as a capture on the card
+    does.  A kernel wrapper's plain version, which stands for a launch on
+    the card, runs with the audit paused (:func:`~.cost_model.charged`)."""
+
+    def __init__(self, name):
+        super().__init__()
+        self.name = name
+        self._paused = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        op = func.overloadpacket.__name__
+        if not self._paused and op in UNCAPTURABLE:
+            raise GraphCaptureError(
+                "{} declares its step capturable, but capture failed at {}: aten.{} {}".format(
+                    self.name, _innermost_line(traceback.extract_stack()[:-1]), op, UNCAPTURABLE[op]
+                )
+            )
+        return func(*args, **(kwargs or {}))
+
+
+def active_audit():
+    """The innermost :class:`CaptureAudit` in force, else ``None``."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if isinstance(mode, CaptureAudit):
+            return mode
+    return None
 
 
 @contextlib.contextmanager
@@ -181,10 +233,12 @@ class StepGraph:
         try:
             if stream is None:
                 # run once on copies, for the signature check, the
-                # pass-through fields and the launches of a step
+                # pass-through fields and the launches of a step, under the
+                # audit of what a capture would refuse
                 static = {k: v.clone() for k, v in self.static.items()}
                 slots = None if loss is None else (self.loss_buf.clone(), self.slot.clone())
-                self.identity = self._step(static, slots)
+                with CaptureAudit(name):
+                    self.identity = self._step(static, slots)
                 self.graph = None
             else:
                 self.graph, self.identity = self._capture(stream)
@@ -315,7 +369,7 @@ def _first_step_graph(solver, state, record):
     state, or one captured now, the eager step run on the graph's own
     stream.  Returns ``(state after the step, its loss or None, graph)``."""
     update, loss = solver.update_state, (solver.nll if record else None)
-    key = (_signature(state), str(_device_of(state)), _scalars(solver))
+    key = (_signature(state), str(_device_of(state)), _scalars(solver), solver._graph_inputs())
     cache = _graph_cache(solver)
     graph = cache.get(key)
     if graph is not None:

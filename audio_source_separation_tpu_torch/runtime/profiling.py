@@ -126,7 +126,7 @@ def benchmark_solver(solver, X, iteration=30, warmup=True, short=None, update_fn
         state = _init_state(solver, X)
         device = solver.input.device
         start = time.perf_counter()
-        if solver._uses_graph(device):
+        if solver._uses_graph(solver.input):
             stream = new_stream(device)
             with on_stream(stream):
                 graph = StepGraph(type(solver).__name__, update_fn(state), update_fn, stream=stream)
@@ -177,9 +177,8 @@ def iteration_cost(solver, X, update_fn=None):
     that recompute, which the JAX count holds, is not in this one.  What it
     counts follows the device: where ``torch.linalg`` dispatches other aten
     ops on CUDA than on the CPU (one cuSOLVER call against LAPACK's pieces),
-    a solver's CPU and card counts differ there, as they may in IPSDTA's
-    ``_eigh_wide``, which cuts its complex128 eigensolves into chunks of
-    8192 blocks; K1 and K2 charge the same on both.  A failure while
+    a solver's CPU and card counts differ there; K1, K2 and K3 (every
+    eigensolve of a step) charge the same on both.  A failure while
     counting, a kernel's build or launch included, raises.
     """
     if not isinstance(solver, IterativeSolver):

@@ -398,17 +398,29 @@ class IterativeSolver:
         """Host-side hook: fill in defaults that need host RNG (NumPy)."""
         return state_kwargs
 
-    def capturable(self):
+    def capturable(self, X):
         """Whether this configuration's step (``update_state``, then
-        ``nll``) can be captured as a CUDA graph: no host read and no op
-        that synchronises.  The captured loop (:mod:`.graph`) runs the
-        solvers that say so on a CUDA card; the rest keep the eager loop."""
+        ``nll``) on the input ``X`` (the tensor ``init_state`` takes) can be
+        captured as a CUDA graph: no host read and no op that synchronises.
+        It is decided before init, from the configuration and ``X``'s shape
+        (ProxLaplaceIVA's ``svd`` past C = 2 reads on the host).  The
+        captured loop (:mod:`.graph`) runs the solvers that say so on a CUDA
+        card; the rest keep the eager loop, as does any call under
+        :meth:`use_mesh` (a collective in the step)."""
         return False
 
-    def _uses_graph(self, device):
-        """Whether a call on ``device`` runs the captured loop: a capturable
-        step, no mesh, a CUDA device (or the CPU hook)."""
-        return self.capturable() and self._mesh is None and (device.type == "cuda" or self._emulate_graph)
+    def _graph_inputs(self):
+        """The objects a captured step reads besides its state and the
+        solver's plain attributes (a network, say): a tuple in the graph
+        cache's key, held there as long as the graph."""
+        return ()
+
+    def _uses_graph(self, X):
+        """Whether a call on the input ``X`` runs the captured loop: a
+        capturable step at ``X``'s shape, no mesh, a CUDA device (or the CPU
+        hook)."""
+        on_card = X.device.type == "cuda" or self._emulate_graph
+        return on_card and self._mesh is None and self.capturable(X)
 
     def input_dtype(self, X):
         """The type the solver runs at for the input tensor ``X``: complex64
@@ -478,7 +490,7 @@ class IterativeSolver:
         # the host inits above were drawn at the true bin count; a mesh pads
         # and cuts them with the input
         with self._on_shard(X, state_kwargs) as (X, state_kwargs):
-            if not eager and self._uses_graph(X.device):
+            if not eager and self._uses_graph(X):
                 from .graph import graph_loop
 
                 return graph_loop(self, X, iteration, state_kwargs)

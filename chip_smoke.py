@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile]
 
 Phases (each asserts; any failure exits non-zero):
-  1. the card's name and power limit; build both CUDA kernels from
+  1. the card's name and power limit; build the three CUDA kernels from
      ``audio_source_separation_tpu_torch/csrc`` with nvcc (one process per
      source, in parallel) and print the build time;
   2. kernels: K1 (weighted covariance) at C in {2, 3, 4} x 2049 x 469, at
@@ -14,7 +14,16 @@ Phases (each asserts; any failure exits non-zero):
      streamed), each held against its plain PyTorch version on the same
      inputs and bit-identical across two launches; median times of 25
      launches by CUDA events, K1 also with L2 flushed before each launch,
-     and K1's launch plan;
+     and K1's launch plan; then K3 (batched Hermitian eigensolver) at the
+     main paths' batches (K3_CASES: Kondo's R at 1024 blocks, 2 x 469 x
+     1024 of 3 x 3 complex64; Kondo at 256 blocks, 240,128 of 9 x 9; the
+     C = 3 Riccati's 2049 x 469 of 3 x 3, full rank and rank 1; LDPSDTF's
+     469 of 64 x 64 float32, at complex128, and of 128 x 128 on the
+     workspace route) against its plain version: the eigenvalue error,
+     |HV - VL| / |H| and |V^H V - I| (1e-5 single, 1e-10 double), NaN
+     exactly for matrices given a non-finite entry, one launch a call,
+     bit-identical launches; ms against the bound, the plain version and
+     one torch.linalg.eigh call (cuSOLVER), and the sweeps taken;
   3. main path, C = 2: a 60 s, 16 kHz stereo convolutive mixture ->
      stft(4096, 2048) -> AuxLaplaceIVA(IP) x 100 -> projection-back -> istft
      on the card; K2 once per iteration, loss finite and non-increasing,
@@ -57,8 +66,9 @@ Phases (each asserts; any failure exits non-zero):
      phase 5's C = 3 covariances through its eigh path x 20; finite
      losses, the last below the first where tests/test_nmf.py holds it,
      the first 20 losses against the CPU float64 run from the same
-     seed-111 init (CovarianceISNMF at C = 3: the first 5), neither kernel
-     launched, ms and host ms per iteration, and the batched eigh's time;
+     seed-111 init (CovarianceISNMF at C = 3: the first 5), neither K1 nor
+     K2 launched (CovarianceISNMF at C = 3 runs its eigensolves on K3), ms
+     and host ms per iteration, and the batched eigh's time;
   9. slice 5 and IDLMA through the entry points, on phase 3's mixture:
      GaussIDLMA x 20 with the JAX benchmark row's variance network (2049 ->
      512 -> 2049, seed-111 weights; K1 per bin once per iteration, the first
@@ -78,18 +88,19 @@ Phases (each asserts; any failure exits non-zero):
  10. MNMF through the entry points at n_basis = 10 from the seed-111 init, on
      phase 3's mixture: FastMultichannelISNMF x 100 (K1 per bin, N = 2, once
      per iteration, SI-SDR up by more than 5 dB), MultichannelISNMF Sawada x
-     100 and Ozerov x 50 (no kernel, SI-SDR within 0.1 dB of the port's CPU
+     100 and Ozerov x 50 (no K1 or K2, SI-SDR within 0.1 dB of the port's CPU
      float64 run); for each, finite losses, the last below the first, the
      first 20 losses against the CPU float64 run (Sawada: the increments
      L_k - L_0 at 1e-4, its first loss and its output apart; Ozerov at its
      float32 tolerance) with a CPU float32 run's gaps beside, ms and host ms
      per iteration, the device's busy time (FastMNMF, Sawada); then on phase
      5's mixture FastMNMF x 20 (K1 per bin, N = 3), Sawada x 10 (the matrix
-     Riccati) and Ozerov x 10, finite;
+     Riccati on K3) and Ozerov x 10, finite;
  11. block-PSD through the entry points at n_basis = 2 from the seed-111
      init, on phase 3's mixture at the JAX benchmark rows' widths (1024
      blocks, B = 3): GaussIPSDTA Kondo x 20 (K1 per bin, N = 2, once per
-     iteration), Ikeshita and TIPSDTA(nu=1000) x 20 (no kernel); finite
+     iteration), Ikeshita and TIPSDTA(nu=1000) x 20 (no K1); every
+     eigensolve on K3; finite
      losses, the last below the first (not Ikeshita's), the SI-SDR, the
      first 5 losses against the port's CPU float64 run (Kondo at float32's
      gap; Ikeshita's first loss, its spike amplifying rounding after) with
@@ -99,8 +110,8 @@ Phases (each asserts; any failure exits non-zero):
      2 dB; Kondo x 5 on phase 5's mixture (the planes VCD at C = 3, K1 per
      bin with N = 3); LDPSDTF at K = 2 (the pencil) x 60 and K = 3 x 20 on
      the JAX benchmark's Gram targets (64 taps x 469 frames), the first 20
-     losses against CPU float64 (at float32's gap), no kernel, ms per
-     iteration; then the off-default source routes at 1024 blocks x 5,
+     losses against CPU float64 (at float32's gap), their eigensolves on
+     K3, ms per iteration; then the off-default source routes at 1024 blocks x 5,
      each against its default route on the card at that row's float32
      hold: Kondo, Ikeshita and TIPSDTA(1000) with source_compact=False
      (the complex planes), Kondo and TIPSDTA with source_pencil=True (the
@@ -167,32 +178,42 @@ Phases (each asserts; any failure exits non-zero):
      (C = 3 on phase 5's): one iteration of AuxLaplaceIVA and AuxGaussIVA
      IP (K2), AuxLaplaceIVA IP at C = 3 (K1), GaussILRMA(10) IP,
      FastMultichannelISNMF(10), GaussIDLMA with phase 9's network and Kondo
-     GaussIPSDTA (K1 per bin), and with no kernel MNMF Sawada(10) and
-     Ozerov(10), ISNMF(10) on |X[0]|^2, CovarianceISNMF(10) on the
-     covariances, LDPSDTF(2) on phase 11's Gram target, GradLaplaceFDICA and
-     ProxLaplaceIVA; each counted on the card (the kernels' launches during
-     the count equal its charges, one a count for the kernel families) and
+     GaussIPSDTA (K1 per bin, K3 twice), LDPSDTF(2) on phase 11's Gram
+     target (K3 twice), and with no kernel MNMF Sawada(10) and Ozerov(10),
+     ISNMF(10) on |X[0]|^2, CovarianceISNMF(10) on the covariances,
+     GradLaplaceFDICA and ProxLaplaceIVA; each counted on the card (the
+     kernels' launches during the count equal its charges, as listed) and
      on the CPU at the card's dtype (equal on the K2 path, the ratio printed
      for the others), its rate by ``benchmark_solver`` (short windows above
      10 ms an iteration), and one line of bytes and FLOPs an iteration, GB/s,
      the share of phase 13's ``measure_memory_bandwidth`` reading and FLOP/s;
  15. the captured loop (``runtime/graph.py``: one step captured as a CUDA
      graph per signature and replayed) against the eager one
-     (``IterativeSolver._eager_call``), on phase 3's mixture at 2 x 2049 x
-     469 (C = 3 on phase 5's) and the factorisation targets of phase 8: for
-     each family of the slice (AuxLaplaceIVA and AuxGaussIVA IP at C = 2,
-     K2, and C = 3, K1; ISS; IP2; GaussILRMA(10) IP, ISS and IP2; TILRMA;
-     ConsistentGaussILRMA; FastMultichannelISNMF(10); the NMF models,
-     ComplexEUCNMF and EUCNTF) x 20 from the same draws, one line: bits or
-     gap (equal bits held on the K2 path, 1e-5 elsewhere), launches per
-     call, one capture across two calls, ms an iteration for both by
+     (the same entry point with the step declared not capturable), on
+     phase 3's mixture at 2 x 2049 x 469 (C = 3 on phase 5's, 4 mics on a
+     seeded 4 x 2049 x 469 draw), the factorisation targets of phase 8 and
+     phase 11's Gram targets: for each family (GRAPH_CASES: AuxLaplaceIVA
+     and AuxGaussIVA IP at C = 2, K2, and C = 3, K1; ISS; IP2;
+     GaussILRMA(10) IP, ISS and IP2; TILRMA; ConsistentGaussILRMA;
+     FastMultichannelISNMF(10); the NMF models, ComplexEUCNMF and EUCNTF;
+     and since K3 the gradient IVAs and FDICAs, OverAuxLaplaceIVA 4 -> 2
+     (K2), ProxLaplaceIVA at C = 2, Sawada(10) at C = 2 and 3 (K3),
+     Ozerov(10), CovarianceISNMF(10) at C = 2 and 3 (K3), GaussIDLMA with
+     phase 9's network and jax_dnn=True (K1), Kondo GaussIPSDTA at 1024
+     blocks (K1, K3), Ikeshita and TIPSDTA(1000) (K3), LDPSDTF at K = 2 and
+     3 on 64 x 64 x 469 (K3)) x 20 (x 10 where the eager loop is slow,
+     GRAPH_SLOW) from the same draws, one line: bits or gap (equal bits
+     held on the K2 path, 1e-5 elsewhere), the launches of K1, K2 and K3
+     per call as the eager loop's, one capture across two calls, ms an
+     iteration for both by
      ``per_iteration``'s differencing, the replay's host ms and the capture
      seconds; ``batch_separate`` over AuxLaplaceIVA IP x 30 on 8 x 2 x 2049
      x 469 (one capture, mixtures/s against the eager loop's) and
      ``benchmark_solver`` on the main path, graph against eager.  Every
      earlier phase runs through the captured loop too;
- 16. the script's seconds, one ``{"kernels": [...]}`` line (K2 once per contrast), then the last
-     line ``{"ok": true, "device": {...}}``.
+ 16. the script's seconds, one ``{"kernels": [...]}`` line (K1, K2 once
+     per contrast, K3), then the last line ``{"ok": true, "device":
+     {...}}``.
 
 Phase 2 also holds K2's Gauss instance at both shapes, K2 (both contrasts)
 on phase 13's shard of 1025 of 2050 padded bins with the whole count, K1 at C = 3 with
@@ -266,6 +287,12 @@ from audio_source_separation_tpu_torch.ops.cov_kernel import (
     weighted_covariance_planes,
     weighted_covariance_planes_plain,
 )
+from audio_source_separation_tpu_torch.ops.eigh_kernel import (
+    batched_eigh,
+    batched_eigh_plain,
+    eigh_cost,
+    k3_launch_plan,
+)
 from audio_source_separation_tpu_torch.ops.fused_ip import (
     fused_auxiva_ip_iter,
     fused_auxiva_ip_iter_plain,
@@ -295,7 +322,7 @@ from audio_source_separation_tpu_torch.parallel.mesh import (
     reset_collective_counts,
 )
 from audio_source_separation_tpu_torch.runtime import benchmark_solver, measure_memory_bandwidth
-from audio_source_separation_tpu_torch.runtime.profiling import iteration_cost
+from audio_source_separation_tpu_torch.runtime.profiling import _init_state, iteration_cost
 from audio_source_separation_tpu_torch.tools import dryrun_multichip
 from audio_source_separation_tpu_torch.tools.timing import l2_flusher, median_ms
 from audio_source_separation_tpu_torch.utils import (
@@ -322,9 +349,12 @@ ITERS_MNMF, ITERS_OZEROV, ITERS_MNMF_C3 = 100, 50, 10
 ITERS_IPSDTA, IPSDTA_MATCH, ITERS_IPSDTA_C3 = 20, 5, 5
 ITERS_PSDTF2, ITERS_PSDTF3, PSDTF_TAPS = 60, 20, 64
 EPS, THRESHOLD = 1e-12, 1e12
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 non-tensor
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 non-tensor;
+# f64 through the FP64 tensor cores (the card's peak for the type), K3's
+# bound on float64 and complex128 matrices
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+F64_FLOPS_PER_S = 67e12
 # tolerances, float32 kernel against float32 plain version on the same inputs
 K1_RTOL = 1e-4  # max |err| / max |plain|
 K2_RTOL = 1e-4  # the same, for W, psum and the NLL
@@ -389,9 +419,9 @@ def best_pairing_si_sdr(estimates, targets):
     return max(np.mean([table[i][p[i]] for i in range(n)]) for p in itertools.permutations(range(n)))
 
 
-def bound(n_bytes, n_flops):
+def bound(n_bytes, n_flops, flops_per_s=F32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -492,6 +522,138 @@ def k2_case(gen, F, T, contrast="laplace", n_bins=None):
     }
 
 
+# K3 against its plain version (both at float64 arithmetic, the result at the
+# input's type), relative to each matrix's largest eigenvalue modulus or norm
+K3_RTOL = {torch.float32: 1e-5, torch.complex64: 1e-5, torch.float64: 1e-10, torch.complex128: 1e-10}
+# K3's cases: the main paths' batches (name, batch shape, n, type, rank):
+# Kondo's R at 1024 blocks (S, T, nb, B, B), Kondo at 256 blocks (its 9 x 9
+# blocks), the C = 3 Riccati's (F, T, 3, 3), the same of rank 1 (Sawada's
+# covariances x x^H), LDPSDTF's model covariances (T, 64, 64), the same at
+# complex128, and at 128 taps, past the order a block holds in shared memory
+# (the workspace route)
+K3_CASES = [
+    ("kondo_r_1024_blocks", (2, 469, 1024), 3, torch.complex64, None),
+    ("kondo_256_blocks", (240_128,), 9, torch.complex64, None),
+    ("riccati_c3", (2049, 469), 3, torch.complex64, None),
+    ("sawada_rank1_c3", (2049, 469), 3, torch.complex64, 1),
+    ("ldpsdtf_64", (469,), 64, torch.float32, None),
+    ("ldpsdtf_64_complex128", (469,), 64, torch.complex128, None),
+    ("ldpsdtf_128_workspace", (469,), 128, torch.float32, None),
+]
+
+
+def synced_ms(fn, reps=3):
+    """Median of ``reps`` calls of ``fn`` by CUDA events around each, after
+    one call: for calls that read on the host (``torch.linalg.eigh``), which
+    ``median_ms``'s queue behind a spin kernel cannot hold."""
+    fn()
+    times = []
+    for _ in range(reps):
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        begin.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(begin.elapsed_time(end))
+    return float(np.median(times))
+
+
+def hermitian_batch(gen, batch, n, dtype, rank=None):
+    """PSD ``(*batch, n, n)`` matrices ``A diag(s) A^H`` with ``s`` spanning
+    three decades, as the solvers' covariances do; ``A`` of ``rank``
+    columns (default ``n``)."""
+    complex_ = dtype.is_complex
+    real = torch.float64 if dtype in (torch.float64, torch.complex128) else torch.float32
+    rank = n if rank is None else rank
+    shape = (*batch, n, rank)
+    A = torch.randn(shape, generator=gen, device="cuda", dtype=real)
+    if complex_:
+        A = torch.complex(A, torch.randn(shape, generator=gen, device="cuda", dtype=real))
+    s = 10.0 ** (3 * torch.rand((*batch, 1, rank), generator=gen, device="cuda", dtype=real) - 1.5)
+    H = (A * s.to(A.dtype)) @ A.mH
+    return ((H + H.mH) / 2).to(dtype).contiguous()
+
+
+def k3_errors(H, w, V):
+    """``(eigenvalue error, |HV - VL| / |H|, |V^H V - I|)``, each the
+    largest over the batch, at double precision against the plain version."""
+    wide = torch.complex128 if H.is_complex() else torch.float64
+    w_ref = batched_eigh_plain(H.to(wide), vectors=False)
+    wd = w.to(torch.float64)
+    scale = w_ref.abs().amax(dim=-1, keepdim=True).clamp(min=1e-300)
+    eig = float(((wd - w_ref).abs() / scale).max())
+    Hd, Vd = H.to(wide), V.to(wide)
+    norm = torch.linalg.matrix_norm(Hd).clamp(min=1e-300)
+    resid = float((torch.linalg.matrix_norm(Hd @ Vd - Vd * wd[..., None, :].to(wide)) / norm).max())
+    eye = torch.eye(H.shape[-1], dtype=wide, device=H.device)
+    ortho = float((Vd.mH @ Vd - eye).abs().max())
+    return eig, resid, ortho, float((wd - w_ref).abs().max())
+
+
+def k3_case(gen, name, batch, n, dtype, rank):
+    """K3 against its plain version on the card: the errors of
+    :func:`k3_errors`, ascending eigenvalues, bit-identical across two
+    launches, NaN exactly for the matrices given a non-finite entry, one
+    launch counted a call; median times of K3, the plain version and one
+    ``torch.linalg.eigh`` call (cuSOLVER) at the input's type (``None``,
+    with the reason, where that call refuses the batch), beside the
+    bound; the sweeps the matrices took."""
+    H = hermitian_batch(gen, batch, n, dtype, rank)
+    before = batched_eigh.launches
+    w, V = batched_eigh(H)
+    again = batched_eigh(H)
+    values = batched_eigh(H, vectors=False)
+    torch.cuda.synchronize()
+    calls = batched_eigh.launches - before
+    eig, resid, ortho, abs_err = k3_errors(H, w, V)
+    bad = H.clone()
+    flat = bad.reshape(-1, n, n)
+    poisoned = [0, flat.shape[0] // 2, flat.shape[0] - 1]
+    flat[poisoned[0], n - 1, 0] = float("nan")
+    flat[poisoned[1], 0, n - 1] = float("inf")
+    flat[poisoned[2], n // 2, n // 2] = float("-inf")
+    w_bad, V_bad = batched_eigh(bad)
+    mask = torch.zeros(flat.shape[0], dtype=torch.bool, device="cuda")
+    mask[poisoned] = True
+    w_bad, V_bad = w_bad.reshape(-1, n), V_bad.reshape(-1, n, n)
+    nan_exact = bool(torch.isnan(w_bad[mask]).all() and torch.isnan(V_bad[mask]).all()
+                     and torch.isfinite(w_bad[~mask]).all() and torch.isfinite(V_bad[~mask]).all())
+    sweeps = torch.zeros(flat.shape[0], dtype=torch.int32, device="cuda")
+    batched_eigh(H, sweeps=sweeps)
+    rtol = K3_RTOL[dtype]
+    checks = {
+        "one launch a call": calls == 3,
+        "finite (every matrix converged)": bool(torch.isfinite(w).all() and torch.isfinite(V).all()),
+        "bit-identical across launches": torch.equal(w, again[0]) and torch.equal(V, again[1]),
+        "eigenvalues alone as with vectors": torch.equal(values, w),
+        "ascending": bool((w[..., 1:] >= w[..., :-1]).all()),
+        "eigenvalues within {}".format(rtol): eig <= rtol,
+        "|HV - VL| / |H| within {}".format(10 * rtol): resid <= 10 * rtol,
+        "|V^H V - I| within {}".format(10 * rtol): ortho <= 10 * rtol,
+        "NaN exactly for the non-finite matrices": nan_exact,
+    }
+    assert all(checks.values()), ("K3", name, {k: v for k, v in checks.items() if not v})
+    ms = median_ms(lambda: batched_eigh(H), warmup=2, reps=10)
+    plain_ms = synced_ms(lambda: batched_eigh_plain(H))
+    try:
+        library_ms, library_note = synced_ms(lambda: torch.linalg.eigh(H)), None
+    except RuntimeError as err:  # cuSOLVER refuses some batches (ops/eigh_kernel.py::EIGH_CHUNK)
+        library_ms, library_note = None, str(err).splitlines()[0][:200]
+    matrices = flat.shape[0]
+    rate = F32_FLOPS_PER_S if dtype in (torch.float32, torch.complex64) else F64_FLOPS_PER_S
+    bound_ms, bound_by = bound(*eigh_cost(n, matrices, dtype.is_complex, True, H.element_size()), rate)
+    return {
+        "name": name, "batch": list(batch), "n": n, "rank": rank or n, "dtype": str(dtype).replace("torch.", ""),
+        "plan": k3_launch_plan(n, matrices, dtype.is_complex, True)._asdict(),
+        "eig_rel_err": eig, "residual": resid, "orthogonality": ortho, "max_abs_err": abs_err,
+        "nan_exact": nan_exact, "launches": calls, "calls": 3, "tolerance": rtol,
+        "sweeps_mean": float(sweeps.double().mean()), "sweeps_max": int(sweeps.max()),
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "library_note": library_note,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
 # --------------------------------------------------------------------------- #
 # phases 3-4: the main path
 # --------------------------------------------------------------------------- #
@@ -539,6 +701,7 @@ def main_path_c2(rng):
     mixture, images = synth_mixture(rng, 2, N_SAMPLES)
     fused_auxiva_ip_iter.launches = 0
     weighted_covariance_planes.launches = 0
+    batched_eigh.launches = 0
     torch.cuda.synchronize()
     start = time.perf_counter()
     X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE)
@@ -581,6 +744,7 @@ def main_path_c2_long(rng):
     mixture, images = synth_mixture(rng, 2, N_SAMPLES_LONG)
     fused_auxiva_ip_iter.launches = 0
     weighted_covariance_planes.launches = 0
+    batched_eigh.launches = 0
     torch.cuda.synchronize()
     start = time.perf_counter()
     X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE_LONG, hop_size=HOP_SIZE_LONG)
@@ -616,6 +780,7 @@ def main_path_c3_long(rng):
     mixture, images = synth_mixture(rng, 3, N_SAMPLES_LONG)
     fused_auxiva_ip_iter.launches = 0
     weighted_covariance_planes.launches = 0
+    batched_eigh.launches = 0
     torch.cuda.synchronize()
     start = time.perf_counter()
     X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE_LONG, hop_size=HOP_SIZE_LONG)
@@ -651,6 +816,7 @@ def main_path_c3(rng):
     mixture, images = synth_mixture(rng, 3, N_SAMPLES)
     fused_auxiva_ip_iter.launches = 0
     weighted_covariance_planes.launches = 0
+    batched_eigh.launches = 0
     X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE)
     solver = AuxLaplaceIVA(algorithm_spatial="IP")
     Y = solver(X, iteration=ITERS_C3)
@@ -688,6 +854,7 @@ def drive(make, mixture, iterations, **call):
     after."""
     fused_auxiva_ip_iter.launches = 0
     weighted_covariance_planes.launches = 0
+    batched_eigh.launches = 0
     torch.cuda.synchronize()
     start = time.perf_counter()
     X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE)
@@ -701,7 +868,7 @@ def drive(make, mixture, iterations, **call):
     assert np.isfinite(loss).all() and np.isfinite(y).all(), "non-finite loss or output"
     return X, Y, y, loss, {
         "iterations": iterations, "wall_s": wall_s,
-        "k1_launches": weighted_covariance_planes.launches, "k2_launches": fused_auxiva_ip_iter.launches,
+        **counts(),
         "loss_first": float(loss[0]), "loss_last": float(loss[-1]),
     }
 
@@ -941,6 +1108,7 @@ def factorisation(mixture, mixture3):
         np.random.seed(SEED)
         fused_auxiva_ip_iter.launches = 0
         weighted_covariance_planes.launches = 0
+        batched_eigh.launches = 0
         torch.cuda.synchronize()
         start = time.perf_counter()
         model = cls(n_basis=FACTOR_BASIS, **kw)
@@ -950,7 +1118,7 @@ def factorisation(mixture, mixture3):
         res = out[key] = {
             "target_shape": list(targets[target].shape), "iterations": iterations,
             "wall_s": time.perf_counter() - start,
-            "k1_launches": weighted_covariance_planes.launches, "k2_launches": fused_auxiva_ip_iter.launches,
+            **counts(),
             "loss_first": float(loss[0]), "loss_last": float(loss[-1]),
             "factor_shapes": [list(f.shape) for f in factors],
         }
@@ -1196,6 +1364,7 @@ def beamformers(rng, failed):
     }
     fused_auxiva_ip_iter.launches = 0
     weighted_covariance_planes.launches = 0
+    batched_eigh.launches = 0
     X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE)
     X_cpu32 = X_cpu.to(torch.complex64)
     out, Y, expected, checks = {}, {}, {}, {}
@@ -1667,7 +1836,7 @@ def block_psd(mixture, images, mixture3, images3, failed):
         row_start = time.perf_counter()
         target = gram_target(n_basis, n_frames)
         np.random.seed(SEED)
-        weighted_covariance_planes.launches = fused_auxiva_ip_iter.launches = 0
+        weighted_covariance_planes.launches = fused_auxiva_ip_iter.launches = batched_eigh.launches = 0
         torch.cuda.synchronize()
         start = time.perf_counter()
         model = LDPSDTF(n_basis=n_basis)
@@ -1676,7 +1845,7 @@ def block_psd(mixture, images, mixture3, images3, failed):
         loss = np.asarray(model.loss)
         res = out[key] = {
             "target_shape": list(target.shape), "iterations": iterations, "wall_s": time.perf_counter() - start,
-            "k1_launches": weighted_covariance_planes.launches, "k2_launches": fused_auxiva_ip_iter.launches,
+            **counts(),
             "loss_first": float(loss[0]), "loss_last": float(loss[-1]),
         }
         start = time.perf_counter()
@@ -1714,11 +1883,15 @@ MEMBER_RTOL = 1e-6  # a batch member vs its own call (both kernels reduce in a f
 def counts_zero():
     fused_auxiva_ip_iter.launches = 0
     weighted_covariance_planes.launches = 0
+    batched_eigh.launches = 0
     torch.cuda.synchronize()
 
 
 def counts():
-    return {"k1_launches": weighted_covariance_planes.launches, "k2_launches": fused_auxiva_ip_iter.launches}
+    return {
+        "k1_launches": weighted_covariance_planes.launches, "k2_launches": fused_auxiva_ip_iter.launches,
+        "k3_launches": batched_eigh.launches,
+    }
 
 
 def batch_rows(Xs, mixtures, images, failed):
@@ -2451,9 +2624,9 @@ COST_WINDOWS = {"fast": (1000, 100), "mid": (30, 3), "slow": (4, 2)}
 
 
 def cost_rows(mlp_weights):
-    """Phase 14's families: ``(key, make(device), input key, kernel charged
-    once an iteration or None, benchmark window)``; ``mlp_weights`` are
-    phase 9's network's."""
+    """Phase 14's families: ``(key, make(device), input key, the kernels'
+    charges an iteration, benchmark window)``; ``mlp_weights`` are phase
+    9's network's."""
     W1, W2 = mlp_weights
 
     def idlma(device):
@@ -2462,20 +2635,22 @@ def cost_rows(mlp_weights):
         return solver
 
     return [
-        ("laplace_ip_c2", lambda d: AuxLaplaceIVA(device=d), "X", "K2", "fast"),
-        ("gauss_ip_c2", lambda d: AuxGaussIVA(device=d), "X", "K2", "fast"),
-        ("laplace_ip_c3", lambda d: AuxLaplaceIVA(device=d), "X3", "K1", "mid"),
-        ("gauss_ilrma_10", lambda d: GaussILRMA(n_basis=10, device=d), "X", "K1", "mid"),
-        ("fast_mnmf_10", lambda d: FastMultichannelISNMF(n_basis=10, device=d), "X", "K1", "mid"),
-        ("gauss_idlma", idlma, "X", "K1", "mid"),
-        ("ipsdta_kondo", lambda d: GaussIPSDTA(n_basis=2, device=d), "X", "K1", "slow"),
-        ("mnmf_sawada_10", lambda d: MultichannelISNMF(n_basis=10, device=d), "X", None, "slow"),
-        ("mnmf_ozerov_10", lambda d: MultichannelISNMF(n_basis=10, author="Ozerov", device=d), "X", None, "mid"),
-        ("isnmf_10", lambda d: ISNMF(n_basis=10, device=d), "power", None, "mid"),
-        ("cov_isnmf_10", lambda d: CovarianceISNMF(n_basis=10, device=d), "covariance", None, "slow"),
-        ("ldpsdtf_2", lambda d: LDPSDTF(n_basis=2, device=d), "gram", None, "mid"),
-        ("grad_fdica", lambda d: GradLaplaceFDICA(lr=0.1, device=d), "X", None, "mid"),
-        ("prox", lambda d: ProxLaplaceIVA(device=d), "X", None, "mid"),
+        ("laplace_ip_c2", lambda d: AuxLaplaceIVA(device=d), "X", {"K2": 1}, "fast"),
+        ("gauss_ip_c2", lambda d: AuxGaussIVA(device=d), "X", {"K2": 1}, "fast"),
+        ("laplace_ip_c3", lambda d: AuxLaplaceIVA(device=d), "X3", {"K1": 1}, "mid"),
+        ("gauss_ilrma_10", lambda d: GaussILRMA(n_basis=10, device=d), "X", {"K1": 1}, "mid"),
+        ("fast_mnmf_10", lambda d: FastMultichannelISNMF(n_basis=10, device=d), "X", {"K1": 1}, "mid"),
+        ("gauss_idlma", idlma, "X", {"K1": 1}, "mid"),
+        # the source step's square-root chain: two K3 calls
+        ("ipsdta_kondo", lambda d: GaussIPSDTA(n_basis=2, device=d), "X", {"K1": 1, "K3": 2}, "slow"),
+        ("mnmf_sawada_10", lambda d: MultichannelISNMF(n_basis=10, device=d), "X", {}, "slow"),
+        ("mnmf_ozerov_10", lambda d: MultichannelISNMF(n_basis=10, author="Ozerov", device=d), "X", {}, "mid"),
+        ("isnmf_10", lambda d: ISNMF(n_basis=10, device=d), "power", {}, "mid"),
+        ("cov_isnmf_10", lambda d: CovarianceISNMF(n_basis=10, device=d), "covariance", {}, "slow"),
+        # the basis step's and the pencil's eigensolves
+        ("ldpsdtf_2", lambda d: LDPSDTF(n_basis=2, device=d), "gram", {"K3": 2}, "mid"),
+        ("grad_fdica", lambda d: GradLaplaceFDICA(lr=0.1, device=d), "X", {}, "mid"),
+        ("prox", lambda d: ProxLaplaceIVA(device=d), "X", {}, "mid"),
     ]
 
 
@@ -2494,13 +2669,22 @@ def cost_model(X, X3, copy_gb_s, failed):
     out = {"copy_gb_s": copy_gb_s}
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)  # Ozerov's "in progress"
-        for key, make, input_key, kernel, window in cost_rows(variance_mlp_weights(X.shape[1])):
+        for key, make, input_key, charges, window in cost_rows(variance_mlp_weights(X.shape[1])):
             row_start = time.perf_counter()
             target = inputs[input_key]
+            # the init's launches (LDPSDTF's eigensolves), outside the count
+            np.random.seed(SEED)
+            counts_zero()
+            _init_state(make("cuda"), target)
+            init = counts()
             np.random.seed(SEED)
             counts_zero()
             card = iteration_cost(make("cuda"), target)
-            launched = {"K1": weighted_covariance_planes.launches, "K2": fused_auxiva_ip_iter.launches}
+            launched = {
+                "K1": weighted_covariance_planes.launches - init["k1_launches"],
+                "K2": fused_auxiva_ip_iter.launches - init["k2_launches"],
+                "K3": batched_eigh.launches - init["k3_launches"],
+            }
             np.random.seed(SEED)
             cpu = iteration_cost(make("cpu"), target.cpu())
             iteration, short = COST_WINDOWS[window]
@@ -2530,10 +2714,10 @@ def cost_model(X, X3, copy_gb_s, failed):
                       res["cpu_over_card_bytes"], res["cpu_over_card_flops"]), flush=True)
             checks = {
                 "launches equal charges": launched == {k: card.charges.get(k, 0) for k in launched},
-                "one charge of its kernel": card.charges == ({kernel: 1} if kernel else {}),
+                "its kernels' charges": card.charges == charges,
                 "positive finite counts": all(math.isfinite(v) and v > 0 for v in (card.bytes, card.flops)),
             }
-            if kernel == "K2":
+            if charges == {"K2": 1}:
                 checks["CPU count equals the card's"] = (cpu.bytes, cpu.flops) == (card.bytes, card.flops)
             record_checks(failed, "cost_" + key, checks)
     out["phase_s"] = time.perf_counter() - start
@@ -2548,29 +2732,57 @@ ITERS_GRAPH, GRAPH_N, GRAPH_WARM = 20, 50, 5
 # replayed, so equal bits are expected; the hold allows float32 sums taken in
 # another order (of the loss; of the output's largest entry)
 GRAPH_RTOL = 1e-5
-# key, constructor, input (phase 3's mixture "X2", phase 5's "X3", or a
-# factorisation target of factor_targets), K1 and K2 launches an iteration
+# key, constructor, input (phase 3's mixture "X2", phase 5's "X3", a seeded
+# 4-mic "X4", phase 11's Gram targets "gram2" and "gram3", or a
+# factorisation target of factor_targets), K1, K2 and K3 launches an
+# iteration
 GRAPH_CASES = [
-    ("laplace_ip_c2", lambda: AuxLaplaceIVA(), "X2", 0, 1),
-    ("gauss_ip_c2", lambda: AuxGaussIVA(), "X2", 0, 1),
-    ("laplace_ip_c3", lambda: AuxLaplaceIVA(), "X3", 1, 0),
-    ("gauss_ip_c3", lambda: AuxGaussIVA(), "X3", 1, 0),
-    ("laplace_iss_c2", lambda: AuxLaplaceIVA(algorithm_spatial="ISS"), "X2", 0, 0),
-    ("laplace_ip2_c2", lambda: AuxLaplaceIVA(algorithm_spatial="IP2"), "X2", 1, 0),
-    ("gauss_ilrma_ip_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS), "X2", 1, 0),
-    ("gauss_ilrma_iss_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS, algorithm_spatial="ISS"), "X2", 0, 0),
-    ("gauss_ilrma_ip2_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS, algorithm_spatial="IP2"), "X2", 1, 0),
-    ("tilrma_c2", lambda: TILRMA(n_basis=BATCH_BASIS), "X2", 1, 0),
-    ("consistent_ilrma_c2", lambda: ConsistentGaussILRMA(n_basis=BATCH_BASIS, fft_size=FFT_SIZE), "X2", 1, 0),
-    ("fast_mnmf_c2", lambda: FastMultichannelISNMF(n_basis=BATCH_BASIS), "X2", 1, 0),
-    ("eucnmf", lambda: EUCNMF(n_basis=FACTOR_BASIS), "power", 0, 0),
-    ("klnmf", lambda: KLNMF(n_basis=FACTOR_BASIS), "power", 0, 0),
-    ("isnmf_mm", lambda: ISNMF(n_basis=FACTOR_BASIS), "power", 0, 0),
-    ("tnmf", lambda: TNMF(n_basis=FACTOR_BASIS), "power", 0, 0),
-    ("cauchy_mm_fast", lambda: CauchyNMF(n_basis=FACTOR_BASIS, algorithm="mm_fast"), "power", 0, 0),
-    ("complex_eucnmf", lambda: ComplexEUCNMF(n_basis=FACTOR_BASIS), "spectrogram", 0, 0),
-    ("eucntf", lambda: EUCNTF(n_basis=FACTOR_BASIS), "power_tensor", 0, 0),
+    ("laplace_ip_c2", lambda: AuxLaplaceIVA(), "X2", (0, 1, 0)),
+    ("gauss_ip_c2", lambda: AuxGaussIVA(), "X2", (0, 1, 0)),
+    ("laplace_ip_c3", lambda: AuxLaplaceIVA(), "X3", (1, 0, 0)),
+    ("gauss_ip_c3", lambda: AuxGaussIVA(), "X3", (1, 0, 0)),
+    ("laplace_iss_c2", lambda: AuxLaplaceIVA(algorithm_spatial="ISS"), "X2", (0, 0, 0)),
+    ("laplace_ip2_c2", lambda: AuxLaplaceIVA(algorithm_spatial="IP2"), "X2", (1, 0, 0)),
+    ("gauss_ilrma_ip_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS), "X2", (1, 0, 0)),
+    ("gauss_ilrma_iss_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS, algorithm_spatial="ISS"), "X2", (0, 0, 0)),
+    ("gauss_ilrma_ip2_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS, algorithm_spatial="IP2"), "X2", (1, 0, 0)),
+    ("tilrma_c2", lambda: TILRMA(n_basis=BATCH_BASIS), "X2", (1, 0, 0)),
+    ("consistent_ilrma_c2", lambda: ConsistentGaussILRMA(n_basis=BATCH_BASIS, fft_size=FFT_SIZE), "X2", (1, 0, 0)),
+    ("fast_mnmf_c2", lambda: FastMultichannelISNMF(n_basis=BATCH_BASIS), "X2", (1, 0, 0)),
+    ("eucnmf", lambda: EUCNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0)),
+    ("klnmf", lambda: KLNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0)),
+    ("isnmf_mm", lambda: ISNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0)),
+    ("tnmf", lambda: TNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0)),
+    ("cauchy_mm_fast", lambda: CauchyNMF(n_basis=FACTOR_BASIS, algorithm="mm_fast"), "power", (0, 0, 0)),
+    ("complex_eucnmf", lambda: ComplexEUCNMF(n_basis=FACTOR_BASIS), "spectrogram", (0, 0, 0)),
+    ("eucntf", lambda: EUCNTF(n_basis=FACTOR_BASIS), "power_tensor", (0, 0, 0)),
+    # captured since K3 made their eigensolves capturable
+    ("grad_iva_c2", lambda: GradLaplaceIVA(), "X2", (0, 0, 0)),
+    ("natural_grad_iva_c2", lambda: NaturalGradLaplaceIVA(), "X2", (0, 0, 0)),
+    ("grad_fdica_c2", lambda: GradLaplaceFDICA(lr=0.1), "X2", (0, 0, 0)),
+    ("natural_grad_fdica_c2", lambda: NaturalGradLaplaceFDICA(lr=0.1), "X2", (0, 0, 0)),
+    ("over_4to2", lambda: OverAuxLaplaceIVA("IP", n_sources=2), "X4", (0, 1, 0)),
+    ("prox_c2", lambda: ProxLaplaceIVA(), "X2", (0, 0, 0)),
+    ("sawada_c2", lambda: MultichannelISNMF(n_basis=FACTOR_BASIS), "X2", (0, 0, 0)),
+    ("sawada_c3", lambda: MultichannelISNMF(n_basis=FACTOR_BASIS), "X3", (0, 0, 3)),  # the Riccati's three
+    ("ozerov_c2", lambda: MultichannelISNMF(n_basis=FACTOR_BASIS, author="Ozerov"), "X2", (0, 0, 0)),
+    ("cov_isnmf_c2", lambda: CovarianceISNMF(n_basis=FACTOR_BASIS), "covariance", (0, 0, 0)),
+    ("cov_isnmf_c3", lambda: CovarianceISNMF(n_basis=FACTOR_BASIS), "covariance_c3", (0, 0, 3)),
+    ("idlma_mlp_c2", lambda: GaussIDLMA(jax_dnn=True), "X2", (1, 0, 0)),
+    ("kondo_c2", lambda: GaussIPSDTA(n_basis=2), "X2", (1, 0, 2)),  # 1024 blocks, B = 3
+    ("ikeshita_c2", lambda: GaussIPSDTA(n_basis=2, author="Ikeshita"), "X2", (0, 0, 1)),
+    ("t_nu1000_c2", lambda: TIPSDTA(n_basis=2, nu=1000), "X2", (0, 0, 2)),
+    ("ldpsdtf_k2", lambda: LDPSDTF(n_basis=2), "gram2", (0, 0, 2)),
+    ("ldpsdtf_k3", lambda: LDPSDTF(n_basis=3), "gram3", (0, 0, 3)),
 ]
+# the rows whose eager loop takes tens of ms an iteration or more: their
+# iterations a call and loop_ms's (n, warm, repeats), so the phase stays
+# within its time
+GRAPH_SLOW = {
+    "kondo_c2": (10, (10, 2, 2)), "ikeshita_c2": (10, (10, 2, 2)), "t_nu1000_c2": (10, (10, 2, 2)),
+    "ldpsdtf_k3": (10, (10, 2, 2)), "sawada_c2": (20, (20, 2, 2)), "sawada_c3": (10, (10, 2, 2)),
+    "cov_isnmf_c3": (10, (10, 2, 2)),
+}
 
 
 def quiet(make):
@@ -2583,33 +2795,34 @@ def quiet(make):
 def eager_only(solver):
     """``solver`` on the eager loop in every entry point (the comparison's
     other side): its step declared not capturable on this instance."""
-    solver.capturable = lambda: False
+    solver.capturable = lambda X: False
     return solver
 
 
-def loop_ms(solver, X, eager, n=GRAPH_N, warm=GRAPH_WARM):
+def loop_ms(solver, X, eager, n=GRAPH_N, warm=GRAPH_WARM, repeats=3, call=None):
     """ms an iteration of ``solver``'s call on ``X`` by CUDA events, (warm +
     n)- less warm-iteration calls (``per_iteration``'s differencing), through
     the eager loop or the captured one.  The init's host draws are made once
     and passed to every call as warm starts on the card: a draw inside the
     window (ComplexEUCNMF's phase, 2049 x 10 x 469 doubles) would leave the
     card idle for tens of ms a call, more than the differencing can cancel."""
-    call = solver._eager_call if eager else solver
+    entry = eager_only(solver) if eager else solver
     np.random.seed(SEED)
     drawn = solver.prepare_state_kwargs(solver._to_input(X), {})
     warm_start = {k: torch.as_tensor(v, device="cuda") for k, v in drawn.items() if v is not None}
+    warm_start.update(call or {})
 
     def run(k):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        call(X, iteration=k, **warm_start)
+        entry(X, iteration=k, **warm_start)
         end.record()
         end.synchronize()
         return start.elapsed_time(end)
 
     run(warm)
-    short = min(run(warm) for _ in range(3))
-    long_ = min(run(warm + n) for _ in range(3))
+    short = min(run(warm) for _ in range(repeats))
+    long_ = min(run(warm + n) for _ in range(repeats))
     return (long_ - short) / n
 
 
@@ -2617,16 +2830,28 @@ def parts(output):
     return output if isinstance(output, tuple) else (output,)
 
 
-def graph_row(key, make, X, k1_per, k2_per, failed):
+def graph_row(key, make, X, per_iteration, failed, call=None):
     """One family through the captured loop and the eager one (module
-    docstring, phase 15)."""
+    docstring, phase 15); ``per_iteration`` its K1, K2 and K3 launches an
+    iteration, ``call`` its call's keywords (GaussIDLMA's network)."""
+    call = call or {}
+    iterations, (n, warm, repeats) = GRAPH_SLOW.get(key, (ITERS_GRAPH, (GRAPH_N, GRAPH_WARM, 3)))
+    # the launches of a call outside its iterations (init, the first loss,
+    # finalize: LDPSDTF's init eigensolves), from a call of none
+    np.random.seed(SEED)
+    counts_zero()
+    eager_only(quiet(make))(X, iteration=0, **call)
+    outside = counts()
     runs = {}
     for mode in ("eager", "graph"):
         np.random.seed(SEED)
         solver = quiet(make)
         counts_zero()
         start = time.perf_counter()
-        out = solver._eager_call(X, iteration=ITERS_GRAPH) if mode == "eager" else solver(X, iteration=ITERS_GRAPH)
+        # the eager side through the same entry point (OverAuxLaplaceIVA's
+        # PCA and projection-back are in its __call__)
+        entry = eager_only(solver) if mode == "eager" else solver
+        out = entry(X, iteration=iterations, **call)
         torch.cuda.synchronize()
         runs[mode] = (parts(out), np.asarray(solver.loss), counts(), solver, time.perf_counter() - start)
     (Y_e, L_e, launched_e, _, _), (Y_g, L_g, launched_g, solver, first_s) = runs["eager"], runs["graph"]
@@ -2636,21 +2861,24 @@ def graph_row(key, make, X, k1_per, k2_per, failed):
     (graph,) = solver._graph_cache.values()
     np.random.seed(SEED + 1)
     counts_zero()
-    solver(X, iteration=ITERS_GRAPH)
+    solver(X, iteration=iterations, **call)
     launched_second = counts()
     captures = len(solver._graph_cache)
     same_graph = list(solver._graph_cache.values()) == [graph]
-    ms_graph = loop_ms(solver, X, eager=False)
-    ms_eager = loop_ms(quiet(make), X, eager=True)
+    ms_graph = loop_ms(solver, X, eager=False, n=n, warm=warm, repeats=repeats, call=call)
+    ms_eager = loop_ms(quiet(make), X, eager=True, n=n, warm=warm, repeats=repeats, call=call)
     torch.cuda.synchronize()
     start = time.perf_counter()
-    graph.replay(GRAPH_N)
-    host_ms = (time.perf_counter() - start) * 1e3 / GRAPH_N
+    graph.replay(n)
+    host_ms = (time.perf_counter() - start) * 1e3 / n
     torch.cuda.synchronize()
-    expected = {"k1_launches": k1_per * ITERS_GRAPH, "k2_launches": k2_per * ITERS_GRAPH}
+    expected = {
+        k + "_launches": outside[k + "_launches"] + per * iterations for k, per in zip(("k1", "k2", "k3"), per_iteration)
+    }
     res = {
-        "iterations": ITERS_GRAPH, "bits_equal": bits, "loss_max_rel_gap": loss_gap, "output_max_rel_gap": out_gap,
+        "iterations": iterations, "bits_equal": bits, "loss_max_rel_gap": loss_gap, "output_max_rel_gap": out_gap,
         "launches_graph": launched_g, "launches_eager": launched_e, "launches_second_call": launched_second,
+        "launches_outside_the_iterations": outside,
         "captures_across_two_calls": captures, "ms_graph": ms_graph, "ms_eager": ms_eager,
         "speedup": ms_eager / ms_graph, "replay_host_ms": host_ms, "capture_s": graph.capture_s,
         "first_call_s": first_s, "loss_last": float(L_g[-1]),
@@ -2660,7 +2888,7 @@ def graph_row(key, make, X, k1_per, k2_per, failed):
         "one capture across two calls": captures == 1 and same_graph,
         "losses finite": bool(np.isfinite(L_g).all()),
     }
-    if k2_per:
+    if per_iteration[1]:
         checks["graph equals eager bit for bit (K2)"] = bits
     else:
         checks["graph equals eager within {}".format(GRAPH_RTOL)] = loss_gap <= GRAPH_RTOL and out_gap <= GRAPH_RTOL
@@ -2699,8 +2927,17 @@ def graph_batch_row(failed):
 def graph_phase(X2, X3, failed):
     """Phase 15 (module docstring)."""
     start = time.perf_counter()
-    inputs = {"X2": X2, "X3": X3, **factor_targets(X2, X3)}
-    out = {key: graph_row(key, make, inputs[name], k1, k2, failed) for key, make, name, k1, k2 in GRAPH_CASES}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    F, T = X2.shape[1:]
+    inputs = {
+        "X2": X2, "X3": X3, "X4": random_mixture(gen, 4, F, T), **factor_targets(X2, X3),
+        **{"gram{}".format(k): torch.as_tensor(gram_target(k, T), dtype=torch.float32, device="cuda") for k in (2, 3)},
+    }
+    W1, W2 = variance_mlp_weights(F)
+    calls = {"idlma_mlp_c2": {"dnn": torch_dnn(VarianceMLP(W1, W2).to("cuda"))}}
+    out = {
+        key: graph_row(key, make, inputs[name], per, failed, calls.get(key)) for key, make, name, per in GRAPH_CASES
+    }
     out["batch_laplace_ip_c2"] = graph_batch_row(failed)
     bench = {}
     for mode in ("graph", "eager"):
@@ -2789,6 +3026,9 @@ def main():
                              (3, 3, 129, 7001)]
     ]
     print(json.dumps({"k1_per_bin": k1_per_bin}), flush=True)
+    start = time.perf_counter()
+    k3 = [k3_case(gen, *case) for case in K3_CASES]
+    print(json.dumps({"k3_cases": k3, "k3_phase_s": time.perf_counter() - start}), flush=True)
 
     rng = np.random.RandomState(SEED)
     X2, mix2, c2 = main_path_c2(rng)
@@ -2880,6 +3120,7 @@ def main():
     assert not graph_failed, graph_failed
     graph_k1 = sum(graphs[key]["launches_graph"]["k1_launches"] for key, *_ in GRAPH_CASES)
     graph_k2 = sum(graphs[key]["launches_graph"]["k2_launches"] for key, *_ in GRAPH_CASES)
+    graph_k3 = sum(graphs[key]["launches_graph"]["k3_launches"] for key, *_ in GRAPH_CASES)
     if args.profile:
         prof = profile_c2(X2, ROOT / "chiprun_out" / "profile_c2.txt")
         print(json.dumps({"profile_c2": prof}), flush=True)
@@ -2902,6 +3143,15 @@ def main():
             "library_ms": None, "shape": [2, F, T],
         }
 
+    k3_main = k3[0]  # Kondo's R at 1024 blocks, the block-PSD main path's batch
+    k3_paths = {
+        **{"factorisation_" + key: factor[key]["k3_launches"] for key, *_ in FACTOR_CASES},
+        **{"mnmf_" + key: mnmf_runs[key]["k3_launches"] for key in mnmf_keys},
+        **{"block_psd_" + key: block[key]["k3_launches"] for key in block_keys},
+        **{"block_psd_route_" + key: routes[key]["k3_launches"] for key in route_keys},
+        "cost_model": sum(row["launches_during_count"]["K3"] for row in costs.values() if isinstance(row, dict)),
+        "graph_phase": graph_k3,
+    }
     kernels = [
         {
             "name": "weighted_covariance (K1)", "route": "cuda",
@@ -2997,6 +3247,21 @@ def main():
              "cost_model_gauss_ip_c2": costs["gauss_ip_c2"]["launches_during_count"]["K2"]},
             K2_GAUSS_RTOL,
         ),
+        {
+            "name": "batched_eigh (K3)", "route": "cuda",
+            "source": "audio_source_separation_tpu_torch/csrc/batched_eigh.cu",
+            # no pl.pallas_call: the eigh that XLA compiles into the JAX scan
+            "replaces": "audio_source_separation_tpu/models/ipsdta.py:159",
+            "launches": block["kondo"]["k3_launches"], "launches_by_path": k3_paths,
+            "max_abs_err": max(c["max_abs_err"] for c in k3),
+            "max_rel_err": max(c["eig_rel_err"] for c in k3),
+            "tolerance": "eigenvalues within {} (single) / {} (double) of the largest; residual and "
+                         "orthogonality within ten times that".format(K3_RTOL[torch.complex64], K3_RTOL[torch.complex128]),
+            "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"], "bound_ms": k3_main["bound_ms"],
+            "bound_us": k3_main["bound_ms"] * 1e3, "bound_by": k3_main["bound_by"],
+            "library_ms": k3_main["library_ms"], "shape": k3_main["batch"] + [3, 3],
+            "cases": k3,
+        },
     ]
     print(json.dumps({"chip_smoke_s": time.perf_counter() - script_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,6 +23,7 @@ from audio_source_separation_tpu_torch.ops.cov_kernel import (
     weighted_covariance_planes,
     weighted_covariance_planes_plain,
 )
+from audio_source_separation_tpu_torch.ops.eigh_kernel import batched_eigh, eigh_cost
 from audio_source_separation_tpu_torch.ops.fused_ip import fused_auxiva_ip_iter, k2_cost
 from audio_source_separation_tpu_torch.runtime import scan_cost_analysis
 from audio_source_separation_tpu_torch.runtime.cost_model import CostCounter, active_counter
@@ -297,6 +298,53 @@ def test_k2_call_charges_k2_cost_only(contrast):
     counter = count(lambda: fused_auxiva_ip_iter(X, W, psum, contrast=contrast))
     assert counter.charges == {"K2": 1} and list(counter.by_op) == ["kernel:K2"]
     assert (counter.bytes, counter.flops) == k2_cost(F, T, 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, REAL, torch.complex64, COMPLEX], ids=["f32", "f64", "c64", "c128"])
+@pytest.mark.parametrize("vectors", [True, False], ids=["vectors", "values"])
+def test_k3_call_charges_eigh_cost_only(dtype, vectors):
+    """One K3 call on the CPU charges ``eigh_cost`` once and none of its
+    plain route's ops (``torch.linalg.eigh`` at double precision)."""
+    A = randn(5, 3, 6, 6, dtype=COMPLEX if dtype.is_complex else REAL)
+    H = (A + A.mH).to(dtype)
+    counter = count(lambda: batched_eigh(H, vectors=vectors))
+    assert counter.charges == {"K3": 1} and list(counter.by_op) == ["kernel:K3"]
+    assert (counter.bytes, counter.flops) == eigh_cost(6, 15, dtype.is_complex, vectors, H.element_size())
+
+
+# the families whose step eigensolves, their input and K3's calls an iteration
+K3_FAMILIES = {
+    "LDPSDTF(2)": (lambda: port.LDPSDTF(n_basis=2, device="cpu"), "gram", 2),  # the basis step, the pencil
+    "LDPSDTF(3)": (lambda: port.LDPSDTF(n_basis=3, device="cpu"), "gram3", 3),  # the basis step, two models
+    "CovarianceISNMF C = 3": (lambda: port.CovarianceISNMF(n_basis=2, device="cpu"), "covariance3", 3),  # Riccati
+    "Sawada C = 3": (lambda: port.MultichannelISNMF(n_basis=2, device="cpu"), "X3", 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K3_FAMILIES))
+def test_eigensolving_families_charge_k3(name):
+    """Every eigensolve of these steps is a K3 charge: no ``torch.linalg``
+    eigensolver op is counted, and the charges' bytes and FLOPs are in the
+    iteration's."""
+    make, key, calls = K3_FAMILIES[name]
+    rng = np.random.RandomState(8)
+    X3 = make_mixture(rng, 3, F, T)
+    inputs = dict(_inputs(), X3=X3, gram3=_gram(3), covariance3=np.einsum("cft,dft->ftcd", X3, X3.conj()))
+    np.random.seed(111)
+    counter = iteration_cost(make(), inputs[key])
+    assert counter.charges == {"K3": calls}
+    assert not any("eigh" in op or "svd" in op for op in counter.by_op)
+    n, n_bytes, flops = counter.by_op["kernel:K3"]
+    assert n == calls and 0 < n_bytes < counter.bytes and 0 < flops < counter.flops
+
+
+def test_block_psd_charges_k3_past_three():
+    """GaussIPSDTA at B > 3: the blocks' eigensolves are K3 charges beside
+    K1's (at B <= 3 the closed forms leave only the square-root chain's)."""
+    np.random.seed(111)
+    counter = iteration_cost(port.GaussIPSDTA(n_basis=2, n_blocks=4, device="cpu"), _inputs()["X"])
+    assert counter.charges["K1"] == 1 and counter.charges["K3"] >= 2
+    assert not any("eigh" in op for op in counter.by_op)
 
 
 def test_failed_kernel_call_raises_and_charges_nothing():

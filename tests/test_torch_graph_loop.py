@@ -129,7 +129,7 @@ def test_graph_equals_eager_loop(case):
     X = _input(case[3])
     eager, graph = _solver(case, emulate=False), _solver(case)
     Y0, Y1 = _call(eager, X), _call(graph, X)
-    assert graph.capturable() and len(graph._graph_cache) == 1
+    assert graph.capturable(X) and len(graph._graph_cache) == 1
     assert not vars(eager).get("_graph_cache")
     assert eager.loss == graph.loss and len(graph.loss) == ITERATIONS + graph.record_initial_loss
     _assert_same(_parts(Y0), _parts(Y1))
@@ -256,7 +256,7 @@ class _Stub(IterativeSolver):
         self._emulate_graph = True
         self.step = step
 
-    def capturable(self):
+    def capturable(self, X):
         return True
 
     def init_state(self, X):
@@ -326,7 +326,7 @@ def test_batch_separate_captures_once():
 
 
 # the classes of the slice, each capturable in these configurations and
-# not in the others listed
+# not in the others listed (on a two-channel input)
 CAPTURABLE = [
     ("AuxLaplaceIVA", {}), ("AuxLaplaceIVA", {"guard": "none"}), ("AuxLaplaceIVA", {"algorithm_spatial": "ISS"}),
     ("AuxLaplaceIVA", {"algorithm_spatial": "IP2"}), ("AuxLaplaceIVA", {"algorithm_spatial": "ISS", "guard": "svd"}),
@@ -335,14 +335,17 @@ CAPTURABLE = [
     ("TILRMA", {}), ("ConsistentGaussILRMA", {"fft_size": 64}), ("FastMultichannelISNMF", {}),
     ("EUCNMF", {}), ("KLNMF", {}), ("ISNMF", {}), ("TNMF", {}), ("CauchyNMF", {}), ("ComplexEUCNMF", {}),
     ("EUCNTF", {}),
+    ("OverAuxLaplaceIVA", {"algorithm_spatial": "IP"}), ("GradLaplaceIVA", {}), ("NaturalGradLaplaceIVA", {}),
+    ("GaussIDLMA", {"jax_dnn": True}), ("MultichannelISNMF", {}), ("MultichannelISNMF", {"author": "Ozerov"}),
+    ("CovarianceISNMF", {}), ("GaussIPSDTA", {}), ("GaussIPSDTA", {"author": "Ikeshita"}), ("TIPSDTA", {}),
+    ("LDPSDTF", {}), ("LDPSDTF", {"n_basis": 3}), ("GradLaplaceFDICA", {}), ("NaturalGradLaplaceFDICA", {}),
+    ("ProxLaplaceIVA", {}),
 ]
 EAGER = [
     ("AuxLaplaceIVA", {"guard": "svd"}), ("AuxLaplaceIVA", {"algorithm_spatial": "IP2", "guard": "svd"}),
     ("AuxGaussIVA", {"algorithm_spatial": "IP2"}), ("GaussILRMA", {"guard": "svd"}), ("TILRMA", {"guard": "svd"}),
-    ("FastMultichannelISNMF", {"guard": "svd"}), ("OverAuxLaplaceIVA", {"algorithm_spatial": "IP"}),
-    ("GradLaplaceIVA", {}), ("NaturalGradLaplaceIVA", {}), ("GaussIDLMA", {}), ("MultichannelISNMF", {}),
-    ("CovarianceISNMF", {}), ("GaussIPSDTA", {}), ("TIPSDTA", {}), ("LDPSDTF", {}), ("GradLaplaceFDICA", {}),
-    ("NaturalGradLaplaceFDICA", {}), ("ProxLaplaceIVA", {}),
+    ("FastMultichannelISNMF", {"guard": "svd"}), ("OverAuxLaplaceIVA", {"algorithm_spatial": "IP", "guard": "svd"}),
+    ("GaussIDLMA", {}), ("GaussIDLMA", {"jax_dnn": True, "guard": "svd"}),
 ]
 
 
@@ -352,8 +355,9 @@ def test_capturable_is_exactly_the_slice():
             warnings.simplefilter("ignore", UserWarning)
             return getattr(port_models, name)(device="cpu", **kwargs)
 
-    assert all(make(n, k).capturable() for n, k in CAPTURABLE)
-    assert not any(make(n, k).capturable() for n, k in EAGER)
+    X = torch.zeros((2, 3, 4), dtype=torch.complex128)
+    assert all(make(n, k).capturable(X) for n, k in CAPTURABLE)
+    assert not any(make(n, k).capturable(X) for n, k in EAGER)
     solvers = {n for n, _ in CAPTURABLE + EAGER}
     iterative = {
         n for n in port_models.__all__ if isinstance(getattr(port_models, n), type)
@@ -367,7 +371,7 @@ def test_capturable_is_exactly_the_slice():
     }
     solver = make("AuxLaplaceIVA", {})
     solver._emulate_graph = True
-    assert solver._uses_graph(torch.device("cpu")) and not make("AuxLaplaceIVA", {})._uses_graph(torch.device("cpu"))
+    assert solver._uses_graph(X) and not make("AuxLaplaceIVA", {})._uses_graph(X)
 
 
 # --------------------------------------------------------------------------- #

@@ -15,7 +15,7 @@ from audio_source_separation_tpu.ops import fast_linalg as jax_fl
 from audio_source_separation_tpu.ops.blocks import BlockLayout as JaxBlockLayout
 from audio_source_separation_tpu.utils.linalg import to_psd as jax_to_psd
 import audio_source_separation_tpu_torch.models.ipsdta as port_ipsdta
-from audio_source_separation_tpu_torch.ops import BlockLayout
+from audio_source_separation_tpu_torch.ops import BlockLayout, eigh_kernel
 from audio_source_separation_tpu_torch.ops import fast_linalg as port_fl
 from audio_source_separation_tpu_torch.utils.linalg import to_psd
 
@@ -202,23 +202,24 @@ def test_vcd_covariance_through_k1(rng, monkeypatch, C, n_bins, n_blocks):
 
 
 def test_eigh_wide_chunks_and_gives_nan_for_non_finite_blocks(rng, monkeypatch):
-    """The IPSDTA eigensolves split the batch into chunks (cuSOLVER refuses
-    large batches) with ``torch.linalg.eigh``'s result, and give NaN for a
-    block holding a non-finite entry, as JAX's ``eigh`` does, where
-    ``torch.linalg.eigh`` raises."""
-    monkeypatch.setattr(port_ipsdta, "EIGH_CHUNK", 4)
+    """The IPSDTA eigensolves (K3, ``ops/eigh_kernel.py::batched_eigh``;
+    its plain version here) split the batch into chunks (cuSOLVER refuses
+    large batches) with ``torch.linalg.eigh``'s result at complex128, and
+    give NaN for a block holding a non-finite entry, as JAX's ``eigh`` does,
+    where ``torch.linalg.eigh`` raises."""
+    monkeypatch.setattr(eigh_kernel, "EIGH_CHUNK", 4)
     H = torch.as_tensor(_hermitian(rng, (3, 5), 4, "indefinite").astype(np.complex64))
-    w, v = port_ipsdta._eigh_wide(H)
+    w, v = eigh_kernel.batched_eigh(H)
     w_ref, v_ref = torch.linalg.eigh(H.to(torch.complex128))
     assert w.dtype == torch.float32 and v.dtype == torch.complex64
     _close(w, w_ref.numpy(), rtol=1e-6, atol=1e-6)
     _close(v @ torch.diag_embed(w.to(v.dtype)) @ v.mH, H.numpy(), rtol=1e-5, atol=1e-5)
-    _close(port_ipsdta._eigh_wide(H, vectors=False), w_ref.numpy(), rtol=1e-6, atol=1e-6)
+    _close(eigh_kernel.batched_eigh(H, vectors=False), w_ref.numpy(), rtol=1e-6, atol=1e-6)
 
     H[1, 2, 0, 3] = float("nan")
-    w, v = port_ipsdta._eigh_wide(H)
+    w, v = eigh_kernel.batched_eigh(H)
     assert torch.isnan(w[1, 2]).all() and torch.isnan(v[1, 2]).all()
     finite = torch.ones(3, 5, dtype=torch.bool)
     finite[1, 2] = False
     assert torch.isfinite(w[finite]).all() and torch.isfinite(v[finite]).all()
-    assert torch.isnan(port_ipsdta._eigh_wide(H, vectors=False)[1, 2]).all()
+    assert torch.isnan(eigh_kernel.batched_eigh(H, vectors=False)[1, 2]).all()
