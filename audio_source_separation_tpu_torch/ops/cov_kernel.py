@@ -21,6 +21,7 @@ import torch
 
 from . import _build
 from ..runtime.cost_model import charged
+from ..runtime.spanlog import watch
 from .ip_components import _covariance_planes, pair_products_planes
 
 
@@ -233,3 +234,4 @@ def _weighted_covariance_planes(X, weights):
 
 
 weighted_covariance_planes.launches = 0
+watch("k1_launches", lambda: weighted_covariance_planes.launches)

@@ -46,6 +46,7 @@ import torch
 
 from . import _build
 from ..runtime.cost_model import charged
+from ..runtime.spanlog import watch
 
 # the largest n whose A and V fit a block's shared memory at complex128
 # with vectors (32 m^2 bytes, m = n rounded up to even, of the 232,448 a
@@ -233,3 +234,4 @@ def _batched_eigh(H, vectors, sweeps):
 
 
 batched_eigh.launches = 0
+watch("k3_launches", lambda: batched_eigh.launches)

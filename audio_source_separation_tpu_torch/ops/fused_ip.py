@@ -35,6 +35,7 @@ import torch
 
 from . import _build
 from ..runtime.cost_model import charged
+from ..runtime.spanlog import watch
 from .ip_components import (
     ip_update_components,
     log_abs_det_components,
@@ -254,3 +255,4 @@ def _fused_auxiva_ip_iter(X, W, psum, eps, threshold, contrast, n_bins):
 
 
 fused_auxiva_ip_iter.launches = 0
+watch("k2_launches", lambda: fused_auxiva_ip_iter.launches)

@@ -25,8 +25,9 @@ per signature and replayed once an iteration (:func:`graph_loop`):
     output nor a published attribute aliases them, so a later call, which
     overwrites them, cannot reach what a caller holds.
   * capture runs each kernel wrapper once and bumps its ``launches``
-    count; the change is taken back after capture and added at every
-    replay, so each count still says how many launches the card ran.
+    count; the change is taken back after capture, and ``replay(n)`` adds
+    ``n`` times a step's launches, so each count still says how many
+    launches the card ran.
 
 The graphs are cached on the solver, keyed by what the captured step reads:
 the post-init state's fields, shapes and dtypes, the device, and every
@@ -52,6 +53,7 @@ capture refuses, and raises as the card would.
 """
 
 import contextlib
+import functools
 import gc
 import os
 import time
@@ -59,6 +61,8 @@ import traceback
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
+
+from .spanlog import counters, span
 
 # losses kept on the device between transfers
 LOSS_SLOTS = 1024
@@ -75,8 +79,10 @@ def _kernels():
     return fused_ip, cov_kernel, eigh_kernel
 
 
+@functools.cache
 def _counted():
-    """The kernel wrappers whose ``launches`` a replay adds to."""
+    """The kernel wrappers whose ``launches`` a replay adds to (resolved
+    once)."""
     fused_ip, cov_kernel, eigh_kernel = _kernels()
     return fused_ip.fused_auxiva_ip_iter, cov_kernel.weighted_covariance_planes, eigh_kernel.batched_eigh
 
@@ -90,9 +96,9 @@ def _set_launch_counts(counts):
         fn.launches = n
 
 
-def _add_launch_counts(delta):
+def _add_launch_counts(delta, times):
     for fn, n in zip(_counted(), delta):
-        fn.launches += n
+        fn.launches += n * times
 
 
 def _signature(state):
@@ -324,18 +330,21 @@ class StepGraph:
             self.static[k].copy_(v)
 
     def replay(self, n=1):
-        """``n`` steps; the launch counts gain a step's launches each."""
-        for _ in range(n):
-            if self.graph is not None:
+        """``n`` steps; the launch counts gain a step's launches each, and
+        ``graph_replays`` gains ``n``, once for the call."""
+        if self.graph is not None:
+            for _ in range(n):
                 self.graph.replay()
-            else:
-                before = _launch_counts()
-                try:
-                    slots = None if self._loss is None else (self.loss_buf, self.slot)
+        else:
+            before = _launch_counts()
+            try:
+                slots = None if self._loss is None else (self.loss_buf, self.slot)
+                for _ in range(n):
                     self._step(self.static, slots)
-                finally:
-                    _set_launch_counts(before)
-            _add_launch_counts(self.launches)
+            finally:
+                _set_launch_counts(before)
+        _add_launch_counts(self.launches, n)
+        counters["graph_replays"] += n
 
     def run(self, n):
         """``n`` steps from the loaded state; returns their losses as 1-D
@@ -376,13 +385,16 @@ def _first_step_graph(solver, state, record):
         state = update(state)
         value = None if loss is None else loss(state)
         graph.load(state)
+        counters["graph_cache_hits"] += 1
         return state, value, graph
     stream = new_stream(_device_of(state))
     with on_stream(stream):
         state = update(state)
         value = None if loss is None else loss(state)
-        graph = StepGraph(type(solver).__name__, state, update, loss, loss_like=value, stream=stream)
+        with span("solve.capture"):
+            graph = StepGraph(type(solver).__name__, state, update, loss, loss_like=value, stream=stream)
     cache[key] = graph
+    counters["graph_captures"] += 1
     return state, value, graph
 
 
@@ -393,31 +405,32 @@ def replay_loop(solver, state, iteration, record):
     ``record``)."""
     if iteration < 1:
         return state, []
-    state, value, graph = _first_step_graph(solver, state, record)
+    with span("solve.eager_step"):
+        state, value, graph = _first_step_graph(solver, state, record)
     losses = [value] if record else []
-    losses.extend(graph.run(iteration - 1))
-    return (graph.snapshot(state) if iteration > 1 else state), losses
+    with span("solve.replay"):
+        losses.extend(graph.run(iteration - 1))
+        final = graph.snapshot(state) if iteration > 1 else state
+    return final, losses
 
 
-def graph_loop(solver, X, iteration, state_kwargs):
-    """:meth:`~.solver.IterativeSolver._eager_loop`'s counterpart: the same
-    init, losses, callbacks, publishing and output, the iterations after
-    the first replayed from the step's graph."""
-    state = solver.init_state(X, **state_kwargs)
-    solver._publish(state)
+def graph_loop(solver, state, losses, iteration):
+    """:meth:`~.solver.IterativeSolver._eager_loop`'s counterpart from the
+    same post-init ``state`` and ``losses``: the same losses, callbacks,
+    publishing and output, the iterations after the first replayed from
+    the step's graph."""
     record = bool(solver.recordable_loss)
-    losses = []
-    if record and solver.record_initial_loss:
-        losses.append(solver.nll(state))
     if solver.callbacks is None:
         final, steps = replay_loop(solver, state, iteration, record)
-        solver._flush_losses(losses + steps)
-        solver._publish(final)
-    else:
+        with span("solve.wait"):
+            solver._flush_losses(losses + steps)
+        return solver._finish(final, publish=True)
+    with span("solve.wait"):
         solver._flush_losses(losses)
+    final = state
+    with span("solve.steps"):
         if solver.callback_on_init:
             solver._on_callback()
-        final = state
         if iteration > 0:
             final, value, graph = _first_step_graph(solver, state, record)
             for i in range(iteration):
@@ -429,6 +442,4 @@ def graph_loop(solver, X, iteration, state_kwargs):
                     solver.loss.append(float(value))
                 solver._publish(final)
                 solver._on_callback()
-    output = solver._whole_output(solver.finalize(final))
-    solver.estimation = output
-    return output
+    return solver._finish(final, publish=False)

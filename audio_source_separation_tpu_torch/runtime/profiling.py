@@ -2,7 +2,10 @@
 
   * :func:`trace`: a ``torch.profiler`` context over the CPU and, where there
     is one, the card, written as a Chrome trace (Perfetto or
-    ``chrome://tracing`` open it);
+    ``chrome://tracing`` open it), with the program's own spans on a track
+    of their own;
+  * :func:`span`, :func:`spans`, :data:`counters`: the program's span log
+    and counters (:mod:`.spanlog`), which record while a profiler does;
   * :class:`IterationTimer`: a callback that stamps the host clock at each
     call;
   * :func:`benchmark_solver`: a solver's sustained iterations per second,
@@ -20,6 +23,7 @@ on the CPU from ``time.perf_counter`` after a synchronise.
 """
 
 import contextlib
+import json
 import os
 import time
 import warnings
@@ -30,19 +34,58 @@ import torch
 from .cost_model import CostCounter
 from .graph import StepGraph, new_stream, on_stream
 from .solver import IterativeSolver, full_f32_matmuls
+from .spanlog import Span, counters, span, spans
+
+# the Chrome trace's process of the program's spans, sorted above the rest
+SPANS_PID = "program spans"
 
 
 @contextlib.contextmanager
 def trace(log_dir):
     """Profile everything inside the block into ``log_dir`` as a Chrome
-    trace (``trace.json``); CUDA activity is traced where there is a card."""
+    trace (``trace.json``); CUDA activity is traced where there is a card.
+    The program's spans of the block (:mod:`.spanlog`) go into the same
+    file, on the profiler's clock, as the process ``program spans``; a
+    top-level span's counters are its ``args``."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    start_ns = time.time_ns()
     with torch.profiler.profile(activities=activities) as profile:
         yield profile
-    profile.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    path = os.path.join(log_dir, "trace.json")
+    profile.export_chrome_trace(path)
+    _add_spans(path, spans(since_ns=start_ns))
+
+
+def _add_spans(path, logged):
+    """Append ``logged`` spans to the Chrome trace at ``path`` as complete
+    events, at the trace's own time base (``baseTimeNanoseconds``, where
+    the trace names one) in microseconds."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = doc.get("baseTimeNanoseconds", 0)
+    events = doc.setdefault("traceEvents", [])
+    events.append({"ph": "M", "name": "process_name", "pid": SPANS_PID, "tid": 0, "args": {"name": SPANS_PID}})
+    events.append({"ph": "M", "name": "process_sort_index", "pid": SPANS_PID, "tid": 0, "args": {"sort_index": -1}})
+    for s in logged:
+        args = {"id": s.id, "parent": s.parent}
+        args.update(s.attrs or {})
+        events.append(
+            {
+                "ph": "X",
+                "cat": "program",
+                "name": s.name,
+                "pid": SPANS_PID,
+                "tid": 0,
+                "ts": (s.start_ns - base) / 1e3,
+                "dur": (s.end_ns - s.start_ns) / 1e3,
+                "args": args,
+            }
+        )
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 class IterationTimer:

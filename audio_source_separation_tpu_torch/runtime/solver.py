@@ -29,6 +29,8 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .graph import graph_loop
+from .spanlog import begin, count_copy, end, span
 
 EPS = 1e-12
 
@@ -440,7 +442,10 @@ class IterativeSolver:
         dtype = self.input_dtype(X)
         if X.is_complex() and not dtype.is_complex:
             X = X.real
-        return X.to(device=self.device, dtype=dtype).contiguous()
+        out = X.to(device=self.device, dtype=dtype).contiguous()
+        if not isinstance(input, torch.Tensor) or (X.device.type == "cpu" and out.device.type != "cpu"):
+            count_copy(out.numel() * out.element_size())
+        return out
 
     def _sync_attributes(self, state):
         """Publish the state as attributes (tensor references, no copy);
@@ -479,61 +484,79 @@ class IterativeSolver:
             return self._run(input, iteration, kwargs, eager=True)
 
     def _run(self, input, iteration, kwargs, eager=False):
-        X = self._to_input(input)
-        self.input = X
+        with span("solve"):
+            init = begin("solve.init")
+            X = self._to_input(input)
+            self.input = X
 
-        state_kwargs, extra = self._split_kwargs(kwargs)
-        for k, v in extra.items():
-            setattr(self, k, v)
-        state_kwargs = self.prepare_state_kwargs(X, state_kwargs)
-        state_kwargs = {k: v for k, v in state_kwargs.items() if v is not None}
-        # the host inits above were drawn at the true bin count; a mesh pads
-        # and cuts them with the input
-        with self._on_shard(X, state_kwargs) as (X, state_kwargs):
-            if not eager and self._uses_graph(X):
-                from .graph import graph_loop
+            state_kwargs, extra = self._split_kwargs(kwargs)
+            for k, v in extra.items():
+                setattr(self, k, v)
+            state_kwargs = self.prepare_state_kwargs(X, state_kwargs)
+            state_kwargs = {k: v for k, v in state_kwargs.items() if v is not None}
+            # the host inits above were drawn at the true bin count; a mesh
+            # pads and cuts them with the input
+            with self._on_shard(X, state_kwargs) as (X, state_kwargs):
+                captured = not eager and self._uses_graph(X)
+                state, losses = self._init_run(X, state_kwargs)
+                end(init)
+                if captured:
+                    return graph_loop(self, state, losses, iteration)
+                return self._eager_loop(state, losses, iteration)
 
-                return graph_loop(self, X, iteration, state_kwargs)
-            return self._eager_loop(X, iteration, state_kwargs)
-
-    def _eager_loop(self, X, iteration, state_kwargs):
-        """The loop with every op dispatched from the host each iteration:
-        the CPU's, a mesh's and that of the solvers that are not
-        :meth:`capturable`."""
+    def _init_run(self, X, state_kwargs):
+        """Init, the first publish and the initial loss: ``(state,
+        losses)``, the losses a list of device tensors."""
         state = self.init_state(X, **state_kwargs)
         self._publish(state)
-
         losses = []
         if self.recordable_loss and self.record_initial_loss:
             losses.append(self.nll(state))
+        return state, losses
 
+    def _eager_loop(self, state, losses, iteration):
+        """The loop from the post-init ``state`` and ``losses`` with every
+        op dispatched from the host each iteration: the CPU's, a mesh's and
+        that of the solvers that are not :meth:`capturable`."""
         if self.callbacks is not None:
-            self._flush_losses(losses)
-            if self.callback_on_init:
-                self._on_callback()
-            for _ in range(iteration):
-                state = self.update_state(state)
-                if self.recordable_loss:
-                    self.loss.append(float(self.nll(state)))
-                self._publish(state)
-                self._on_callback()
-        else:
+            with span("solve.wait"):
+                self._flush_losses(losses)
+            with span("solve.steps"):
+                if self.callback_on_init:
+                    self._on_callback()
+                for _ in range(iteration):
+                    state = self.update_state(state)
+                    if self.recordable_loss:
+                        self.loss.append(float(self.nll(state)))
+                    self._publish(state)
+                    self._on_callback()
+            return self._finish(state, publish=False)
+        with span("solve.steps"):
             for _ in range(iteration):
                 state = self.update_state(state)
                 if self.recordable_loss:
                     losses.append(self.nll(state))
+        with span("solve.wait"):
             self._flush_losses(losses)
-            self._publish(state)
+        return self._finish(state, publish=True)
 
-        output = self._whole_output(self.finalize(state))
-        self.estimation = output
-        return output
+    def _finish(self, state, publish):
+        """The final state's publish (where the loop has not published it),
+        :meth:`finalize` and the whole output, set as ``estimation``."""
+        with span("solve.finalize"):
+            if publish:
+                self._publish(state)
+            output = self._whole_output(self.finalize(state))
+            self.estimation = output
+            return output
 
     def _flush_losses(self, losses):
         """Copy the device-side losses (0-d or 1-d tensors) to ``self.loss``
         in one transfer."""
         if losses:
-            self.loss.extend(torch.cat([v.reshape(-1) for v in losses]).cpu().tolist())
+            flat = torch.cat([v.reshape(-1) for v in losses])
+            count_copy(flat.numel() * flat.element_size())
+            self.loss.extend(flat.cpu().tolist())
             losses.clear()
 
     def _on_callback(self):
