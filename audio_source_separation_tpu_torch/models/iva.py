@@ -164,11 +164,14 @@ class IVABase(IterativeSolver):
         eye = torch.eye(n_channels, dtype=X.dtype, device=X.device)
         return eye.expand(n_bins, n_channels, n_channels)
 
-    def _initial_filter(self, X, demix_filter):
+    def init_attributes(self, X):
         n_channels = X.shape[0]
         self.n_sources = self.n_channels = n_channels
         self.n_bins = self._n_bins_true if self._sharded else X.shape[1]
         self.n_frames = self._n_frames(X)
+
+    def _initial_filter(self, X, demix_filter):
+        self.init_attributes(X)
         if demix_filter is None:
             return self._default_filter(X)
         return torch.as_tensor(demix_filter).to(device=X.device, dtype=X.dtype)
@@ -393,6 +396,14 @@ class AuxIVABase(IVABase):
         takes no guard).  The overdetermined solver follows the same rule on
         its reduced mixture (PCA and projection-back run outside the loop)."""
         return self.algorithm_spatial == "ISS" or self.guard != "svd"
+
+    def capturable_edges(self, X):
+        """The component state: its init (the identity filter and the
+        estimates' power sums), initial loss and finalize (the estimates
+        and projection-back) read nothing on the host.  The overdetermined
+        solver's finalize is the estimates alone (its PCA and outer
+        projection-back stay outside the call)."""
+        return self._component_mode(X.shape[0]) and self.capturable(X)
 
     # the updates
     def update_state(self, state):

@@ -5,8 +5,10 @@
 each example launches exactly what its own ``solver(X)`` call launches:
 on a card, for a capturable solver, its first iteration eagerly and the
 rest as replays of the step's graph, one capture for every member of the
-shape (:mod:`~..runtime.graph`); outputs and losses are stacked on the
-device and cross to the host once.
+shape (:mod:`~..runtime.graph`), and for a solver that captures its edges
+(AuxIVA's component state, no warm start) its init and finalize as graphs
+too; outputs and losses are stacked on the device and cross to the host
+once.
 
   * every mixture in a batch shares its shape and the hyperparameters;
   * the host-RNG default inits are drawn for every example first, in the
@@ -23,7 +25,7 @@ batch.
 import numpy as np
 import torch
 
-from ..runtime.graph import replay_loop
+from ..runtime.graph import edge_finalize, edge_init, replay_loop
 from ..runtime.solver import full_f32_matmuls
 from .mesh import all_gather_cat, shard_bounds
 
@@ -109,16 +111,23 @@ def _batch_separate(solver, inputs, iteration, state_kwargs, host, mesh):
             vars(solver).update(attributes)
             solver.use_mesh(tp, mode="bins")
             with solver._on_shard(Xs[b], kw) as (X, kw):
-                state = solver.init_state(X, **kw)
-                if solver._uses_graph(X):
-                    state, example_losses = replay_loop(solver, state, iteration, record)
+                if solver._captures_edges(X, kw, iteration):
+                    # its init and finalize as graphs too (the initial loss
+                    # the init graph computes is not a batch's)
+                    state, _, edges = edge_init(solver, X)
+                    _, example_losses, graph = replay_loop(solver, state, iteration, record, keep=("input",))
+                    outputs.append(edge_finalize(solver, edges, graph))
                 else:
-                    example_losses = []
-                    for _ in range(iteration):
-                        state = solver.update_state(state)
-                        if record:
-                            example_losses.append(solver.nll(state))
-                outputs.append(solver._whole_output(solver.finalize(state)))
+                    state = solver.init_state(X, **kw)
+                    if solver._uses_graph(X):
+                        state, example_losses, _ = replay_loop(solver, state, iteration, record)
+                    else:
+                        example_losses = []
+                        for _ in range(iteration):
+                            state = solver.update_state(state)
+                            if record:
+                                example_losses.append(solver.nll(state))
+                    outputs.append(solver._whole_output(solver.finalize(state)))
             if record:
                 flat = [v.reshape(-1) for v in example_losses]
                 losses.append(torch.cat(flat) if flat else Xs.real.new_zeros((0,)))

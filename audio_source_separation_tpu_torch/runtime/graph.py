@@ -29,6 +29,22 @@ per signature and replayed once an iteration (:func:`graph_loop`):
     ``n`` times a step's launches, so each count still says how many
     launches the card ran.
 
+A solver whose :meth:`~.solver.IterativeSolver.capturable_edges` says so
+(AuxIVA's component state) has the call's two edges captured too, once per
+signature beside the step (:func:`edge_init`, :func:`edge_loop`,
+:class:`EdgeGraph`), where the call gives no callbacks and no warm start.
+The plain attributes that init sets from the input's shape are set
+eagerly first (``init_attributes``: they are in the key, and a replay runs
+no Python); then X is copied into the init graph's static input, which is
+also the step graph's, and one replay of ``init_state`` and the initial
+loss gives the post-init state.  The first iteration runs eagerly and the
+rest replay as above; one replay of ``finalize`` on the step graph's static
+state follows, and its output is cloned, so the rule above holds: neither
+the output nor a published attribute aliases a static buffer.  All the
+edge graphs of a solver share one capture stream and one memory pool
+(:class:`_EdgeCache` says why that is safe); ``edge_graph_replays`` and
+``edge_graph_captures`` count them apart from the step's counters.
+
 The graphs are cached on the solver, keyed by what the captured step reads:
 the post-init state's fields, shapes and dtypes, the device, and every
 plain Python attribute of the solver (a scalar, a string or ``None``, such
@@ -40,16 +56,18 @@ not capture again.  With callbacks the graph replays once an iteration and
 the state is published, as copies, before the callbacks run, as the JAX
 package steps its jitted body from Python when it has callbacks.
 
-What it does not do: unroll several steps into one graph, or run a mesh
-(``use_mesh`` keeps the eager loop).  A solver says by ``capturable(X)``
+What it does not do: unroll several steps into one graph, capture the
+edges of a call with callbacks or a warm start, or of a solver that does
+not opt in (their init reads host draws), or run a mesh (``use_mesh``
+keeps the eager loop).  A solver says by ``capturable(X)``
 whether its configuration's step on the input ``X`` can be captured (no host read, no op that
 synchronises); one that says so and fails to capture raises
 :class:`GraphCaptureError`, naming the line, and never falls back to the
 eager loop.  On the CPU nothing is captured: a solver whose
 ``_emulate_graph`` is set runs the same static-buffer path, each replay an
-eager call of the step, which is how the CPU tests hold it; its one run
-in place of the capture is audited (:class:`CaptureAudit`) for the ops a
-capture refuses, and raises as the card would.
+eager call of the step or the edge, which is how the CPU tests hold it; its
+one run in place of each capture is audited (:class:`CaptureAudit`) for the
+ops a capture refuses, and raises as the card would.
 """
 
 import contextlib
@@ -61,6 +79,7 @@ import traceback
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
+from torch.utils._pytree import tree_leaves, tree_map
 
 from .spanlog import counters, span
 
@@ -169,17 +188,17 @@ class CaptureAudit(TorchDispatchMode):
     does.  A kernel wrapper's plain version, which stands for a launch on
     the card, runs with the audit paused (:func:`~.cost_model.charged`)."""
 
-    def __init__(self, name):
+    def __init__(self, name, what="step"):
         super().__init__()
-        self.name = name
+        self.name, self.what = name, what
         self._paused = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         op = func.overloadpacket.__name__
         if not self._paused and op in UNCAPTURABLE:
             raise GraphCaptureError(
-                "{} declares its step capturable, but capture failed at {}: aten.{} {}".format(
-                    self.name, _innermost_line(traceback.extract_stack()[:-1]), op, UNCAPTURABLE[op]
+                "{} declares its {} capturable, but capture failed at {}: aten.{} {}".format(
+                    self.name, self.what, _innermost_line(traceback.extract_stack()[:-1]), op, UNCAPTURABLE[op]
                 )
             )
         return func(*args, **(kwargs or {}))
@@ -216,20 +235,63 @@ def new_stream(device):
     return torch.cuda.Stream(device) if device.type == "cuda" else None
 
 
+def _capture(name, what, device, stream, body, pool=None):
+    """``body()`` captured on ``stream`` as a CUDA graph, in the memory pool
+    ``pool`` (``None``: a pool of its own): ``(graph, body's result)``.  A
+    failure raises :class:`GraphCaptureError` naming the line."""
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize(device)
+    # no collection during the capture: a graph freed there would release
+    # its memory, which a capture forbids, and void this one
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="global")
+            try:
+                result = body()
+            except Exception as err:
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                if isinstance(err, GraphCaptureError):
+                    raise
+                raise GraphCaptureError(
+                    "{} declares its {} capturable, but capture failed at {}: {}".format(
+                        name, what, _failing_line(err), str(err).splitlines()[0] if str(err) else type(err).__name__
+                    )
+                ) from err
+            try:
+                graph.capture_end()
+            except RuntimeError as err:
+                raise GraphCaptureError("{}: capture of its {} failed: {}".format(name, what, err)) from err
+    finally:
+        if collecting:
+            gc.enable()
+    return graph, result
+
+
+def _take_scratch(device, stream):
+    """The kernels' scratch on ``stream``, taken out of their wrappers'
+    tables for the graph just captured there."""
+    return [module.take_scratch(device, stream.cuda_stream) for module in _kernels()]
+
+
 class StepGraph:
     """One step, ``update`` and optionally ``loss``, captured on static
     copies of ``state`` (the state after an eager step on ``stream``, the
     current stream when this is made); ``loss_like`` is a loss of that
-    step, whose type the loss buffer takes.  ``stream=None`` emulates the
-    graph: each replay calls the step eagerly on the static buffers.
+    step, whose type the loss buffer takes.  The fields named in ``keep``
+    are static buffers already (the init graph's input) and are used as
+    they are, not copied.  ``stream=None`` emulates the graph: each replay
+    calls the step eagerly on the static buffers.
     """
 
-    def __init__(self, name, state, update, loss=None, loss_like=None, stream=None):
+    def __init__(self, name, state, update, loss=None, loss_like=None, stream=None, keep=()):
         self.name = name
         self.signature = _signature(state)
         self.device = _device_of(state)
         self._update, self._loss = update, loss
-        self.static = {k: v.clone() for k, v in state.items()}
+        self.static = {k: (v if k in keep else v.clone()) for k, v in state.items()}
         self.loss_buf = self.slot = None
         if loss is not None:
             self.loss_buf = loss_like.new_zeros((LOSS_SLOTS,))
@@ -260,40 +322,10 @@ class StepGraph:
         self.capture_s = time.perf_counter() - start
 
     def _capture(self, stream):
-        graph = torch.cuda.CUDAGraph()
-        torch.cuda.synchronize(self.device)
         slots = None if self._loss is None else (self.loss_buf, self.slot)
-        # no collection during the capture: a graph freed there would
-        # release its memory, which a capture forbids, and void this one
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            return self._captured(graph, stream, slots)
-        finally:
-            if collecting:
-                gc.enable()
-
-    def _captured(self, graph, stream, slots):
-        with torch.cuda.stream(stream):
-            graph.capture_begin(capture_error_mode="global")
-            try:
-                identity = self._step(self.static, slots)
-            except Exception as err:
-                with contextlib.suppress(RuntimeError):
-                    graph.capture_end()
-                if isinstance(err, GraphCaptureError):
-                    raise
-                raise GraphCaptureError(
-                    "{} declares its step capturable, but capture failed at {}: {}".format(
-                        self.name, _failing_line(err), str(err).splitlines()[0] if str(err) else type(err).__name__
-                    )
-                ) from err
-            try:
-                graph.capture_end()
-            except RuntimeError as err:
-                raise GraphCaptureError("{}: capture of its step failed: {}".format(self.name, err)) from err
+        graph, identity = _capture(self.name, "step", self.device, stream, lambda: self._step(self.static, slots))
         # the scratch the captured launches point at is this graph's alone
-        self.scratch = [module.take_scratch(self.device, stream.cuda_stream) for module in _kernels()]
+        self.scratch = _take_scratch(self.device, stream)
         return graph, identity
 
     def _step(self, static, slots):
@@ -327,7 +359,8 @@ class StepGraph:
                 "{}: the state {} does not match the captured {}".format(self.name, _signature(state), self.signature)
             )
         for k, v in state.items():
-            self.static[k].copy_(v)
+            if v is not self.static[k]:
+                self.static[k].copy_(v)
 
     def replay(self, n=1):
         """``n`` steps; the launch counts gain a step's launches each, and
@@ -363,7 +396,8 @@ class StepGraph:
 
     def snapshot(self, state):
         """The static state as fresh tensors; a pass-through field is
-        ``state``'s own (the loaded state's, never a static buffer)."""
+        ``state``'s own (the loaded state's: a static buffer only where the
+        graph keeps it, see ``keep``)."""
         return {k: (state[k] if k in self.identity else v.clone()) for k, v in self.static.items()}
 
 
@@ -372,11 +406,12 @@ def _graph_cache(solver):
     return vars(solver).setdefault("_graph_cache", {})
 
 
-def _first_step_graph(solver, state, record):
+def _first_step_graph(solver, state, record, keep=()):
     """One eager step of ``solver`` from its post-init ``state``, then the
     step's graph: a cached one of the same signature, loaded with the new
     state, or one captured now, the eager step run on the graph's own
-    stream.  Returns ``(state after the step, its loss or None, graph)``."""
+    stream (``keep``: :class:`StepGraph`'s).  Returns ``(state after the
+    step, its loss or None, graph)``."""
     update, loss = solver.update_state, (solver.nll if record else None)
     key = (_signature(state), str(_device_of(state)), _scalars(solver), solver._graph_inputs())
     cache = _graph_cache(solver)
@@ -392,26 +427,27 @@ def _first_step_graph(solver, state, record):
         state = update(state)
         value = None if loss is None else loss(state)
         with span("solve.capture"):
-            graph = StepGraph(type(solver).__name__, state, update, loss, loss_like=value, stream=stream)
+            graph = StepGraph(type(solver).__name__, state, update, loss, loss_like=value, stream=stream, keep=keep)
     cache[key] = graph
     counters["graph_captures"] += 1
     return state, value, graph
 
 
-def replay_loop(solver, state, iteration, record):
+def replay_loop(solver, state, iteration, record, keep=()):
     """``iteration`` steps from the post-init ``state``: the first eager,
-    the rest replayed.  Returns ``(final state, losses)``, the state as
-    fresh tensors and the losses as a list of device tensors (empty unless
-    ``record``)."""
+    the rest replayed.  Returns ``(final state, losses, step graph)``, the
+    state as fresh tensors but for the fields the step passes through, the
+    losses as a list of device tensors (empty unless ``record``), and the
+    graph ``None`` where no step ran."""
     if iteration < 1:
-        return state, []
+        return state, [], None
     with span("solve.eager_step"):
-        state, value, graph = _first_step_graph(solver, state, record)
+        state, value, graph = _first_step_graph(solver, state, record, keep)
     losses = [value] if record else []
     with span("solve.replay"):
         losses.extend(graph.run(iteration - 1))
         final = graph.snapshot(state) if iteration > 1 else state
-    return final, losses
+    return final, losses, graph
 
 
 def graph_loop(solver, state, losses, iteration):
@@ -421,7 +457,7 @@ def graph_loop(solver, state, losses, iteration):
     the step's graph."""
     record = bool(solver.recordable_loss)
     if solver.callbacks is None:
-        final, steps = replay_loop(solver, state, iteration, record)
+        final, steps, _ = replay_loop(solver, state, iteration, record)
         with span("solve.wait"):
             solver._flush_losses(losses + steps)
         return solver._finish(final, publish=True)
@@ -443,3 +479,150 @@ def graph_loop(solver, state, losses, iteration):
                 solver._publish(final)
                 solver._on_callback()
     return solver._finish(final, publish=False)
+
+
+class EdgeGraph:
+    """One edge of a call, its init or its finalize, as a CUDA graph:
+    ``body(*inputs)`` captured on ``inputs``, static tensors (or dicts of
+    them) that the caller fills before each replay.  The body's result, a
+    pytree of tensors, is the graph's static output (:attr:`outputs`), which
+    each :meth:`replay` refreshes in place; an output may be one of the
+    inputs, passed through.  Before the capture the body runs once eagerly
+    on ``stream``, so what it launches is built and loaded.  ``pool`` is a
+    memory pool the graph shares (``None``: its own).  ``stream=None``
+    emulates the graph as :class:`StepGraph` does: the body runs once under
+    the audit, and each replay runs it eagerly and copies its result into
+    the outputs."""
+
+    def __init__(self, name, what, body, inputs, stream=None, pool=None):
+        self.inputs, self._body = inputs, body
+        if stream is not None:
+            with on_stream(stream):
+                body(*inputs)
+        before = _launch_counts()
+        try:
+            if stream is None:
+                passed = {id(t) for t in tree_leaves(inputs)}
+                with CaptureAudit(name, what):
+                    out = body(*inputs)
+                out = tree_map(lambda v: v if id(v) in passed else v.clone(), out)
+                self.graph = None
+            else:
+                self.graph, out = _capture(name, what, stream.device, stream, lambda: body(*inputs), pool=pool)
+                self.scratch = _take_scratch(stream.device, stream)
+                # no Python at a replay, and no cycle through the solver
+                self._body = None
+            self.launches = tuple(after - b for after, b in zip(_launch_counts(), before))
+        finally:
+            _set_launch_counts(before)
+        self.outputs = out
+        self._leaves = tree_leaves(out)
+        counters["edge_graph_captures"] += 1
+
+    def replay(self):
+        """One run of the body on the inputs as they stand; returns
+        :attr:`outputs`.  ``edge_graph_replays`` gains 1."""
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            before = _launch_counts()
+            try:
+                for static, v in zip(self._leaves, tree_leaves(self._body(*self.inputs))):
+                    if v is not static:
+                        static.copy_(v)
+            finally:
+                _set_launch_counts(before)
+        _add_launch_counts(self.launches, 1)
+        counters["edge_graph_replays"] += 1
+        return self.outputs
+
+
+class _EdgeCache(dict):
+    """A solver's edges by call signature, and the capture stream and the
+    memory pool that all of their graphs share (``None`` off CUDA).  Sharing
+    is safe because each edge graph's output is read before any other edge
+    graph replays: the init state by the call's first step, the finalize
+    output by its clone; so the graphs of many lengths hold little more
+    than their outputs."""
+
+    def __init__(self, device):
+        super().__init__()
+        self.stream = new_stream(device)
+        self.pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+
+
+class _Edges:
+    """The edges of one call signature: the init graph's static input, the
+    init graph, and the finalize graph with the step graph whose static
+    state it reads."""
+
+    def __init__(self, X):
+        self.input = torch.empty_like(X)
+        self.init = self.finalize = self.step = None
+
+
+def _init_body(solver, record):
+    def body(X):
+        state = solver.init_state(X)
+        return state, ([solver.nll(state)] if record else [])
+
+    return body
+
+
+def edge_init(solver, X):
+    """An engaged call's init (module docstring) on its input ``X``: the
+    host attributes, X copied into the static input, one replay of the
+    init graph, captured at a new signature.  Returns ``(post-init state,
+    losses, edges)``: the state and the initial loss (in a list, where it is
+    recorded) are the graph's static outputs.  The post-init state is not
+    published: no callback runs to see it, and the final publish of
+    :func:`edge_loop` replaces it."""
+    solver.init_attributes(X)
+    key = (tuple(X.shape), X.dtype, str(X.device), _scalars(solver), solver._graph_inputs())
+    cache = vars(solver).get("_edge_cache")
+    if cache is None:
+        cache = solver._edge_cache = _EdgeCache(X.device)
+    edges = cache.get(key)
+    if edges is None:
+        edges = cache[key] = _Edges(X)
+    edges.input.copy_(X)
+    if edges.init is None:
+        record = bool(solver.recordable_loss) and solver.record_initial_loss
+        with span("solve.capture_init"):
+            edges.init = EdgeGraph(
+                type(solver).__name__, "init", _init_body(solver, record), (edges.input,),
+                stream=cache.stream, pool=cache.pool,
+            )
+    state, losses = edges.init.replay()
+    return state, list(losses), edges
+
+
+def edge_finalize(solver, edges, graph):
+    """One replay of the finalize graph on the step ``graph``'s static
+    state, captured at first sight of ``graph``: the output, cloned."""
+    if edges.step is not graph:
+        cache = solver._edge_cache
+        with span("solve.capture_finalize"):
+            edges.finalize = EdgeGraph(
+                type(solver).__name__, "finalize", solver.finalize, (graph.static,),
+                stream=cache.stream, pool=cache.pool,
+            )
+        edges.step = graph
+    return tree_map(torch.clone, edges.finalize.replay())
+
+
+def edge_loop(solver, edges, X, state, losses, iteration):
+    """An engaged call after :func:`edge_init`: the first step eager (the
+    step graph's static input is the init graph's), the rest replayed, the
+    losses' one transfer, then :func:`edge_finalize` and the publish of the
+    final state with the caller's ``X`` as its input.  Returns the
+    output."""
+    record = bool(solver.recordable_loss)
+    final, steps, graph = replay_loop(solver, state, iteration, record, keep=("input",))
+    with span("solve.wait"):
+        solver._flush_losses(losses + steps)
+    with span("solve.finalize"):
+        output = edge_finalize(solver, edges, graph)
+        solver._publish(dict(final, input=X))
+        solver.estimation = output
+    return output

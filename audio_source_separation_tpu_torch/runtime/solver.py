@@ -7,7 +7,9 @@ device: on a CUDA card, for a solver whose configuration is
 :meth:`~IterativeSolver.capturable`, as one step captured as a CUDA graph
 and replayed (:mod:`.graph`, the counterpart of the JAX package's jitted
 scan); otherwise in a Python loop (:meth:`~IterativeSolver._eager_loop`).
-It keeps the public API of the reference:
+A solver that says :meth:`~IterativeSolver.capturable_edges` has its init
+and finalize captured too, where a call brings no callbacks and no warm
+start.  It keeps the public API of the reference:
 ``solver = Cls(**hyper); output = solver(X, iteration=N, **state_kwargs)``,
 where ``state_kwargs`` warm-start the state (checkpoint / resume), any other
 kwargs become plain attributes for callbacks, ``solver.loss`` records the
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .graph import graph_loop
+from .graph import edge_init, edge_loop, graph_loop
 from .spanlog import begin, count_copy, end, span
 
 EPS = 1e-12
@@ -411,6 +413,30 @@ class IterativeSolver:
         :meth:`use_mesh` (a collective in the step)."""
         return False
 
+    def capturable_edges(self, X):
+        """Whether the call's edges on the input ``X``, ``init_state`` with
+        the initial loss and ``finalize``, can be captured as CUDA graphs
+        beside the step (:func:`~.graph.edge_init`): both read nothing on
+        the host and take no host-drawn init.  It is asked only where the
+        step is captured and the call brings no callbacks and no warm
+        start; a solver that says so and fails to capture raises."""
+        return False
+
+    def init_attributes(self, X):
+        """Set the plain attributes that ``init_state`` sets from the input
+        ``X`` (its shape): run on their own before the edges' graphs are
+        looked up, since they are in the key and a replay runs no Python."""
+
+    def _captures_edges(self, X, state_kwargs, iteration):
+        """Whether this call runs its init and finalize as graphs too: the
+        captured loop, at least one iteration, no callbacks, no warm start
+        left after :meth:`prepare_state_kwargs`, and the solver's
+        :meth:`capturable_edges`."""
+        return (
+            iteration > 0 and not state_kwargs and self.callbacks is None and self._uses_graph(X)
+            and self.capturable_edges(X)
+        )
+
     def _graph_inputs(self):
         """The objects a captured step reads besides its state and the
         solver's plain attributes (a network, say): a tuple in the graph
@@ -497,6 +523,10 @@ class IterativeSolver:
             # the host inits above were drawn at the true bin count; a mesh
             # pads and cuts them with the input
             with self._on_shard(X, state_kwargs) as (X, state_kwargs):
+                if not eager and self._captures_edges(X, state_kwargs, iteration):
+                    state, losses, edges = edge_init(self, X)
+                    end(init)
+                    return edge_loop(self, edges, X, state, losses, iteration)
                 captured = not eager and self._uses_graph(X)
                 state, losses = self._init_run(X, state_kwargs)
                 end(init)

@@ -12,7 +12,10 @@ annotations, so none shows among its events, on the host or on the card.
 trace.
 
 The counters are plain integers, always on: ``graph_captures``,
-``graph_cache_hits`` and ``graph_replays`` (:mod:`.graph`, once per call),
+``graph_cache_hits`` and ``graph_replays`` (:mod:`.graph`'s step graph,
+once per call), ``edge_graph_captures`` and ``edge_graph_replays`` (its
+init and finalize graphs, each capture and each replay: 2 replays a call
+that captures its edges),
 ``host_copies`` and ``host_copy_bytes`` (the program's own transfer sites:
 the host data that ``stft``/``istft`` take and their windows, a solver's
 input, the losses' one transfer back; on the CPU the same sites count, so
@@ -23,7 +26,10 @@ the counts are the card's).  The kernels' ``launches`` are read through
 The spans of a solver call nest ``solve`` > ``solve.init``,
 ``solve.eager_step`` (> ``solve.capture`` at a new signature),
 ``solve.replay``, ``solve.wait``, ``solve.finalize``; the eager loop has
-``solve.steps`` in place of the first step and the replays.  ``stft`` and
+``solve.steps`` in place of the first step and the replays.  Where a call
+captures its edges (:func:`~.graph.edge_init`), ``solve.init`` holds
+``solve.capture_init`` and ``solve.finalize`` holds
+``solve.capture_finalize`` at a new signature.  ``stft`` and
 ``istft`` hold ``stft.copy_in`` / ``istft.copy_in`` around each site that
 can copy host data in.
 
@@ -49,7 +55,10 @@ _log = collections.deque(maxlen=CAPACITY)
 _ids = itertools.count(1)
 _local = threading.local()
 
-counters = {"graph_captures": 0, "graph_cache_hits": 0, "graph_replays": 0, "host_copies": 0, "host_copy_bytes": 0}
+counters = {
+    "graph_captures": 0, "graph_cache_hits": 0, "graph_replays": 0, "edge_graph_captures": 0, "edge_graph_replays": 0,
+    "host_copies": 0, "host_copy_bytes": 0,
+}
 _probes = {}
 
 
