@@ -55,7 +55,7 @@ from ..ops.ip_components import (
     projection_back_components,
     quadratic_power_planes,
 )
-from ..runtime.solver import real_tensor
+from ..runtime.solver import state_tensor
 from ..utils.flooring import EPS, THRESHOLD, floor_below
 from .iva import IVABase, _pair_update_matrix
 
@@ -134,9 +134,9 @@ class ILRMABase(IVABase):
         self, X, demix_filter=None, estimation=None, basis=None, activation=None, latent=None, step_count=None
     ):
         W = self._initial_filter(X, demix_filter)
-        state = {"input": X, "basis": real_tensor(basis, X), "activation": real_tensor(activation, X)}
+        state = {"input": X, "basis": state_tensor(basis, X), "activation": state_tensor(activation, X)}
         if self.partitioning:
-            state["latent"] = real_tensor(latent, X)
+            state["latent"] = state_tensor(latent, X)
         if self._is_iss:
             # ISS carries no W: a passed ``estimation`` is the state
             state["estimation"] = self.separate(X, W) if estimation is None else torch.as_tensor(estimation).to(X)

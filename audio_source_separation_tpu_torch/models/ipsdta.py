@@ -73,7 +73,7 @@ from ..ops.fast_linalg import (
     trace_hermitian_compact,
 )
 from ..ops.ip_components import assemble_matrices, det_components, solve_column_components
-from ..runtime.solver import real_tensor
+from ..runtime.solver import state_tensor
 from ..utils.flooring import EPS, floor_below
 from .iva import IVABase
 
@@ -346,7 +346,7 @@ class GaussIPSDTA(IPSDTABase):
             return torch.as_tensor(value).to(device=X.device, dtype=X.dtype).contiguous()
 
         state["basis"] = complex_tensor(basis)
-        state["activation"] = real_tensor(activation, X)
+        state["activation"] = state_tensor(activation, X)
         if fixed_point is not None:
             state["fixed_point"] = complex_tensor(fixed_point)
         if self.normalize:

@@ -73,7 +73,7 @@ from ..ops.ip_components import (
     quadratic_power_planes,
     solve_column_components,
 )
-from ..runtime.solver import IterativeSolver, real_tensor
+from ..runtime.solver import IterativeSolver, state_tensor
 from ..utils.flooring import EPS, THRESHOLD, floor_below
 
 AUTHORS = ("sawada", "ozerov")
@@ -84,13 +84,7 @@ COMPLEX_FIELDS = ("spatial", "mix_filter", "diagonalizer")
 def _state_tensors(X, kwargs):
     """Warm-start or drawn state arrays as tensors on ``X``'s device, the
     complex fields at ``X``'s type and the rest at its real type."""
-    out = {}
-    for k, v in kwargs.items():
-        if k in COMPLEX_FIELDS:
-            out[k] = torch.as_tensor(v).to(device=X.device, dtype=X.dtype).contiguous()
-        else:
-            out[k] = real_tensor(v, X)
-    return out
+    return {k: state_tensor(v, X, X.dtype if k in COMPLEX_FIELDS else X.real.dtype) for k, v in kwargs.items()}
 
 
 class MultichannelNMFBase(IterativeSolver):

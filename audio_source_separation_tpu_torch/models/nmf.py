@@ -53,7 +53,7 @@ from ..ops.fast_linalg import (
     trace_planes,
 )
 from ..ops.ip_components import _plane_index
-from ..runtime.solver import IterativeSolver, real_tensor
+from ..runtime.solver import IterativeSolver, state_tensor
 from ..utils.flooring import EPS, floor_below
 
 
@@ -108,7 +108,7 @@ class NMFBase(IterativeSolver):
         return state_kwargs
 
     def init_state(self, target, basis=None, activation=None):
-        return {"target": target, "basis": real_tensor(basis, target), "activation": real_tensor(activation, target)}
+        return {"target": target, "basis": state_tensor(basis, target), "activation": state_tensor(activation, target)}
 
     def criterion(self, reconstruction, target):
         raise NotImplementedError
@@ -363,11 +363,11 @@ class ComplexEUCNMF(IterativeSolver):
         return state_kwargs
 
     def init_state(self, target, basis=None, activation=None, phase=None):
-        phase_kft = real_tensor(phase, target).permute(1, 0, 2)
+        phase_kft = state_tensor(phase, target).permute(1, 0, 2)
         return {
             "target": target,
-            "basis": real_tensor(basis, target),
-            "activation": real_tensor(activation, target),
+            "basis": state_tensor(basis, target),
+            "activation": state_tensor(activation, target),
             "phase_cos": torch.cos(phase_kft),
             "phase_sin": torch.sin(phase_kft),
         }
@@ -511,8 +511,8 @@ class MultichannelISNMF(IterativeSolver):
             "target_planes": target_planes / scale[:, None],
             "bin_scale": scale,
             "spatial": torch.as_tensor(spatial).to(device=target.device, dtype=target.dtype),
-            "basis": real_tensor(basis, target) / scale[:, None],
-            "activation": real_tensor(activation, target),
+            "basis": state_tensor(basis, target) / scale[:, None],
+            "activation": state_tensor(activation, target),
         }
 
     def _spatial_coeffs(self, state):

@@ -10,7 +10,7 @@ product is formed.
 
 import numpy as np
 
-from ..runtime.solver import IterativeSolver, real_tensor
+from ..runtime.solver import IterativeSolver, state_tensor
 from ..utils.flooring import EPS, floor_below
 
 
@@ -41,9 +41,9 @@ class NTFBase(IterativeSolver):
     def init_state(self, target, partitioning=None, basis=None, activation=None):
         return {
             "target": target,
-            "partitioning": real_tensor(partitioning, target),
-            "basis": real_tensor(basis, target),
-            "activation": real_tensor(activation, target),
+            "partitioning": state_tensor(partitioning, target),
+            "basis": state_tensor(basis, target),
+            "activation": state_tensor(activation, target),
         }
 
     def reconstruct(self, state):

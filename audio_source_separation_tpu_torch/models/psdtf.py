@@ -45,7 +45,7 @@ from ..criterion.divergence import logdet_divergence
 from ..ops.eigh_kernel import batched_eigh
 from ..ops.fast_linalg import batched_eigvalsh
 from ..runtime.device import resolve_device
-from ..runtime.solver import IterativeSolver, real_tensor
+from ..runtime.solver import IterativeSolver, state_tensor
 from ..utils.flooring import EPS
 from ..utils.linalg import to_psd
 
@@ -159,7 +159,7 @@ class PSDTFBase(IterativeSolver):
 
     def init_state(self, target, basis=None, activation=None):
         basis = torch.as_tensor(basis).to(device=target.device, dtype=target.dtype)
-        activation = real_tensor(activation, target)
+        activation = state_tensor(activation, target)
         if self.normalize:
             basis, activation = self._normalize(basis, activation)
         Xt = target.permute(2, 0, 1)

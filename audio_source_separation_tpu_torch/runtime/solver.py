@@ -37,11 +37,20 @@ from .spanlog import begin, count_copy, end, span
 EPS = 1e-12
 
 
-def real_tensor(value, X):
+def state_tensor(value, X, dtype=None):
     """A state array (host-drawn float64 NumPy, or a tensor) on ``X``'s
-    device at ``X``'s real type: the cast comes after the draw, so float64
-    runs see the drawn values exactly."""
-    return torch.as_tensor(value).to(device=X.device, dtype=X.real.dtype).contiguous()
+    device at ``dtype`` (default ``X``'s real type): the cast comes after
+    the draw, so float64 runs see the drawn values exactly.  A value that is
+    not a tensor on ``X``'s device crosses from the host: the copy is a
+    ``solve.state_copy_in`` span and counts as a host copy of the bytes it
+    lands as."""
+    dtype = X.real.dtype if dtype is None else dtype
+    if isinstance(value, torch.Tensor) and value.device == X.device:
+        return value.to(dtype=dtype).contiguous()
+    with span("solve.state_copy_in"):
+        out = torch.as_tensor(value).to(device=X.device, dtype=dtype).contiguous()
+        count_copy(out.numel() * out.element_size())
+    return out
 
 
 @contextlib.contextmanager

@@ -18,13 +18,15 @@ init and finalize graphs, each capture and each replay: 2 replays a call
 that captures its edges),
 ``host_copies`` and ``host_copy_bytes`` (the program's own transfer sites:
 the host data that ``stft``/``istft`` take and their windows, a solver's
-input, the losses' one transfer back; on the CPU the same sites count, so
-the counts are the card's).  The kernels' ``launches`` are read through
-:func:`watch`.  A span opened with no span open (a top-level span, such as
-``stft`` or ``solve``) holds in ``attrs`` each counter's change over it.
+input, its drawn or warm-start state, the losses' one transfer back; on
+the CPU the same sites count, so the counts are the card's).  The
+kernels' ``launches`` are read through :func:`watch`.  A span opened with
+no span open (a top-level span, such as ``stft`` or ``solve``) holds in
+``attrs`` each counter's change over it.
 
-The spans of a solver call nest ``solve`` > ``solve.init``,
-``solve.eager_step`` (> ``solve.capture`` at a new signature),
+The spans of a solver call nest ``solve`` > ``solve.init`` (>
+``solve.state_copy_in`` around each copy of drawn or warm-start state from
+the host), ``solve.eager_step`` (> ``solve.capture`` at a new signature),
 ``solve.replay``, ``solve.wait``, ``solve.finalize``; the eager loop has
 ``solve.steps`` in place of the first step and the replays.  Where a call
 captures its edges (:func:`~.graph.edge_init`), ``solve.init`` holds
