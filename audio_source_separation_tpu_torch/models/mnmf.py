@@ -28,8 +28,10 @@ Ozerov per-bin equilibration (published in the input frame).
 FastMNMF's diagonaliser update takes all C weighted covariances ``(1/T)
 sum_t x x^H / R[m, f, t]`` in one call of kernel K1
 (:func:`~..ops.cov_kernel.weighted_covariance_planes`, per-bin ``(C, F, T)``
-weights) per iteration; Sawada's frame contractions and Ozerov's EM are
-batched PyTorch products, no kernel.
+weights) per iteration, and at C <= 4 its row sweep and the per-bin part
+of its power normalisation in one call of kernel K4
+(:func:`~..ops.mnmf_rows.fastmnmf_rows`); Sawada's frame contractions and
+Ozerov's EM are batched PyTorch products, no kernel.
 
 Under a mesh (the JAX package's ``field_axes``) every per-bin field shards
 with the bins and the activations with the frames.  In bins mode the sums
@@ -65,14 +67,8 @@ from ..ops.fast_linalg import (
     solve_riccati_hermitian_compact,
 )
 from ..ops.ip import cond_guard
-from ..ops.ip_components import (
-    assemble_components,
-    assemble_matrices,
-    det_components,
-    pair_products_planes,
-    quadratic_power_planes,
-    solve_column_components,
-)
+from ..ops.ip_components import assemble_matrices, pair_products_planes, quadratic_power_planes
+from ..ops.mnmf_rows import MAX_C, fastmnmf_rows, power_normalize_bins
 from ..runtime.solver import IterativeSolver, state_tensor
 from ..utils.flooring import EPS, THRESHOLD, floor_below
 
@@ -626,8 +622,9 @@ class FastMultichannelISNMF(MultichannelNMFBase):
     ``|Q x|^2`` is carried as ``qx_power`` and refreshed once an iteration,
     from the invariant pair-product planes unless ``guard="svd"``.  The
     diagonaliser update forms all M weighted covariances in one K1 call,
-    then sweeps the rows in component layout at C <= 4 with a cheap guard,
-    else in matrix layout with :func:`~..ops.ip.cond_guard`.
+    then at C <= 4 with a cheap guard sweeps the rows and applies the
+    per-bin part of the power normalisation in one call of K4, else sweeps
+    in matrix layout with :func:`~..ops.ip.cond_guard`.
     """
 
     state_fields = ("diagonalizer", "spatial_covariance", "basis", "activation", "latent")
@@ -775,40 +772,23 @@ class FastMultichannelISNMF(MultichannelNMFBase):
         B = floor_below(torch.einsum("sfk,mfsk->sfm", W, E_den), eps)
         return dict(state, spatial_covariance=g * torch.sqrt(A / B))
 
-    def _update_diagonalizer(self, state):
-        """IP-style row update of Q (``mnmf.py:848-888``).  R is fixed for
-        the whole sweep, so all M covariances ``U_m = (1/T) sum_t x x^H /
-        R_m`` come from one call of K1 with per-bin ``(M, F, T)`` weights."""
+    def _update_diagonalizer(self, state, normalize):
+        """IP-style row update of Q (``mnmf.py:848-888``), then with
+        ``normalize`` the per-bin part of the power normalisation (Q, then
+        g, then W; ``mnmf.py:743-771``).  R is fixed for the whole sweep, so
+        all M covariances ``U_m = (1/T) sum_t x x^H / R_m`` come from one
+        call of K1 with per-bin ``(M, F, T)`` weights; at C <= 4 under a
+        cheap guard the sweep and the per-bin normalisation are one call of
+        K4 (:func:`~..ops.mnmf_rows.fastmnmf_rows`)."""
         eps, threshold = self.eps, self.threshold
-        Q = state["diagonalizer"]
+        Q, g, W = state["diagonalizer"], state["spatial_covariance"], state["basis"]
         C = Q.shape[-1]
         R = floor_below(self._model_power(state), eps)  # (M, F, T)
         U_planes = self._frames_mean(weighted_covariance_planes(state["input"], 1.0 / R))  # (C^2, F, M): one K1 launch
 
-        if self.guard in ("one_norm", "none") and C <= 4:
-            U_all = assemble_components(U_planes)
-            Q_rows = [[Q[:, i, c] for c in range(C)] for i in range(C)]
-            for m in range(C):
-                U = U_all[m]
-                QV = [[_sum(Q_rows[i][c] * U[c][j] for c in range(C)) for j in range(C)] for i in range(C)]
-                det = det_components(QV, C)
-                q_m = solve_column_components(QV, C, m, det=det)
-                ok = None
-                if self.guard == "one_norm":
-                    inv_cols = [solve_column_components(QV, C, j, det=det) for j in range(C)]
-                    norm = torch.stack([_sum(torch.abs(QV[i][j]) for i in range(C)) for j in range(C)]).amax(dim=0)
-                    inv_norm = torch.stack(
-                        [_sum(torch.abs(inv_cols[j][i]) for i in range(C)) for j in range(C)]
-                    ).amax(dim=0)
-                    ok = norm * inv_norm < threshold
-                Uq = [_sum(U[c][d] * q_m[d] for d in range(C)) for c in range(C)]
-                qVq = _sum((q_m[c].conj() * Uq[c]).real for c in range(C))
-                denominator = floor_below(torch.sqrt(qVq), eps)
-                for c in range(C):
-                    new_c = q_m[c].conj() / denominator
-                    Q_rows[m][c] = new_c if ok is None else torch.where(ok, new_c, Q_rows[m][c])
-            Q = torch.stack([torch.stack(row, dim=-1) for row in Q_rows], dim=1)
-            return dict(state, diagonalizer=Q)
+        if self.guard in ("one_norm", "none") and C <= MAX_C:
+            Q, g, W = fastmnmf_rows(U_planes, Q, g, W, eps, threshold, guard=self.guard, normalize=normalize)
+            return dict(state, diagonalizer=Q, spatial_covariance=g, basis=W)
 
         V_all = assemble_matrices(U_planes)  # (M, F, C, C)
         for m in range(C):
@@ -823,36 +803,33 @@ class FastMultichannelISNMF(MultichannelNMFBase):
             denominator = floor_below(torch.sqrt(qVq).real, eps)
             row = torch.where(ok[:, None], q_m.conj() / denominator[:, None], Q[:, m, :])
             Q = torch.cat([Q[:, :m], row[:, None], Q[:, m + 1 :]], dim=1)
-        return dict(state, diagonalizer=Q)
+        if normalize:
+            Q, g, W = power_normalize_bins(Q, g, W, eps)
+        return dict(state, diagonalizer=Q, spatial_covariance=g, basis=W)
 
-    def _normalize_state(self, state):
-        """The power normalisation chain Q -> g -> W -> H (``mnmf.py:743-771``)."""
+    def _normalizes(self):
+        """Whether the step applies the power normalisation; any other
+        normalisation raises."""
         if not self.normalize:
-            return state
+            return False
         if self.normalize != "power":
             raise ValueError("Not support normalization based on {}. Choose 'power'".format(self.normalize))
-        eps = self.eps
-        Q, g = state["diagonalizer"], state["spatial_covariance"]
+        return True
+
+    def _normalize_basis(self, state):
+        """The power normalisation's sum over the bins: ``W / Wsum`` and ``H
+        Wsum`` (the per-bin part is :meth:`_update_diagonalizer`'s)."""
         W, H = state["basis"], state["activation"]
-
-        QQsum = floor_below((Q * Q.conj()).real.sum(dim=2).mean(dim=1), eps)  # (F,)
-        Q = Q / torch.sqrt(QQsum)[:, None, None].to(Q.dtype)
-        g = g / QQsum[None, :, None]
-
-        g_sum = floor_below(g.sum(dim=2), eps)
-        g = g / g_sum[:, :, None]
-        W = W * g_sum[:, :, None]
-
-        Wsum = floor_below(self._bins_sum(W.sum(dim=1)), eps)
-        W = W / Wsum[:, None]
-        H = H * Wsum[:, :, None]
-        return dict(state, diagonalizer=Q, spatial_covariance=g, basis=W, activation=H)
+        Wsum = floor_below(self._bins_sum(W.sum(dim=1)), self.eps)
+        return dict(state, basis=W / Wsum[:, None], activation=H * Wsum[:, :, None])
 
     def update_state(self, state):
+        normalize = self._normalizes()
         state = self._update_nmf(state)
         state = self._update_scm(state)
-        state = self._update_diagonalizer(state)
-        state = self._normalize_state(state)
+        state = self._update_diagonalizer(state, normalize)
+        if normalize:
+            state = self._normalize_basis(state)
         # |Q x|^2 once, after every change of Q this iteration
         return dict(state, qx_power=self._compute_qx_power(state))
 

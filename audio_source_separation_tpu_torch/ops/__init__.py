@@ -1,6 +1,7 @@
 """Per-bin C x C math, the padded block layout of the block-PSD models
-(``blocks.py``) and the three hand-written kernels (K1 in ``cov_kernel.py``,
-K2 in ``fused_ip.py``, K3 in ``eigh_kernel.py``; sources in ``../csrc``)."""
+(``blocks.py``) and the four hand-written kernels (K1 in ``cov_kernel.py``,
+K2 in ``fused_ip.py``, K3 in ``eigh_kernel.py``, K4 in ``mnmf_rows.py``;
+sources in ``../csrc``)."""
 
 from .blocks import BlockLayout
 from .covariance import (

@@ -27,6 +27,7 @@ SOURCES = {
     "weighted_covariance": "weighted_covariance.cu",
     "fused_auxiva_ip": "fused_auxiva_ip.cu",
     "batched_eigh": "batched_eigh.cu",
+    "fastmnmf_rows": "fastmnmf_rows.cu",
 }
 
 NVCC_FLAGS = (

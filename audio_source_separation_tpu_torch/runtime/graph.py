@@ -92,18 +92,21 @@ class GraphCaptureError(RuntimeError):
 
 
 def _kernels():
-    """The kernels' wrapper modules: K2's, K1's, K3's."""
-    from ..ops import cov_kernel, eigh_kernel, fused_ip
+    """The kernels' wrapper modules: K2's, K1's, K3's, K4's."""
+    from ..ops import cov_kernel, eigh_kernel, fused_ip, mnmf_rows
 
-    return fused_ip, cov_kernel, eigh_kernel
+    return fused_ip, cov_kernel, eigh_kernel, mnmf_rows
 
 
 @functools.cache
 def _counted():
     """The kernel wrappers whose ``launches`` a replay adds to (resolved
     once)."""
-    fused_ip, cov_kernel, eigh_kernel = _kernels()
-    return fused_ip.fused_auxiva_ip_iter, cov_kernel.weighted_covariance_planes, eigh_kernel.batched_eigh
+    fused_ip, cov_kernel, eigh_kernel, mnmf_rows = _kernels()
+    return (
+        fused_ip.fused_auxiva_ip_iter, cov_kernel.weighted_covariance_planes, eigh_kernel.batched_eigh,
+        mnmf_rows.fastmnmf_rows,
+    )
 
 
 def _launch_counts():

@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile]
 
 Phases (each asserts; any failure exits non-zero):
-  1. the card's name and power limit; build the three CUDA kernels from
+  1. the card's name and power limit; build the four CUDA kernels from
      ``audio_source_separation_tpu_torch/csrc`` with nvcc (one process per
      source, in parallel) and print the build time;
   2. kernels: K1 (weighted covariance) at C in {2, 3, 4} x 2049 x 469, at
@@ -23,7 +23,12 @@ Phases (each asserts; any failure exits non-zero):
      |HV - VL| / |H| and |V^H V - I| (1e-5 single, 1e-10 double), NaN
      exactly for matrices given a non-finite entry, one launch a call,
      bit-identical launches; ms against the bound, the plain version and
-     one torch.linalg.eigh call (cuSOLVER), and the sweeps taken;
+     one torch.linalg.eigh call (cuSOLVER), and the sweeps taken; then K4
+     (FastMNMF's row sweep and power normalisation) at 2049 bins, K = 10,
+     C = 2, 3, 4 complex64 and C = 2 complex128 (K4_CASES) against its
+     plain version under both guards (1e-4 single, 1e-10 double), one
+     launch a call, bit-identical launches; ms against the bound and the
+     plain version's chain;
   3. main path, C = 2: a 60 s, 16 kHz stereo convolutive mixture ->
      stft(4096, 2048) -> AuxLaplaceIVA(IP) x 100 -> projection-back -> istft
      on the card; K2 once per iteration, loss finite and non-increasing,
@@ -203,8 +208,8 @@ Phases (each asserts; any failure exits non-zero):
      blocks (K1, K3), Ikeshita and TIPSDTA(1000) (K3), LDPSDTF at K = 2 and
      3 on 64 x 64 x 469 (K3)) x 20 (x 10 where the eager loop is slow,
      GRAPH_SLOW) from the same draws, one line: bits or gap (equal bits
-     held on the K2 path, 1e-5 elsewhere), the launches of K1, K2 and K3
-     per call as the eager loop's, one capture across two calls, ms an
+     held on the K2 path, 1e-5 elsewhere), the launches of K1, K2, K3 and
+     K4 per call as the eager loop's, one capture across two calls, ms an
      iteration for both by
      ``per_iteration``'s differencing, the replay's host ms and the capture
      seconds; ``batch_separate`` over AuxLaplaceIVA IP x 30 on 8 x 2 x 2049
@@ -212,7 +217,7 @@ Phases (each asserts; any failure exits non-zero):
      ``benchmark_solver`` on the main path, graph against eager.  Every
      earlier phase runs through the captured loop too;
  16. the script's seconds, one ``{"kernels": [...]}`` line (K1, K2 once
-     per contrast, K3), then the last line ``{"ok": true, "device":
+     per contrast, K3, K4), then the last line ``{"ok": true, "device":
      {...}}``.
 
 Phase 2 also holds K2's Gauss instance at both shapes, K2 (both contrasts)
@@ -299,6 +304,7 @@ from audio_source_separation_tpu_torch.ops.fused_ip import (
     k2_cost,
     k2_launch_plan,
 )
+from audio_source_separation_tpu_torch.ops.mnmf_rows import fastmnmf_rows, fastmnmf_rows_plain, k4_cost
 from audio_source_separation_tpu_torch.ops.ip_components import (
     _covariance_planes,
     auxiva_ip_step_components,
@@ -522,6 +528,51 @@ def k2_case(gen, F, T, contrast="laplace", n_bins=None):
     }
 
 
+# K4's cases at the FastMNMF cell's 2049 bins and K = 10, S = C sources:
+# (C, type)
+K4_CASES = [(2, torch.complex64), (3, torch.complex64), (4, torch.complex64), (2, torch.complex128)]
+# K4 against its plain version, max |err| / max |plain| of each output
+K4_RTOL = {torch.complex64: 1e-4, torch.complex128: 1e-10}
+
+
+def k4_case(gen, C, dtype, F=2049, T=470, K=10):
+    """K4 against its plain version, with the power normalisation, under
+    both guards, on K1-shaped planes of a seeded mixture's covariances
+    (weights over three decades) and a diagonaliser near the identity:
+    bit-identical across two launches, one launch counted a call; median
+    times of K4 and of the plain version's chain of small kernels, beside
+    the bound from ``k4_cost``."""
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
+    X = random_mixture(gen, C, F, T).to(dtype)
+    w = 10.0 ** (3 * torch.rand((C, F, T), generator=gen, device="cuda") - 1.5)
+    U = _covariance_planes(pair_products_planes(X), w.to(real)).contiguous()
+    noise = torch.complex(
+        torch.randn((F, C, C), generator=gen, device="cuda"), torch.randn((F, C, C), generator=gen, device="cuda")
+    )
+    Q = (torch.eye(C, device="cuda") + 0.3 * noise).to(dtype).contiguous()
+    g = torch.rand((C, F, C), generator=gen, device="cuda").to(real)
+    W = torch.rand((C, F, K), generator=gen, device="cuda").to(real)
+    args = (U, Q, g, W, EPS, THRESHOLD)
+    errs = {}
+    for guard in ("one_norm", "none"):
+        before = fastmnmf_rows.launches
+        out = fastmnmf_rows(*args, guard=guard)
+        again = fastmnmf_rows(*args, guard=guard)
+        ref = fastmnmf_rows_plain(*args, guard=guard)
+        torch.cuda.synchronize()
+        assert fastmnmf_rows.launches == before + 2, ("K4 launches", fastmnmf_rows.launches - before)
+        assert all(torch.equal(a, b) for a, b in zip(out, again)), ("K4 not bit-identical across launches", C, dtype)
+        errs[guard] = max(rel_err(a, b) for a, b in zip(out, ref))
+        assert math.isfinite(errs[guard]) and errs[guard] <= K4_RTOL[dtype], ("K4", C, dtype, guard, errs[guard])
+    ms = median_ms(lambda: fastmnmf_rows(*args))
+    plain_ms = median_ms(lambda: fastmnmf_rows_plain(*args))
+    bound_ms, bound_by = bound(*k4_cost(C, C, K, F, True, Q.element_size()))
+    return {
+        "C": C, "S": C, "K": K, "F": F, "dtype": str(dtype).replace("torch.", ""), "rel_err": errs,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_us": bound_ms * 1e3, "bound_by": bound_by,
+    }
+
+
 # K3 against its plain version (both at float64 arithmetic, the result at the
 # input's type), relative to each matrix's largest eigenvalue modulus or norm
 K3_RTOL = {torch.float32: 1e-5, torch.complex64: 1e-5, torch.float64: 1e-10, torch.complex128: 1e-10}
@@ -699,9 +750,7 @@ def per_iteration(X, record, make=AuxLaplaceIVA, n=100, warm=10, **call):
 
 def main_path_c2(rng):
     mixture, images = synth_mixture(rng, 2, N_SAMPLES)
-    fused_auxiva_ip_iter.launches = 0
-    weighted_covariance_planes.launches = 0
-    batched_eigh.launches = 0
+    counts_zero()
     torch.cuda.synchronize()
     start = time.perf_counter()
     X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE)
@@ -742,9 +791,7 @@ def main_path_c2(rng):
 def main_path_c2_long(rng):
     """C = 2 through the entry points at T > 6144 frames."""
     mixture, images = synth_mixture(rng, 2, N_SAMPLES_LONG)
-    fused_auxiva_ip_iter.launches = 0
-    weighted_covariance_planes.launches = 0
-    batched_eigh.launches = 0
+    counts_zero()
     torch.cuda.synchronize()
     start = time.perf_counter()
     X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE_LONG, hop_size=HOP_SIZE_LONG)
@@ -778,9 +825,7 @@ def main_path_c3_long(rng):
     """C = 3 through the entry points on a 120 s recording: 3 x 513 x 7501,
     where K1 splits the frame axis across blocks."""
     mixture, images = synth_mixture(rng, 3, N_SAMPLES_LONG)
-    fused_auxiva_ip_iter.launches = 0
-    weighted_covariance_planes.launches = 0
-    batched_eigh.launches = 0
+    counts_zero()
     torch.cuda.synchronize()
     start = time.perf_counter()
     X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE_LONG, hop_size=HOP_SIZE_LONG)
@@ -814,9 +859,7 @@ def main_path_c3_long(rng):
 
 def main_path_c3(rng):
     mixture, images = synth_mixture(rng, 3, N_SAMPLES)
-    fused_auxiva_ip_iter.launches = 0
-    weighted_covariance_planes.launches = 0
-    batched_eigh.launches = 0
+    counts_zero()
     X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE)
     solver = AuxLaplaceIVA(algorithm_spatial="IP")
     Y = solver(X, iteration=ITERS_C3)
@@ -852,10 +895,7 @@ def drive(make, mixture, iterations, **call):
     """``stft -> make()(X, iteration=iterations, **call) -> istft`` on the
     card, with both kernels' counts set to 0 just before and read just
     after."""
-    fused_auxiva_ip_iter.launches = 0
-    weighted_covariance_planes.launches = 0
-    batched_eigh.launches = 0
-    torch.cuda.synchronize()
+    counts_zero()
     start = time.perf_counter()
     X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE)
     solver = make()
@@ -1106,10 +1146,7 @@ def factorisation(mixture, mixture3):
     for key, cls, kw, target, iterations, falls, *match in FACTOR_CASES:
         match = match[0] if match else {}
         np.random.seed(SEED)
-        fused_auxiva_ip_iter.launches = 0
-        weighted_covariance_planes.launches = 0
-        batched_eigh.launches = 0
-        torch.cuda.synchronize()
+        counts_zero()
         start = time.perf_counter()
         model = cls(n_basis=FACTOR_BASIS, **kw)
         factors = model(targets[target], iteration=iterations)
@@ -1362,9 +1399,7 @@ def beamformers(rng, failed):
             for s in range(2)
         },
     }
-    fused_auxiva_ip_iter.launches = 0
-    weighted_covariance_planes.launches = 0
-    batched_eigh.launches = 0
+    counts_zero()
     X = stft(mixture.astype(np.float32), fft_size=FFT_SIZE, hop_size=HOP_SIZE)
     X_cpu32 = X_cpu.to(torch.complex64)
     out, Y, expected, checks = {}, {}, {}, {}
@@ -1486,6 +1521,7 @@ def mnmf(mixture, images, mixture3, images3, failed):
         )
         checks = {
             "K1 launches": res["k1_launches"] == iterations * k1_per_iteration and res["k2_launches"] == 0,
+            "K4 launches": res["k4_launches"] == iterations * k1_per_iteration,
             "loss length": len(loss) == iterations + 1,
             "loss falls": loss[-1] < loss[0],
             "loss vs CPU float64 within {}".format(rtol): gaps.max() <= rtol,
@@ -1529,6 +1565,7 @@ def mnmf(mixture, images, mixture3, images3, failed):
         res["si_sdr_before_db"], res["si_sdr_after_db"] = before3, best_pairing_si_sdr(y, images3)
         record_checks(failed, key, {
             "K1 launches": res["k1_launches"] == iterations * k1_per_iteration and res["k2_launches"] == 0,
+            "K4 launches": res["k4_launches"] == iterations * k1_per_iteration,
             "loss length": len(loss) == iterations + 1,
             "output shape": tuple(Y.shape) == tuple(X.shape),
         })
@@ -1836,7 +1873,7 @@ def block_psd(mixture, images, mixture3, images3, failed):
         row_start = time.perf_counter()
         target = gram_target(n_basis, n_frames)
         np.random.seed(SEED)
-        weighted_covariance_planes.launches = fused_auxiva_ip_iter.launches = batched_eigh.launches = 0
+        counts_zero()
         torch.cuda.synchronize()
         start = time.perf_counter()
         model = LDPSDTF(n_basis=n_basis)
@@ -1884,13 +1921,14 @@ def counts_zero():
     fused_auxiva_ip_iter.launches = 0
     weighted_covariance_planes.launches = 0
     batched_eigh.launches = 0
+    fastmnmf_rows.launches = 0
     torch.cuda.synchronize()
 
 
 def counts():
     return {
         "k1_launches": weighted_covariance_planes.launches, "k2_launches": fused_auxiva_ip_iter.launches,
-        "k3_launches": batched_eigh.launches,
+        "k3_launches": batched_eigh.launches, "k4_launches": fastmnmf_rows.launches,
     }
 
 
@@ -2639,7 +2677,7 @@ def cost_rows(mlp_weights):
         ("gauss_ip_c2", lambda d: AuxGaussIVA(device=d), "X", {"K2": 1}, "fast"),
         ("laplace_ip_c3", lambda d: AuxLaplaceIVA(device=d), "X3", {"K1": 1}, "mid"),
         ("gauss_ilrma_10", lambda d: GaussILRMA(n_basis=10, device=d), "X", {"K1": 1}, "mid"),
-        ("fast_mnmf_10", lambda d: FastMultichannelISNMF(n_basis=10, device=d), "X", {"K1": 1}, "mid"),
+        ("fast_mnmf_10", lambda d: FastMultichannelISNMF(n_basis=10, device=d), "X", {"K1": 1, "K4": 1}, "mid"),
         ("gauss_idlma", idlma, "X", {"K1": 1}, "mid"),
         # the source step's square-root chain: two K3 calls
         ("ipsdta_kondo", lambda d: GaussIPSDTA(n_basis=2, device=d), "X", {"K1": 1, "K3": 2}, "slow"),
@@ -2684,6 +2722,7 @@ def cost_model(X, X3, copy_gb_s, failed):
                 "K1": weighted_covariance_planes.launches - init["k1_launches"],
                 "K2": fused_auxiva_ip_iter.launches - init["k2_launches"],
                 "K3": batched_eigh.launches - init["k3_launches"],
+                "K4": fastmnmf_rows.launches - init["k4_launches"],
             }
             np.random.seed(SEED)
             cpu = iteration_cost(make("cpu"), target.cpu())
@@ -2734,46 +2773,46 @@ ITERS_GRAPH, GRAPH_N, GRAPH_WARM = 20, 50, 5
 GRAPH_RTOL = 1e-5
 # key, constructor, input (phase 3's mixture "X2", phase 5's "X3", a seeded
 # 4-mic "X4", phase 11's Gram targets "gram2" and "gram3", or a
-# factorisation target of factor_targets), K1, K2 and K3 launches an
+# factorisation target of factor_targets), K1, K2, K3 and K4 launches an
 # iteration
 GRAPH_CASES = [
-    ("laplace_ip_c2", lambda: AuxLaplaceIVA(), "X2", (0, 1, 0)),
-    ("gauss_ip_c2", lambda: AuxGaussIVA(), "X2", (0, 1, 0)),
-    ("laplace_ip_c3", lambda: AuxLaplaceIVA(), "X3", (1, 0, 0)),
-    ("gauss_ip_c3", lambda: AuxGaussIVA(), "X3", (1, 0, 0)),
-    ("laplace_iss_c2", lambda: AuxLaplaceIVA(algorithm_spatial="ISS"), "X2", (0, 0, 0)),
-    ("laplace_ip2_c2", lambda: AuxLaplaceIVA(algorithm_spatial="IP2"), "X2", (1, 0, 0)),
-    ("gauss_ilrma_ip_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS), "X2", (1, 0, 0)),
-    ("gauss_ilrma_iss_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS, algorithm_spatial="ISS"), "X2", (0, 0, 0)),
-    ("gauss_ilrma_ip2_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS, algorithm_spatial="IP2"), "X2", (1, 0, 0)),
-    ("tilrma_c2", lambda: TILRMA(n_basis=BATCH_BASIS), "X2", (1, 0, 0)),
-    ("consistent_ilrma_c2", lambda: ConsistentGaussILRMA(n_basis=BATCH_BASIS, fft_size=FFT_SIZE), "X2", (1, 0, 0)),
-    ("fast_mnmf_c2", lambda: FastMultichannelISNMF(n_basis=BATCH_BASIS), "X2", (1, 0, 0)),
-    ("eucnmf", lambda: EUCNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0)),
-    ("klnmf", lambda: KLNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0)),
-    ("isnmf_mm", lambda: ISNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0)),
-    ("tnmf", lambda: TNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0)),
-    ("cauchy_mm_fast", lambda: CauchyNMF(n_basis=FACTOR_BASIS, algorithm="mm_fast"), "power", (0, 0, 0)),
-    ("complex_eucnmf", lambda: ComplexEUCNMF(n_basis=FACTOR_BASIS), "spectrogram", (0, 0, 0)),
-    ("eucntf", lambda: EUCNTF(n_basis=FACTOR_BASIS), "power_tensor", (0, 0, 0)),
+    ("laplace_ip_c2", lambda: AuxLaplaceIVA(), "X2", (0, 1, 0, 0)),
+    ("gauss_ip_c2", lambda: AuxGaussIVA(), "X2", (0, 1, 0, 0)),
+    ("laplace_ip_c3", lambda: AuxLaplaceIVA(), "X3", (1, 0, 0, 0)),
+    ("gauss_ip_c3", lambda: AuxGaussIVA(), "X3", (1, 0, 0, 0)),
+    ("laplace_iss_c2", lambda: AuxLaplaceIVA(algorithm_spatial="ISS"), "X2", (0, 0, 0, 0)),
+    ("laplace_ip2_c2", lambda: AuxLaplaceIVA(algorithm_spatial="IP2"), "X2", (1, 0, 0, 0)),
+    ("gauss_ilrma_ip_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS), "X2", (1, 0, 0, 0)),
+    ("gauss_ilrma_iss_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS, algorithm_spatial="ISS"), "X2", (0, 0, 0, 0)),
+    ("gauss_ilrma_ip2_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS, algorithm_spatial="IP2"), "X2", (1, 0, 0, 0)),
+    ("tilrma_c2", lambda: TILRMA(n_basis=BATCH_BASIS), "X2", (1, 0, 0, 0)),
+    ("consistent_ilrma_c2", lambda: ConsistentGaussILRMA(n_basis=BATCH_BASIS, fft_size=FFT_SIZE), "X2", (1, 0, 0, 0)),
+    ("fast_mnmf_c2", lambda: FastMultichannelISNMF(n_basis=BATCH_BASIS), "X2", (1, 0, 0, 1)),
+    ("eucnmf", lambda: EUCNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0, 0)),
+    ("klnmf", lambda: KLNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0, 0)),
+    ("isnmf_mm", lambda: ISNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0, 0)),
+    ("tnmf", lambda: TNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0, 0)),
+    ("cauchy_mm_fast", lambda: CauchyNMF(n_basis=FACTOR_BASIS, algorithm="mm_fast"), "power", (0, 0, 0, 0)),
+    ("complex_eucnmf", lambda: ComplexEUCNMF(n_basis=FACTOR_BASIS), "spectrogram", (0, 0, 0, 0)),
+    ("eucntf", lambda: EUCNTF(n_basis=FACTOR_BASIS), "power_tensor", (0, 0, 0, 0)),
     # captured since K3 made their eigensolves capturable
-    ("grad_iva_c2", lambda: GradLaplaceIVA(), "X2", (0, 0, 0)),
-    ("natural_grad_iva_c2", lambda: NaturalGradLaplaceIVA(), "X2", (0, 0, 0)),
-    ("grad_fdica_c2", lambda: GradLaplaceFDICA(lr=0.1), "X2", (0, 0, 0)),
-    ("natural_grad_fdica_c2", lambda: NaturalGradLaplaceFDICA(lr=0.1), "X2", (0, 0, 0)),
-    ("over_4to2", lambda: OverAuxLaplaceIVA("IP", n_sources=2), "X4", (0, 1, 0)),
-    ("prox_c2", lambda: ProxLaplaceIVA(), "X2", (0, 0, 0)),
-    ("sawada_c2", lambda: MultichannelISNMF(n_basis=FACTOR_BASIS), "X2", (0, 0, 0)),
-    ("sawada_c3", lambda: MultichannelISNMF(n_basis=FACTOR_BASIS), "X3", (0, 0, 3)),  # the Riccati's three
-    ("ozerov_c2", lambda: MultichannelISNMF(n_basis=FACTOR_BASIS, author="Ozerov"), "X2", (0, 0, 0)),
-    ("cov_isnmf_c2", lambda: CovarianceISNMF(n_basis=FACTOR_BASIS), "covariance", (0, 0, 0)),
-    ("cov_isnmf_c3", lambda: CovarianceISNMF(n_basis=FACTOR_BASIS), "covariance_c3", (0, 0, 3)),
-    ("idlma_mlp_c2", lambda: GaussIDLMA(jax_dnn=True), "X2", (1, 0, 0)),
-    ("kondo_c2", lambda: GaussIPSDTA(n_basis=2), "X2", (1, 0, 2)),  # 1024 blocks, B = 3
-    ("ikeshita_c2", lambda: GaussIPSDTA(n_basis=2, author="Ikeshita"), "X2", (0, 0, 1)),
-    ("t_nu1000_c2", lambda: TIPSDTA(n_basis=2, nu=1000), "X2", (0, 0, 2)),
-    ("ldpsdtf_k2", lambda: LDPSDTF(n_basis=2), "gram2", (0, 0, 2)),
-    ("ldpsdtf_k3", lambda: LDPSDTF(n_basis=3), "gram3", (0, 0, 3)),
+    ("grad_iva_c2", lambda: GradLaplaceIVA(), "X2", (0, 0, 0, 0)),
+    ("natural_grad_iva_c2", lambda: NaturalGradLaplaceIVA(), "X2", (0, 0, 0, 0)),
+    ("grad_fdica_c2", lambda: GradLaplaceFDICA(lr=0.1), "X2", (0, 0, 0, 0)),
+    ("natural_grad_fdica_c2", lambda: NaturalGradLaplaceFDICA(lr=0.1), "X2", (0, 0, 0, 0)),
+    ("over_4to2", lambda: OverAuxLaplaceIVA("IP", n_sources=2), "X4", (0, 1, 0, 0)),
+    ("prox_c2", lambda: ProxLaplaceIVA(), "X2", (0, 0, 0, 0)),
+    ("sawada_c2", lambda: MultichannelISNMF(n_basis=FACTOR_BASIS), "X2", (0, 0, 0, 0)),
+    ("sawada_c3", lambda: MultichannelISNMF(n_basis=FACTOR_BASIS), "X3", (0, 0, 3, 0)),  # the Riccati's three
+    ("ozerov_c2", lambda: MultichannelISNMF(n_basis=FACTOR_BASIS, author="Ozerov"), "X2", (0, 0, 0, 0)),
+    ("cov_isnmf_c2", lambda: CovarianceISNMF(n_basis=FACTOR_BASIS), "covariance", (0, 0, 0, 0)),
+    ("cov_isnmf_c3", lambda: CovarianceISNMF(n_basis=FACTOR_BASIS), "covariance_c3", (0, 0, 3, 0)),
+    ("idlma_mlp_c2", lambda: GaussIDLMA(jax_dnn=True), "X2", (1, 0, 0, 0)),
+    ("kondo_c2", lambda: GaussIPSDTA(n_basis=2), "X2", (1, 0, 2, 0)),  # 1024 blocks, B = 3
+    ("ikeshita_c2", lambda: GaussIPSDTA(n_basis=2, author="Ikeshita"), "X2", (0, 0, 1, 0)),
+    ("t_nu1000_c2", lambda: TIPSDTA(n_basis=2, nu=1000), "X2", (0, 0, 2, 0)),
+    ("ldpsdtf_k2", lambda: LDPSDTF(n_basis=2), "gram2", (0, 0, 2, 0)),
+    ("ldpsdtf_k3", lambda: LDPSDTF(n_basis=3), "gram3", (0, 0, 3, 0)),
 ]
 # the rows whose eager loop takes tens of ms an iteration or more: their
 # iterations a call and loop_ms's (n, warm, repeats), so the phase stays
@@ -2832,7 +2871,7 @@ def parts(output):
 
 def graph_row(key, make, X, per_iteration, failed, call=None):
     """One family through the captured loop and the eager one (module
-    docstring, phase 15); ``per_iteration`` its K1, K2 and K3 launches an
+    docstring, phase 15); ``per_iteration`` its K1, K2, K3 and K4 launches an
     iteration, ``call`` its call's keywords (GaussIDLMA's network)."""
     call = call or {}
     iterations, (n, warm, repeats) = GRAPH_SLOW.get(key, (ITERS_GRAPH, (GRAPH_N, GRAPH_WARM, 3)))
@@ -2873,7 +2912,8 @@ def graph_row(key, make, X, per_iteration, failed, call=None):
     host_ms = (time.perf_counter() - start) * 1e3 / n
     torch.cuda.synchronize()
     expected = {
-        k + "_launches": outside[k + "_launches"] + per * iterations for k, per in zip(("k1", "k2", "k3"), per_iteration)
+        k + "_launches": outside[k + "_launches"] + per * iterations
+        for k, per in zip(("k1", "k2", "k3", "k4"), per_iteration)
     }
     res = {
         "iterations": iterations, "bits_equal": bits, "loss_max_rel_gap": loss_gap, "output_max_rel_gap": out_gap,
@@ -3029,6 +3069,8 @@ def main():
     start = time.perf_counter()
     k3 = [k3_case(gen, *case) for case in K3_CASES]
     print(json.dumps({"k3_cases": k3, "k3_phase_s": time.perf_counter() - start}), flush=True)
+    k4 = [k4_case(gen, C, dtype) for C, dtype in K4_CASES]
+    print(json.dumps({"k4_cases": k4}), flush=True)
 
     rng = np.random.RandomState(SEED)
     X2, mix2, c2 = main_path_c2(rng)
@@ -3261,6 +3303,26 @@ def main():
             "bound_us": k3_main["bound_ms"] * 1e3, "bound_by": k3_main["bound_by"],
             "library_ms": k3_main["library_ms"], "shape": k3_main["batch"] + [3, 3],
             "cases": k3,
+        },
+        {
+            "name": "fastmnmf_rows (K4)", "route": "cuda",
+            "source": "audio_source_separation_tpu_torch/csrc/fastmnmf_rows.cu",
+            # no pl.pallas_call: the elementwise chain XLA fuses in the JAX step
+            "replaces": "audio_source_separation_tpu/models/mnmf.py (FastMultichannelISNMF's row sweep and "
+                        "power normalisation)",
+            "launches": mnmf_runs["fast_mnmf"]["k4_launches"],
+            "launches_by_path": {
+                "fast_mnmf_c2": mnmf_runs["fast_mnmf"]["k4_launches"],
+                "fast_mnmf_c3": mnmf_runs["fast_mnmf_c3"]["k4_launches"],
+                "batch_fast_mnmf_c2": phase12["batch_fast_mnmf_c2"]["k4_launches"],
+                "cost_model_fast_mnmf_10": costs["fast_mnmf_10"]["launches_during_count"]["K4"],
+                "graph_phase": sum(graphs[key]["launches_graph"]["k4_launches"] for key, *_ in GRAPH_CASES),
+            },
+            "max_rel_err": {case["dtype"] + "_c" + str(case["C"]): max(case["rel_err"].values()) for case in k4},
+            "tolerance": {str(k).replace("torch.", ""): v for k, v in K4_RTOL.items()},
+            "ms": k4[1]["ms"], "plain_ms": k4[1]["plain_ms"], "bound_ms": k4[1]["bound_ms"],
+            "bound_us": k4[1]["bound_us"], "bound_by": k4[1]["bound_by"], "shape": [3, 2049, 3],
+            "cases": k4,
         },
     ]
     print(json.dumps({"chip_smoke_s": time.perf_counter() - script_start}), flush=True)
