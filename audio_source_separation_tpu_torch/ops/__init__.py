@@ -3,6 +3,7 @@
 K2 in ``fused_ip.py``, K3 in ``eigh_kernel.py``, K4 in ``mnmf_rows.py``;
 sources in ``../csrc``)."""
 
+from . import cov_kernel, eigh_kernel, fused_ip, mnmf_rows
 from .blocks import BlockLayout
 from .covariance import (
     pair_products,
@@ -21,6 +22,15 @@ from .ip_components import (
     weighted_covariance_components,
 )
 from .iss import iss_sweep
+
+# the kernels' wrappers, each counting its launches in ``launches`` (K2, K1,
+# K3, K4), which a graph's replay adds to; and the wrapper modules that keep
+# scratch per stream, which a graph takes after its capture (``take_scratch``)
+COUNTED_KERNELS = (
+    fused_ip.fused_auxiva_ip_iter, cov_kernel.weighted_covariance_planes, eigh_kernel.batched_eigh,
+    mnmf_rows.fastmnmf_rows,
+)
+SCRATCH_OWNERS = (fused_ip, cov_kernel)
 
 __all__ = [
     "spatial_covariance",

@@ -173,12 +173,6 @@ def _entry():
     return fn
 
 
-def take_scratch(device, stream):
-    """K3 keeps no scratch between launches (its workspace is a tensor of
-    the call): ``None`` (the graph runner asks every kernel module)."""
-    return None
-
-
 def batched_eigh(H, vectors=True, sweeps=None):
     """K3: ``(w, V)`` (``w`` alone without ``vectors``) of Hermitian or real
     symmetric ``H (..., n, n)``.

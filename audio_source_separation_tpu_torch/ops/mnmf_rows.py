@@ -116,12 +116,6 @@ def _entry():
     return fn
 
 
-def take_scratch(device, stream):
-    """K4 keeps no scratch between launches: ``None`` (the graph runner
-    asks every kernel module)."""
-    return None
-
-
 def _check(U_planes, Q, g, W, guard):
     """Raise ``ValueError`` unless the operands are as K4 takes them on any
     device: ``Q (F, C, C)`` complex64 or complex128 with ``C <= MAX_C``,

@@ -1,14 +1,11 @@
 """Batched separation: many mixtures of one shape through one solver.
 
-``batch_separate`` runs each example's functional-core loop (``init_state``,
-``update_state``, ``nll``, ``finalize``) in turn on the solver's device, so
-each example launches exactly what its own ``solver(X)`` call launches:
-on a card, for a capturable solver, its first iteration eagerly and the
-rest as replays of the step's graph, one capture for every member of the
-shape (:mod:`~..runtime.graph`), and for a solver that captures its edges
-(AuxIVA's component state, no warm start) its init and finalize as graphs
-too; outputs and losses are stacked on the device and cross to the host
-once.
+``batch_separate`` runs each example in turn on the solver's device through
+the route its own ``solver(X)`` call takes (:func:`~..runtime.graph.route_for`),
+so each example launches exactly what that call launches: on a card, for a
+capturable solver, replays of the graphs of the shape, captured once for
+every member; outputs and losses are stacked on the device and cross to the
+host once.
 
   * every mixture in a batch shares its shape and the hyperparameters;
   * the host-RNG default inits are drawn for every example first, in the
@@ -25,7 +22,7 @@ batch.
 import numpy as np
 import torch
 
-from ..runtime.graph import edge_finalize, edge_init, replay_loop
+from ..runtime.graph import route_for
 from ..runtime.solver import full_f32_matmuls
 from .mesh import all_gather_cat, shard_bounds
 
@@ -111,23 +108,13 @@ def _batch_separate(solver, inputs, iteration, state_kwargs, host, mesh):
             vars(solver).update(attributes)
             solver.use_mesh(tp, mode="bins")
             with solver._on_shard(Xs[b], kw) as (X, kw):
-                if solver._captures_edges(X, kw, iteration):
-                    # its init and finalize as graphs too (the initial loss
-                    # the init graph computes is not a batch's)
-                    state, _, edges = edge_init(solver, X)
-                    _, example_losses, graph = replay_loop(solver, state, iteration, record, keep=("input",))
-                    outputs.append(edge_finalize(solver, edges, graph))
-                else:
-                    state = solver.init_state(X, **kw)
-                    if solver._uses_graph(X):
-                        state, example_losses, _ = replay_loop(solver, state, iteration, record)
-                    else:
-                        example_losses = []
-                        for _ in range(iteration):
-                            state = solver.update_state(state)
-                            if record:
-                                example_losses.append(solver.nll(state))
-                    outputs.append(solver._whole_output(solver.finalize(state)))
+                # its own call's route, less the initial loss (the init
+                # graph's, where its edges are captured, is not a batch's)
+                # and the publishes
+                route = route_for(solver, X, kw, iteration, solver.callbacks is not None)
+                state, _ = route.init(kw, call=False)
+                state, example_losses = route.steps(state, iteration)
+                outputs.append(route.finalize(state))
             if record:
                 flat = [v.reshape(-1) for v in example_losses]
                 losses.append(torch.cat(flat) if flat else Xs.real.new_zeros((0,)))

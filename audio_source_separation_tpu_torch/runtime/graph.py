@@ -1,73 +1,47 @@
-"""The captured solver loop: one step as a CUDA graph, replayed.
+"""The call engine: a solver call's route, the graphs it replays, and
+their cache.
 
-The JAX package runs a solver's iteration loop as one ``jax.lax.scan``
-jitted once per (shape, iteration-count) signature, with no host round trip
-inside the loop (``audio_source_separation_tpu/runtime/solver.py:12-14``;
-the scan is built by ``_scan_fn`` at ``:317`` and cached by ``_get_jit``).
+The JAX package runs a solver's loop as one ``jax.lax.scan`` jitted once
+per signature (``audio_source_separation_tpu/runtime/solver.py:12-14``).
 On a CUDA card the counterpart is a CUDA graph of one step, captured once
-per signature and replayed once an iteration (:func:`graph_loop`):
+per signature and replayed once an iteration.  A call takes one of three
+routes, chosen by :func:`route_for` alone:
 
-  * init and the first iteration run eagerly.  For a new signature the first
-    iteration runs on the graph's own stream, so the kernels are built and
-    loaded and their scratch is allocated before capture: K1's and K2's
-    wrappers (K3 keeps none) keep scratch and tickets per stream and refuse to allocate them
-    during a capture.  After capture the graph takes that scratch out of
-    the wrappers' tables, so each graph owns its own, though capture streams
-    come from PyTorch's pool and repeat.
-  * one step is captured on static state buffers (:class:`StepGraph`):
-    ``update_state`` and, when the loss is recorded, ``nll``.  The step's
-    outputs are copied back onto its inputs inside the graph; a field the
-    step passes through unchanged is not copied.  The loss goes into a
-    device buffer at a device-side counter, so no index is baked into the
-    graph, and crosses to the host in one transfer.
-  * the graph replays ``iteration - 1`` times on the caller's stream, then
-    ``finalize`` runs eagerly on copies of the static buffers: neither the
-    output nor a published attribute aliases them, so a later call, which
-    overwrites them, cannot reach what a caller holds.
-  * capture runs each kernel wrapper once and bumps its ``launches``
-    count; the change is taken back after capture, and ``replay(n)`` adds
-    ``n`` times a step's launches, so each count still says how many
-    launches the card ran.
+  * the eager loop (:class:`Route`), every op dispatched from the host:
+    the CPU's, a mesh's, that of a solver whose step is not ``capturable``,
+    and ``_eager_call``'s, the reference the others are held to;
+  * the captured step (:class:`StepRoute`): init and the first iteration
+    eager, the first on the graph's own stream at a new signature, so the
+    kernels are built and their scratch allocated before capture; the rest
+    replays of the step's graph;
+  * the captured edges (:class:`EdgeRoute`), where the solver says
+    ``capturable_edges`` and the call brings at least one iteration, no
+    callbacks and no warm start: the init with the initial loss and the
+    ``finalize`` are graphs too.  ``init_attributes`` first sets the plain
+    attributes init sets from X's shape (they are in the key, and a replay
+    runs no Python); X is copied into the init graph's static input, which
+    the step graph keeps as its own.
 
-A solver whose :meth:`~.solver.IterativeSolver.capturable_edges` says so
-(AuxIVA's component state) has the call's two edges captured too, once per
-signature beside the step (:func:`edge_init`, :func:`edge_loop`,
-:class:`EdgeGraph`), where the call gives no callbacks and no warm start.
-The plain attributes that init sets from the input's shape are set
-eagerly first (``init_attributes``: they are in the key, and a replay runs
-no Python); then X is copied into the init graph's static input, which is
-also the step graph's, and one replay of ``init_state`` and the initial
-loss gives the post-init state.  The first iteration runs eagerly and the
-rest replay as above; one replay of ``finalize`` on the step graph's static
-state follows, and its output is cloned, so the rule above holds: neither
-the output nor a published attribute aliases a static buffer.  All the
-edge graphs of a solver share one capture stream and one memory pool
-(:class:`_EdgeCache` says why that is safe); ``edge_graph_replays`` and
-``edge_graph_captures`` count them apart from the step's counters.
+A route gives three operations, :meth:`~Route.init`, :meth:`~Route.steps`
+(or :meth:`~Route.step`, one at a time, for callbacks) and
+:meth:`~Route.finalize`; ``IterativeSolver._drive`` runs them for a call
+and ``batch_separate`` for each member.  Neither the output nor a
+published attribute aliases a static buffer: the final state is copied out
+of the step graph, and the finalize graph's output is cloned.
 
-The graphs are cached on the solver, keyed by what the captured step reads:
-the post-init state's fields, shapes and dtypes, the device, and every
-plain Python attribute of the solver (a scalar, a string or ``None``, such
-as ``recordable_loss``, a hyperparameter, or what ``prepare_state_kwargs``
-sets for a member of a batch), and the objects the step reads besides them
-(``_graph_inputs``: GaussIDLMA's network), which the cache holds.  A later call of the same signature copies
-its first iteration's state into the static buffers and replays; it does
-not capture again.  With callbacks the graph replays once an iteration and
-the state is published, as copies, before the callbacks run, as the JAX
-package steps its jitted body from Python when it has callbacks.
-
-What it does not do: unroll several steps into one graph, capture the
-edges of a call with callbacks or a warm start, or of a solver that does
-not opt in (their init reads host draws), or run a mesh (``use_mesh``
-keeps the eager loop).  A solver says by ``capturable(X)``
-whether its configuration's step on the input ``X`` can be captured (no host read, no op that
-synchronises); one that says so and fails to capture raises
-:class:`GraphCaptureError`, naming the line, and never falls back to the
-eager loop.  On the CPU nothing is captured: a solver whose
-``_emulate_graph`` is set runs the same static-buffer path, each replay an
-eager call of the step or the edge, which is how the CPU tests hold it; its
-one run in place of each capture is audited (:class:`CaptureAudit`) for the
-ops a capture refuses, and raises as the card would.
+A :class:`Graph` captures a body on static inputs, or on the CPU emulates
+it (the solver's ``_emulate_graph``: the body runs once under
+:class:`CaptureAudit`, which raises as a capture would, and each replay
+runs it eagerly); :class:`StepGraph` is one step on static state, its loss
+written at a device-side counter into a buffer that crosses to the host in
+one transfer.  A solver's graphs are cached in ``_graph_cache``, an
+:class:`_Entry` per call signature: X's shape, dtype and device, the
+solver's plain attributes (:func:`_scalars`, read once a call after init:
+a hyperparameter, ``recordable_loss``, what ``prepare_state_kwargs`` sets)
+and the objects the step reads besides them (``_graph_inputs``: GaussIDLMA's
+network, held by the key).  A step that cannot be captured must not be
+declared capturable: capture raises :class:`GraphCaptureError` naming the
+line and never falls back to the eager loop.
 """
 
 import contextlib
@@ -91,22 +65,13 @@ class GraphCaptureError(RuntimeError):
     """A step declared capturable could not be captured or replayed."""
 
 
-def _kernels():
-    """The kernels' wrapper modules: K2's, K1's, K3's, K4's."""
-    from ..ops import cov_kernel, eigh_kernel, fused_ip, mnmf_rows
-
-    return fused_ip, cov_kernel, eigh_kernel, mnmf_rows
-
-
 @functools.cache
 def _counted():
     """The kernel wrappers whose ``launches`` a replay adds to (resolved
-    once)."""
-    fused_ip, cov_kernel, eigh_kernel, mnmf_rows = _kernels()
-    return (
-        fused_ip.fused_auxiva_ip_iter, cov_kernel.weighted_covariance_planes, eigh_kernel.batched_eigh,
-        mnmf_rows.fastmnmf_rows,
-    )
+    once; the kernels' modules import the runtime, so not at import)."""
+    from .. import ops
+
+    return ops.COUNTED_KERNELS
 
 
 def _launch_counts():
@@ -273,20 +238,96 @@ def _capture(name, what, device, stream, body, pool=None):
     return graph, result
 
 
-def _take_scratch(device, stream):
+def _take_scratch(stream):
     """The kernels' scratch on ``stream``, taken out of their wrappers'
     tables for the graph just captured there."""
-    return [module.take_scratch(device, stream.cuda_stream) for module in _kernels()]
+    from .. import ops
+
+    return [module.take_scratch(stream.device, stream.cuda_stream) for module in ops.SCRATCH_OWNERS]
 
 
-class StepGraph:
+class Graph:
+    """``body(*inputs)`` as a CUDA graph captured on ``stream``.
+
+    ``inputs`` are static tensors (or dicts of them) that the caller fills
+    before a replay; the body's result, a pytree of tensors, is the graph's
+    static output (:attr:`outputs`), which each :meth:`replay` refreshes in
+    place, an output that is an input passed through.  ``warm`` runs the
+    body once eagerly on ``stream`` first, so what it launches is built and
+    loaded.  ``pool`` is a memory pool the graph shares (``None``: its
+    own).  After capture the graph takes the kernels' scratch of its stream
+    out of their wrappers' tables, so each graph owns its own, though
+    capture streams come from PyTorch's pool and repeat.  ``stream=None``
+    emulates the graph: the body runs once under :class:`CaptureAudit` in
+    place of the capture, and each replay runs it eagerly and copies its
+    result into the outputs.
+
+    The kernels' ``launches`` stay what the card runs: what the capture
+    (or the audited run) adds is taken back, and each replay adds one run's
+    (:attr:`launches`); the counter named ``counter`` gains one a replay.
+    """
+
+    def __init__(self, name, what, body, inputs, counter, stream=None, pool=None, warm=False):
+        self.inputs, self._body, self.counter = inputs, body, counter
+        if warm and stream is not None:
+            with on_stream(stream):
+                body(*inputs)
+        before = _launch_counts()
+        start = time.perf_counter()
+        try:
+            if stream is None:
+                passed = {id(t) for t in tree_leaves(inputs)}
+                with CaptureAudit(name, what):
+                    out = body(*inputs)
+                out = tree_map(lambda v: v if id(v) in passed else v.clone(), out)
+                self.graph = None
+            else:
+                self.graph, out = _capture(name, what, stream.device, stream, lambda: body(*inputs), pool)
+                self.scratch = _take_scratch(stream)
+                # replays need no Python: dropping the body leaves no cycle
+                # through the solver's cache, so a solver and its graphs are
+                # freed when the solver is, never by the cycle collector in
+                # the middle of another capture
+                self._body = None
+            self.launches = tuple(after - b for after, b in zip(_launch_counts(), before))
+        finally:
+            _set_launch_counts(before)
+        # seconds to capture (emulated: to run the body once)
+        self.capture_s = time.perf_counter() - start
+        self.outputs = out
+        self._leaves = tree_leaves(out)
+
+    def replay(self, n=1):
+        """``n`` runs of the body on the inputs as they stand; returns
+        :attr:`outputs`.  The launch counts gain a run's launches each."""
+        if self.graph is not None:
+            for _ in range(n):
+                self.graph.replay()
+        else:
+            before = _launch_counts()
+            try:
+                for _ in range(n):
+                    for static, v in zip(self._leaves, tree_leaves(self._body(*self.inputs))):
+                        if v is not static:
+                            static.copy_(v)
+            finally:
+                _set_launch_counts(before)
+        _add_launch_counts(self.launches, n)
+        counters[self.counter] += n
+        return self.outputs
+
+
+class StepGraph(Graph):
     """One step, ``update`` and optionally ``loss``, captured on static
     copies of ``state`` (the state after an eager step on ``stream``, the
     current stream when this is made); ``loss_like`` is a loss of that
-    step, whose type the loss buffer takes.  The fields named in ``keep``
-    are static buffers already (the init graph's input) and are used as
-    they are, not copied.  ``stream=None`` emulates the graph: each replay
-    calls the step eagerly on the static buffers.
+    step, whose type the loss buffer takes.  The step's outputs are copied
+    back onto its inputs inside the graph, but for the fields it passes
+    through (:attr:`identity`); the loss goes into a device buffer at a
+    device-side counter, so no index is baked into the graph.  The fields
+    named in ``keep`` are static buffers already (the init graph's input)
+    and are used as they are, not copied.  ``stream=None`` emulates the
+    graph (:class:`Graph`).  A replay adds to ``graph_replays``.
     """
 
     def __init__(self, name, state, update, loss=None, loss_like=None, stream=None, keep=()):
@@ -299,41 +340,18 @@ class StepGraph:
         if loss is not None:
             self.loss_buf = loss_like.new_zeros((LOSS_SLOTS,))
             self.slot = torch.zeros((1,), dtype=torch.int64, device=self.device)
-        before = _launch_counts()
-        start = time.perf_counter()
-        try:
-            if stream is None:
-                # run once on copies, for the signature check, the
-                # pass-through fields and the launches of a step, under the
-                # audit of what a capture would refuse
-                static = {k: v.clone() for k, v in self.static.items()}
-                slots = None if loss is None else (self.loss_buf.clone(), self.slot.clone())
-                with CaptureAudit(name):
-                    self.identity = self._step(static, slots)
-                self.graph = None
-            else:
-                self.graph, self.identity = self._capture(stream)
-                # replays need no Python: dropping the step's bound methods
-                # leaves no cycle through the solver's cache, so a solver and
-                # its graphs are freed when the solver is, never by the
-                # cycle collector in the middle of another capture
-                self._update = self._loss = None
-            self.launches = tuple(after - b for after, b in zip(_launch_counts(), before))
-        finally:
-            _set_launch_counts(before)
-        # seconds to capture (emulated: to run the step once)
-        self.capture_s = time.perf_counter() - start
+        super().__init__(name, "step", self._step, (self.static,), "graph_replays", stream)
+        if stream is None:
+            # the audited run stepped the buffers, which a capture does not
+            self.load(state)
+            if self.slot is not None:
+                self.slot.zero_()
+        else:
+            self._update = self._loss = None
 
-    def _capture(self, stream):
-        slots = None if self._loss is None else (self.loss_buf, self.slot)
-        graph, identity = _capture(self.name, "step", self.device, stream, lambda: self._step(self.static, slots))
-        # the scratch the captured launches point at is this graph's alone
-        self.scratch = _take_scratch(self.device, stream)
-        return graph, identity
-
-    def _step(self, static, slots):
+    def _step(self, static):
         """The captured step: update, loss at the slot, outputs copied back
-        onto the inputs.  Returns the fields passed through unchanged."""
+        onto the inputs (:attr:`identity`: the fields passed through)."""
         out = self._update(static)
         if _signature(out) != self.signature:
             raise GraphCaptureError(
@@ -341,18 +359,17 @@ class StepGraph:
                     self.name, self.signature, _signature(out)
                 )
             )
-        if slots is not None:
-            loss_buf, slot = slots
-            loss_buf.index_copy_(0, slot, self._loss(out).reshape(1))
-            slot.add_(1)
-        identity = frozenset(k for k, v in out.items() if _same_view(v, static[k]))
+        if self._loss is not None:
+            self.loss_buf.index_copy_(0, self.slot, self._loss(out).reshape(1))
+            self.slot.add_(1)
+        self.identity = frozenset(k for k, v in out.items() if _same_view(v, static[k]))
         inputs = {_storage(v) for v in static.values()}
         # an output that shares memory with an input is copied first, so no
         # copy-back reads what another has already written
-        pending = {k: (v.clone() if _storage(v) in inputs else v) for k, v in out.items() if k not in identity}
+        pending = {k: (v.clone() if _storage(v) in inputs else v) for k, v in out.items() if k not in self.identity}
         for k, v in pending.items():
             static[k].copy_(v)
-        return identity
+        return static
 
     def load(self, state):
         """Copy ``state`` (the state after a call's eager step) into the
@@ -364,23 +381,6 @@ class StepGraph:
         for k, v in state.items():
             if v is not self.static[k]:
                 self.static[k].copy_(v)
-
-    def replay(self, n=1):
-        """``n`` steps; the launch counts gain a step's launches each, and
-        ``graph_replays`` gains ``n``, once for the call."""
-        if self.graph is not None:
-            for _ in range(n):
-                self.graph.replay()
-        else:
-            before = _launch_counts()
-            try:
-                slots = None if self._loss is None else (self.loss_buf, self.slot)
-                for _ in range(n):
-                    self._step(self.static, slots)
-            finally:
-                _set_launch_counts(before)
-        _add_launch_counts(self.launches, n)
-        counters["graph_replays"] += n
 
     def run(self, n):
         """``n`` steps from the loaded state; returns their losses as 1-D
@@ -404,228 +404,206 @@ class StepGraph:
         return {k: (state[k] if k in self.identity else v.clone()) for k, v in self.static.items()}
 
 
-def _graph_cache(solver):
-    """The solver's graphs by signature (made on first use)."""
-    return vars(solver).setdefault("_graph_cache", {})
+class _Cache(dict):
+    """A solver's graphs, an :class:`_Entry` per call signature, and the
+    capture stream and the memory pool that all of its edge graphs share
+    (made at the first; ``None`` off CUDA).  Sharing is safe because each
+    edge graph's output is read before any other edge graph replays: the
+    init state by the call's first step, the finalize output by its clone;
+    so the edges of many lengths hold little more than their outputs.  Each
+    step graph keeps its own stream and pool."""
+
+    stream = pool = None
+
+    def edge_stream(self, device):
+        if self.stream is None and device.type == "cuda":
+            self.stream, self.pool = new_stream(device), torch.cuda.graph_pool_handle()
+        return self.stream, self.pool
 
 
-def _first_step_graph(solver, state, record, keep=()):
-    """One eager step of ``solver`` from its post-init ``state``, then the
-    step's graph: a cached one of the same signature, loaded with the new
-    state, or one captured now, the eager step run on the graph's own
-    stream (``keep``: :class:`StepGraph`'s).  Returns ``(state after the
-    step, its loss or None, graph)``."""
-    update, loss = solver.update_state, (solver.nll if record else None)
-    key = (_signature(state), str(_device_of(state)), _scalars(solver), solver._graph_inputs())
-    cache = _graph_cache(solver)
-    graph = cache.get(key)
-    if graph is not None:
-        state = update(state)
-        value = None if loss is None else loss(state)
-        graph.load(state)
-        counters["graph_cache_hits"] += 1
-        return state, value, graph
-    stream = new_stream(_device_of(state))
-    with on_stream(stream):
-        state = update(state)
-        value = None if loss is None else loss(state)
-        with span("solve.capture"):
-            graph = StepGraph(type(solver).__name__, state, update, loss, loss_like=value, stream=stream, keep=keep)
-    cache[key] = graph
-    counters["graph_captures"] += 1
-    return state, value, graph
+class _Entry:
+    """The graphs of one call signature: its step graphs by post-init state
+    signature and, where the call's edges are captured, the init graph's
+    static input, the init graph, and the finalize graph with the step
+    graph (``finalized``) whose static state it reads."""
+
+    def __init__(self):
+        self.steps = {}
+        self.input = self.init = self.finalize = self.finalized = None
 
 
-def replay_loop(solver, state, iteration, record, keep=()):
-    """``iteration`` steps from the post-init ``state``: the first eager,
-    the rest replayed.  Returns ``(final state, losses, step graph)``, the
-    state as fresh tensors but for the fields the step passes through, the
-    losses as a list of device tensors (empty unless ``record``), and the
-    graph ``None`` where no step ran."""
-    if iteration < 1:
-        return state, [], None
-    with span("solve.eager_step"):
-        state, value, graph = _first_step_graph(solver, state, record, keep)
-    losses = [value] if record else []
-    with span("solve.replay"):
-        losses.extend(graph.run(iteration - 1))
-        final = graph.snapshot(state) if iteration > 1 else state
-    return final, losses, graph
-
-
-def graph_loop(solver, state, losses, iteration):
-    """:meth:`~.solver.IterativeSolver._eager_loop`'s counterpart from the
-    same post-init ``state`` and ``losses``: the same losses, callbacks,
-    publishing and output, the iterations after the first replayed from
-    the step's graph."""
-    record = bool(solver.recordable_loss)
-    if solver.callbacks is None:
-        final, steps, _ = replay_loop(solver, state, iteration, record)
-        with span("solve.wait"):
-            solver._flush_losses(losses + steps)
-        return solver._finish(final, publish=True)
-    with span("solve.wait"):
-        solver._flush_losses(losses)
-    final = state
-    with span("solve.steps"):
-        if solver.callback_on_init:
-            solver._on_callback()
-        if iteration > 0:
-            final, value, graph = _first_step_graph(solver, state, record)
-            for i in range(iteration):
-                if i:
-                    chunk = graph.run(1)
-                    value = chunk[0][0] if record else None
-                    final = graph.snapshot(final)
-                if record:
-                    solver.loss.append(float(value))
-                solver._publish(final)
-                solver._on_callback()
-    return solver._finish(final, publish=False)
-
-
-class EdgeGraph:
-    """One edge of a call, its init or its finalize, as a CUDA graph:
-    ``body(*inputs)`` captured on ``inputs``, static tensors (or dicts of
-    them) that the caller fills before each replay.  The body's result, a
-    pytree of tensors, is the graph's static output (:attr:`outputs`), which
-    each :meth:`replay` refreshes in place; an output may be one of the
-    inputs, passed through.  Before the capture the body runs once eagerly
-    on ``stream``, so what it launches is built and loaded.  ``pool`` is a
-    memory pool the graph shares (``None``: its own).  ``stream=None``
-    emulates the graph as :class:`StepGraph` does: the body runs once under
-    the audit, and each replay runs it eagerly and copies its result into
-    the outputs."""
-
-    def __init__(self, name, what, body, inputs, stream=None, pool=None):
-        self.inputs, self._body = inputs, body
-        if stream is not None:
-            with on_stream(stream):
-                body(*inputs)
-        before = _launch_counts()
-        try:
-            if stream is None:
-                passed = {id(t) for t in tree_leaves(inputs)}
-                with CaptureAudit(name, what):
-                    out = body(*inputs)
-                out = tree_map(lambda v: v if id(v) in passed else v.clone(), out)
-                self.graph = None
-            else:
-                self.graph, out = _capture(name, what, stream.device, stream, lambda: body(*inputs), pool=pool)
-                self.scratch = _take_scratch(stream.device, stream)
-                # no Python at a replay, and no cycle through the solver
-                self._body = None
-            self.launches = tuple(after - b for after, b in zip(_launch_counts(), before))
-        finally:
-            _set_launch_counts(before)
-        self.outputs = out
-        self._leaves = tree_leaves(out)
-        counters["edge_graph_captures"] += 1
-
-    def replay(self):
-        """One run of the body on the inputs as they stand; returns
-        :attr:`outputs`.  ``edge_graph_replays`` gains 1."""
-        if self.graph is not None:
-            self.graph.replay()
-        else:
-            before = _launch_counts()
-            try:
-                for static, v in zip(self._leaves, tree_leaves(self._body(*self.inputs))):
-                    if v is not static:
-                        static.copy_(v)
-            finally:
-                _set_launch_counts(before)
-        _add_launch_counts(self.launches, 1)
-        counters["edge_graph_replays"] += 1
-        return self.outputs
-
-
-class _EdgeCache(dict):
-    """A solver's edges by call signature, and the capture stream and the
-    memory pool that all of their graphs share (``None`` off CUDA).  Sharing
-    is safe because each edge graph's output is read before any other edge
-    graph replays: the init state by the call's first step, the finalize
-    output by its clone; so the graphs of many lengths hold little more
-    than their outputs."""
-
-    def __init__(self, device):
-        super().__init__()
-        self.stream = new_stream(device)
-        self.pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
-
-
-class _Edges:
-    """The edges of one call signature: the init graph's static input, the
-    init graph, and the finalize graph with the step graph whose static
-    state it reads."""
-
-    def __init__(self, X):
-        self.input = torch.empty_like(X)
-        self.init = self.finalize = self.step = None
-
-
-def _init_body(solver, record):
-    def body(X):
-        state = solver.init_state(X)
-        return state, ([solver.nll(state)] if record else [])
-
-    return body
-
-
-def edge_init(solver, X):
-    """An engaged call's init (module docstring) on its input ``X``: the
-    host attributes, X copied into the static input, one replay of the
-    init graph, captured at a new signature.  Returns ``(post-init state,
-    losses, edges)``: the state and the initial loss (in a list, where it is
-    recorded) are the graph's static outputs.  The post-init state is not
-    published: no callback runs to see it, and the final publish of
-    :func:`edge_loop` replaces it."""
-    solver.init_attributes(X)
-    key = (tuple(X.shape), X.dtype, str(X.device), _scalars(solver), solver._graph_inputs())
-    cache = vars(solver).get("_edge_cache")
+def _cache(solver):
+    cache = vars(solver).get("_graph_cache")
     if cache is None:
-        cache = solver._edge_cache = _EdgeCache(X.device)
-    edges = cache.get(key)
-    if edges is None:
-        edges = cache[key] = _Edges(X)
-    edges.input.copy_(X)
-    if edges.init is None:
-        record = bool(solver.recordable_loss) and solver.record_initial_loss
-        with span("solve.capture_init"):
-            edges.init = EdgeGraph(
-                type(solver).__name__, "init", _init_body(solver, record), (edges.input,),
-                stream=cache.stream, pool=cache.pool,
-            )
-    state, losses = edges.init.replay()
-    return state, list(losses), edges
+        cache = solver._graph_cache = _Cache()
+    return cache
 
 
-def edge_finalize(solver, edges, graph):
-    """One replay of the finalize graph on the step ``graph``'s static
-    state, captured at first sight of ``graph``: the output, cloned."""
-    if edges.step is not graph:
-        cache = solver._edge_cache
-        with span("solve.capture_finalize"):
-            edges.finalize = EdgeGraph(
-                type(solver).__name__, "finalize", solver.finalize, (graph.static,),
-                stream=cache.stream, pool=cache.pool,
-            )
-        edges.step = graph
-    return tree_map(torch.clone, edges.finalize.replay())
+class Route:
+    """The eager route of a call on ``X``: every op dispatched from the
+    host each iteration."""
+
+    def __init__(self, solver, X):
+        self.solver, self.X = solver, X
+        self.record = bool(solver.recordable_loss)
+
+    def init(self, state_kwargs, call=True):
+        """The post-init state and the initial loss, in a list of device
+        tensors where it is recorded.  A call's init publishes the state; a
+        batch member's (``call=False``) neither publishes nor records."""
+        solver = self.solver
+        state = solver.init_state(self.X, **state_kwargs)
+        if not call:
+            return state, []
+        solver._publish(state)
+        return state, ([solver.nll(state)] if self.record and solver.record_initial_loss else [])
+
+    def step(self, state):
+        """One step: the state after it and its loss (a device tensor;
+        ``None`` unless recorded)."""
+        state = self.solver.update_state(state)
+        return state, (self.solver.nll(state) if self.record else None)
+
+    def steps(self, state, n):
+        """``n`` steps: the state after them and their losses, a list of
+        device tensors (empty unless recorded)."""
+        losses = []
+        with span("solve.steps"):
+            for _ in range(n):
+                state, loss = self.step(state)
+                if self.record:
+                    losses.append(loss)
+        return state, losses
+
+    def finalize(self, state):
+        """The output of the final ``state``, whole (gathered under a
+        mesh)."""
+        return self.solver._whole_output(self.solver.finalize(state))
 
 
-def edge_loop(solver, edges, X, state, losses, iteration):
-    """An engaged call after :func:`edge_init`: the first step eager (the
-    step graph's static input is the init graph's), the rest replayed, the
-    losses' one transfer, then :func:`edge_finalize` and the publish of the
-    final state with the caller's ``X`` as its input.  Returns the
-    output."""
-    record = bool(solver.recordable_loss)
-    final, steps, graph = replay_loop(solver, state, iteration, record, keep=("input",))
-    with span("solve.wait"):
-        solver._flush_losses(losses + steps)
-    with span("solve.finalize"):
-        output = edge_finalize(solver, edges, graph)
-        solver._publish(dict(final, input=X))
-        solver.estimation = output
-    return output
+class StepRoute(Route):
+    """The captured step: the call's first step eager, then the step's
+    graph, found in the cache or captured; the rest replays."""
+
+    # the state fields that are static buffers of the entry already
+    keep = ()
+
+    def __init__(self, solver, X):
+        super().__init__(solver, X)
+        self.entry = self.graph = None
+
+    def _entry(self):
+        """The call's cache entry, keyed once a call after init (which sets
+        the attributes in the key); a new one is stored once it holds a
+        graph."""
+        if self.entry is None:
+            solver, X = self.solver, self.X
+            self.key = (tuple(X.shape), X.dtype, str(X.device), _scalars(solver), solver._graph_inputs())
+            self.entry = _cache(solver).get(self.key) or _Entry()
+        return self.entry
+
+    def step(self, state):
+        if self.graph is not None:
+            losses = self.graph.run(1)
+            return self.graph.snapshot(state), (losses[0][0] if self.record else None)
+        solver, entry = self.solver, self._entry()
+        update, loss = solver.update_state, (solver.nll if self.record else None)
+        signature = _signature(state)
+        graph = entry.steps.get(signature)
+        if graph is not None:
+            state = update(state)
+            value = None if loss is None else loss(state)
+            graph.load(state)
+            counters["graph_cache_hits"] += 1
+        else:
+            stream = new_stream(self.X.device)
+            with on_stream(stream):
+                state = update(state)
+                value = None if loss is None else loss(state)
+                with span("solve.capture"):
+                    graph = StepGraph(
+                        type(solver).__name__, state, update, loss, loss_like=value, stream=stream, keep=self.keep
+                    )
+            entry.steps[signature] = graph
+            _cache(solver)[self.key] = entry
+            counters["graph_captures"] += 1
+        self.graph = graph
+        return state, value
+
+    def steps(self, state, n):
+        if n < 1:
+            return state, []
+        with span("solve.eager_step"):
+            first, loss = self.step(state)
+        with span("solve.replay"):
+            losses = ([loss] if self.record else []) + self.graph.run(n - 1)
+            return (self.graph.snapshot(first) if n > 1 else first), losses
+
+
+class EdgeRoute(StepRoute):
+    """The captured edges: the init and the finalize replayed from their
+    graphs around the captured step, whose static input is the init
+    graph's."""
+
+    keep = ("input",)
+
+    def init(self, state_kwargs, call=True):
+        """X copied into the init graph's static input and one replay of
+        the init graph (captured at a new signature), whose outputs are the
+        post-init state and the initial loss.  Nothing is published: no
+        callback runs to see the state, and the final publish replaces
+        it."""
+        solver = self.solver
+        solver.init_attributes(self.X)
+        entry = self._entry()
+        if entry.input is None:
+            entry.input = torch.empty_like(self.X)
+        entry.input.copy_(self.X)
+        if entry.init is None:
+            record = self.record and solver.record_initial_loss
+
+            def body(X):
+                state = solver.init_state(X)
+                return state, ([solver.nll(state)] if record else [])
+
+            with span("solve.capture_init"):
+                entry.init = self._edge("init", body, (entry.input,))
+            _cache(solver)[self.key] = entry
+        state, losses = entry.init.replay()
+        return state, list(losses)
+
+    def steps(self, state, n):
+        state, losses = super().steps(state, n)
+        # the caller's X in place of the static input, which the next call
+        # refills
+        return dict(state, input=self.X), losses
+
+    def finalize(self, state):
+        """One replay of the finalize graph on the step graph's static
+        state, captured at first sight of that graph: the output, cloned."""
+        entry, graph = self.entry, self.graph
+        if entry.finalized is not graph:
+            with span("solve.capture_finalize"):
+                entry.finalize = self._edge("finalize", self.solver.finalize, (graph.static,))
+            entry.finalized = graph
+        return tree_map(torch.clone, entry.finalize.replay())
+
+    def _edge(self, what, body, inputs):
+        stream, pool = _cache(self.solver).edge_stream(self.X.device)
+        graph = Graph(type(self.solver).__name__, what, body, inputs, "edge_graph_replays", stream, pool, warm=True)
+        counters["edge_graph_captures"] += 1
+        return graph
+
+
+def route_for(solver, X, state_kwargs, iteration, callbacks):
+    """The route of a call on ``X`` (its shard under a mesh) with the warm
+    start ``state_kwargs`` left after ``prepare_state_kwargs``: the captured
+    edges where the step is captured, the call runs at least one iteration
+    with no ``callbacks`` and no warm start, and the solver says
+    ``capturable_edges(X)``; else the captured step where
+    ``solver._uses_graph(X)``; else the eager loop."""
+    if not solver._uses_graph(X):
+        return Route(solver, X)
+    if iteration > 0 and not callbacks and not state_kwargs and solver.capturable_edges(X):
+        return EdgeRoute(solver, X)
+    return StepRoute(solver, X)

@@ -2,21 +2,19 @@
 
 A solver defines functions over an explicit **state dict**:
 ``init_state``, ``update_state`` (returns the next state dict), ``nll``
-and ``finalize``.  :class:`IterativeSolver` runs them on the solver's
-device: on a CUDA card, for a solver whose configuration is
-:meth:`~IterativeSolver.capturable`, as one step captured as a CUDA graph
-and replayed (:mod:`.graph`, the counterpart of the JAX package's jitted
-scan); otherwise in a Python loop (:meth:`~IterativeSolver._eager_loop`).
-A solver that says :meth:`~IterativeSolver.capturable_edges` has its init
-and finalize captured too, where a call brings no callbacks and no warm
-start.  It keeps the public API of the reference:
-``solver = Cls(**hyper); output = solver(X, iteration=N, **state_kwargs)``,
-where ``state_kwargs`` warm-start the state (checkpoint / resume), any other
-kwargs become plain attributes for callbacks, ``solver.loss`` records the
-loss after every update (concatenating across calls) and, where
-``record_initial_loss`` is set, before the first one, and callbacks run
-after every iteration, and after init where ``callback_on_init`` is set,
-with the state published as attributes.
+and ``finalize``.  :class:`IterativeSolver` keeps the public API of the
+reference: ``solver = Cls(**hyper); output = solver(X, iteration=N,
+**state_kwargs)``, where ``state_kwargs`` warm-start the state (checkpoint
+/ resume), any other kwargs become plain attributes for callbacks,
+``solver.loss`` records the loss after every update (concatenating across
+calls) and, where ``record_initial_loss`` is set, before the first one,
+and callbacks run after every iteration, and after init where
+``callback_on_init`` is set, with the state published as attributes.
+
+A call's route, the eager loop or a captured step with or without captured
+edges, is chosen by :func:`~.graph.route_for`, and
+:meth:`IterativeSolver._drive` runs the route's init, steps and
+finalize (:mod:`.graph`, the counterpart of the JAX package's jitted scan).
 
 Under :meth:`IterativeSolver.use_mesh` the call runs on one shard of bins or
 frames per rank of a ``torch.distributed`` device mesh (see
@@ -31,7 +29,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .graph import edge_init, edge_loop, graph_loop
+from .graph import Route, route_for
 from .spanlog import begin, count_copy, end, span
 
 EPS = 1e-12
@@ -425,7 +423,7 @@ class IterativeSolver:
     def capturable_edges(self, X):
         """Whether the call's edges on the input ``X``, ``init_state`` with
         the initial loss and ``finalize``, can be captured as CUDA graphs
-        beside the step (:func:`~.graph.edge_init`): both read nothing on
+        beside the step (:class:`~.graph.EdgeRoute`): both read nothing on
         the host and take no host-drawn init.  It is asked only where the
         step is captured and the call brings no callbacks and no warm
         start; a solver that says so and fails to capture raises."""
@@ -435,16 +433,6 @@ class IterativeSolver:
         """Set the plain attributes that ``init_state`` sets from the input
         ``X`` (its shape): run on their own before the edges' graphs are
         looked up, since they are in the key and a replay runs no Python."""
-
-    def _captures_edges(self, X, state_kwargs, iteration):
-        """Whether this call runs its init and finalize as graphs too: the
-        captured loop, at least one iteration, no callbacks, no warm start
-        left after :meth:`prepare_state_kwargs`, and the solver's
-        :meth:`capturable_edges`."""
-        return (
-            iteration > 0 and not state_kwargs and self.callbacks is None and self._uses_graph(X)
-            and self.capturable_edges(X)
-        )
 
     def _graph_inputs(self):
         """The objects a captured step reads besides its state and the
@@ -532,60 +520,41 @@ class IterativeSolver:
             # the host inits above were drawn at the true bin count; a mesh
             # pads and cuts them with the input
             with self._on_shard(X, state_kwargs) as (X, state_kwargs):
-                if not eager and self._captures_edges(X, state_kwargs, iteration):
-                    state, losses, edges = edge_init(self, X)
-                    end(init)
-                    return edge_loop(self, edges, X, state, losses, iteration)
-                captured = not eager and self._uses_graph(X)
-                state, losses = self._init_run(X, state_kwargs)
+                if eager:
+                    route = Route(self, X)
+                else:
+                    route = route_for(self, X, state_kwargs, iteration, self.callbacks is not None)
+                state, losses = route.init(state_kwargs)
                 end(init)
-                if captured:
-                    return graph_loop(self, state, losses, iteration)
-                return self._eager_loop(state, losses, iteration)
+                return self._drive(route, state, losses, iteration)
 
-    def _init_run(self, X, state_kwargs):
-        """Init, the first publish and the initial loss: ``(state,
-        losses)``, the losses a list of device tensors."""
-        state = self.init_state(X, **state_kwargs)
-        self._publish(state)
-        losses = []
-        if self.recordable_loss and self.record_initial_loss:
-            losses.append(self.nll(state))
-        return state, losses
-
-    def _eager_loop(self, state, losses, iteration):
-        """The loop from the post-init ``state`` and ``losses`` with every
-        op dispatched from the host each iteration: the CPU's, a mesh's and
-        that of the solvers that are not :meth:`capturable`."""
-        if self.callbacks is not None:
+    def _drive(self, route, state, losses, iteration):
+        """The call after ``route``'s init (:mod:`.graph`) gave the
+        post-init ``state`` and ``losses``.  Without callbacks: every step,
+        the losses' one transfer, the final publish and the finalize.  With
+        callbacks: the callbacks after init where ``callback_on_init`` is
+        set, then each step with its loss read on the host, the state
+        published and the callbacks."""
+        if self.callbacks is None:
+            state, steps = route.steps(state, iteration)
+            with span("solve.wait"):
+                self._flush_losses(losses + steps)
+        else:
             with span("solve.wait"):
                 self._flush_losses(losses)
             with span("solve.steps"):
                 if self.callback_on_init:
                     self._on_callback()
                 for _ in range(iteration):
-                    state = self.update_state(state)
-                    if self.recordable_loss:
-                        self.loss.append(float(self.nll(state)))
+                    state, loss = route.step(state)
+                    if route.record:
+                        self.loss.append(float(loss))
                     self._publish(state)
                     self._on_callback()
-            return self._finish(state, publish=False)
-        with span("solve.steps"):
-            for _ in range(iteration):
-                state = self.update_state(state)
-                if self.recordable_loss:
-                    losses.append(self.nll(state))
-        with span("solve.wait"):
-            self._flush_losses(losses)
-        return self._finish(state, publish=True)
-
-    def _finish(self, state, publish):
-        """The final state's publish (where the loop has not published it),
-        :meth:`finalize` and the whole output, set as ``estimation``."""
         with span("solve.finalize"):
-            if publish:
+            if self.callbacks is None:
                 self._publish(state)
-            output = self._whole_output(self.finalize(state))
+            output = route.finalize(state)
             self.estimation = output
             return output
 

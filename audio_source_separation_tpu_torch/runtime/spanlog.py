@@ -29,7 +29,7 @@ The spans of a solver call nest ``solve`` > ``solve.init`` (>
 the host), ``solve.eager_step`` (> ``solve.capture`` at a new signature),
 ``solve.replay``, ``solve.wait``, ``solve.finalize``; the eager loop has
 ``solve.steps`` in place of the first step and the replays.  Where a call
-captures its edges (:func:`~.graph.edge_init`), ``solve.init`` holds
+captures its edges (:class:`~.graph.EdgeRoute`), ``solve.init`` holds
 ``solve.capture_init`` and ``solve.finalize`` holds
 ``solve.capture_finalize`` at a new signature.  ``stft`` and
 ``istft`` hold ``stft.copy_in`` / ``istft.copy_in`` around each site that

@@ -2838,6 +2838,12 @@ def eager_only(solver):
     return solver
 
 
+def step_graphs(solver):
+    """The step graphs of ``solver``'s graph cache, over its call
+    signatures."""
+    return [g for entry in vars(solver).get("_graph_cache", {}).values() for g in entry.steps.values()]
+
+
 def loop_ms(solver, X, eager, n=GRAPH_N, warm=GRAPH_WARM, repeats=3, call=None):
     """ms an iteration of ``solver``'s call on ``X`` by CUDA events, (warm +
     n)- less warm-iteration calls (``per_iteration``'s differencing), through
@@ -2897,13 +2903,13 @@ def graph_row(key, make, X, per_iteration, failed, call=None):
     bits = L_e.tobytes() == L_g.tobytes() and all(torch.equal(a, b) for a, b in zip(Y_e, Y_g))
     loss_gap = float(np.max(np.abs(L_g - L_e) / np.abs(L_e)))
     out_gap = max(rel_err(b, a) for a, b in zip(Y_e, Y_g))
-    (graph,) = solver._graph_cache.values()
+    (graph,) = step_graphs(solver)
     np.random.seed(SEED + 1)
     counts_zero()
     solver(X, iteration=iterations, **call)
     launched_second = counts()
-    captures = len(solver._graph_cache)
-    same_graph = list(solver._graph_cache.values()) == [graph]
+    captures = len(step_graphs(solver))
+    same_graph = step_graphs(solver) == [graph]
     ms_graph = loop_ms(solver, X, eager=False, n=n, warm=warm, repeats=repeats, call=call)
     ms_eager = loop_ms(quiet(make), X, eager=True, n=n, warm=warm, repeats=repeats, call=call)
     torch.cuda.synchronize()
@@ -2953,7 +2959,7 @@ def graph_batch_row(failed):
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         res[mode] = {"mixtures_per_s": BATCH / wall, "wall_s": wall, **counts(),
-                     "captures": len(vars(solver).get("_graph_cache", {}))}
+                     "captures": len(step_graphs(solver))}
     gap = rel_err(outputs["graph"], outputs["eager"])
     res["output_max_rel_gap"] = gap
     record_checks(failed, "graph_batch", {

@@ -94,7 +94,8 @@ def test_lengths_in_turn_share_one_pool(cuda):
         Y, delta = _counted(lambda: solver(X, iteration=ITERATION))
         assert delta["edge_graph_replays"] == 2
         _assert_equals_eager(cls, kwargs, X, solver, Y)
-    assert len(solver._edge_cache) == 3 and len(solver._graph_cache) == 3
+    entries = solver._graph_cache.values()
+    assert len(entries) == 3 and all(entry.init is not None and len(entry.steps) == 1 for entry in entries)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
 """The captured edges of a solver call (``runtime/graph.py``:
-``edge_init``, ``edge_loop``, ``EdgeGraph``) on the CPU at float64.
+``EdgeRoute``, ``Graph``) on the CPU at float64.
 
 ``solver._emulate_graph = True`` runs the static-buffer path, each replay of
 the step, the init or the finalize an eager call of its body.  AuxIVA in
@@ -14,7 +14,9 @@ import pytest
 import torch
 
 import audio_source_separation_tpu_torch as port
+from audio_source_separation_tpu_torch.ops import COUNTED_KERNELS
 from audio_source_separation_tpu_torch.parallel import batch_separate
+from audio_source_separation_tpu_torch.runtime import graph
 from audio_source_separation_tpu_torch.runtime.graph import GraphCaptureError
 from audio_source_separation_tpu_torch.runtime.spanlog import counters
 
@@ -50,11 +52,12 @@ def _same(solver, eager, Y, Y_eager):
 def _statics(solver):
     """Every static buffer of the solver's graphs: the step graphs', the
     edges' input and the init and finalize graphs' outputs."""
-    out = [t for g in solver._graph_cache.values() for t in g.static.values()]
-    for edges in solver._edge_cache.values():
-        out.append(edges.input)
-        out += [t for t in torch.utils._pytree.tree_leaves(edges.init.outputs)]
-        out += [t for t in torch.utils._pytree.tree_leaves(edges.finalize.outputs)]
+    out = []
+    for entry in solver._graph_cache.values():
+        out += [t for g in entry.steps.values() for t in g.static.values()]
+        out.append(entry.input)
+        out += [t for t in torch.utils._pytree.tree_leaves(entry.init.outputs)]
+        out += [t for t in torch.utils._pytree.tree_leaves(entry.finalize.outputs)]
     return out
 
 
@@ -74,7 +77,8 @@ def test_edges_equal_the_eager_call(cls, C):
     _same(solver, eager, Y2, eager._eager_call(X2, iteration=ITERATION))
     assert second == {"graph_captures": 0, "graph_cache_hits": 1, "graph_replays": ITERATION - 1,
                       "edge_graph_captures": 0, "edge_graph_replays": 2}
-    assert len(solver._graph_cache) == 1 and len(solver._edge_cache) == 1
+    (entry,) = solver._graph_cache.values()
+    assert len(entry.steps) == 1 and entry.init is not None
 
 
 def test_the_step_graph_reads_the_init_graphs_input():
@@ -82,10 +86,10 @@ def test_the_step_graph_reads_the_init_graphs_input():
     graph's, which the finalize graph reads too."""
     solver = _solver()
     solver(_mixture(), iteration=ITERATION)
-    (graph,) = solver._graph_cache.values()
-    (edges,) = solver._edge_cache.values()
-    assert graph.static["input"] is edges.input is edges.init.outputs[0]["input"]
-    assert edges.step is graph and edges.finalize.inputs == (graph.static,)
+    (entry,) = solver._graph_cache.values()
+    (graph,) = entry.steps.values()
+    assert graph.static["input"] is entry.input is entry.init.outputs[0]["input"]
+    assert entry.finalized is graph and entry.finalize.inputs == (graph.static,)
 
 
 def test_nothing_a_caller_holds_aliases_a_static_buffer():
@@ -116,10 +120,10 @@ def test_shapes_a_b_a_key_the_call():
         _same(solver, eager, Y, eager._eager_call(X, iteration=ITERATION))
         assert solver.n_frames == T and solver.n_bins == 33 and solver.n_sources == 2
         assert delta["edge_graph_captures"] == captures and delta["edge_graph_replays"] == 2
-        (key,) = [k for k in solver._edge_cache if k[0] == X.shape]
+        (key,) = [k for k in solver._graph_cache if k[0] == X.shape]
         assert ("n_frames", T) in key[3]
-    assert sorted(key[0] for key in solver._edge_cache) == [(2, 33, 23), (2, 33, 40)]
-    assert len(solver._graph_cache) == 2
+    assert sorted(key[0] for key in solver._graph_cache) == [(2, 33, 23), (2, 33, 40)]
+    assert sum(len(entry.steps) for entry in solver._graph_cache.values()) == 2
 
 
 @pytest.mark.parametrize(
@@ -155,7 +159,7 @@ def test_other_calls_keep_their_path(case):
     Y_eager = eager._eager_call(X, iteration=iteration, **call)
     assert torch.equal(Y, Y_eager) and solver.loss == eager.loss
     assert delta["edge_graph_replays"] == delta["edge_graph_captures"] == 0
-    assert not vars(solver).get("_edge_cache")
+    assert not any(entry.init for entry in vars(solver).get("_graph_cache", {}).values())
 
 
 def test_without_the_loss_recorded():
@@ -165,8 +169,8 @@ def test_without_the_loss_recorded():
         Y, delta = _counted(lambda: solver(X, iteration=ITERATION))
         assert torch.equal(Y, eager._eager_call(X, iteration=ITERATION))
         assert solver.loss is None and delta["edge_graph_replays"] == 2
-    (edges,) = solver._edge_cache.values()
-    assert edges.init.outputs[1] == []
+    (entry,) = solver._graph_cache.values()
+    assert entry.init.outputs[1] == []
 
 
 def test_one_iteration():
@@ -203,6 +207,44 @@ def test_batch_members_replay_the_edges():
         Y = own._eager_call(x, iteration=4)
         np.testing.assert_array_equal(outputs[b], Y.numpy())
         np.testing.assert_array_equal(losses[b], own.loss[1:])
+
+
+@pytest.mark.parametrize(
+    "cls, kwargs, C, route",
+    [
+        (port.AuxLaplaceIVA, {}, 2, "EdgeRoute"),
+        (port.GaussILRMA, {"n_basis": 2}, 2, "StepRoute"),
+        (port.ProxLaplaceIVA, {}, 3, "Route"),
+    ],
+    ids=["edges", "step", "eager"],
+)
+def test_a_batch_member_takes_its_own_calls_route(monkeypatch, cls, kwargs, C, route):
+    """A ``batch_separate`` member and its own ``solver(X)`` call take one
+    route, chosen in one place, with the same captures, replays and kernel
+    launches."""
+    taken = []
+    made = graph.Route.__init__
+
+    def record(self, *args):
+        taken.append(type(self).__name__)
+        made(self, *args)
+
+    monkeypatch.setattr(graph.Route, "__init__", record)
+    names = ("graph_captures", "graph_replays", "edge_graph_replays")
+
+    def counted(fn):
+        before = [counters[k] for k in names] + [k.launches for k in COUNTED_KERNELS]
+        fn()
+        after = [counters[k] for k in names] + [k.launches for k in COUNTED_KERNELS]
+        return [a - b for a, b in zip(after, before)]
+
+    X = _mixture(C, seed=12)
+    np.random.seed(0)
+    own = counted(lambda: _solver(cls, **kwargs)(X, iteration=ITERATION))
+    np.random.seed(0)
+    member = counted(lambda: batch_separate(_solver(cls, **kwargs), X[None], iteration=ITERATION))
+    assert taken == [route, route]
+    assert member == own
 
 
 class _HostReadInInit(port.AuxLaplaceIVA):

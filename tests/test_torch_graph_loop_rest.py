@@ -39,6 +39,7 @@ from test_torch_graph_loop import (
     _input,
     _parts,
     _published,
+    _step_graphs,
     _Stub,
 )
 
@@ -128,7 +129,7 @@ def test_graph_equals_eager_loop(case):
     X = _input_rest(case[4])
     eager, graph = _solver(case, emulate=False), _solver(case)
     Y0, Y1 = _call(eager, case, X), _call(graph, case, X)
-    assert graph.capturable(X) and len(graph._graph_cache) == 1
+    assert graph.capturable(X) and len(_step_graphs(graph)) == 1
     assert not vars(eager).get("_graph_cache")
     assert eager.loss == graph.loss and len(graph.loss) == ITERATIONS + graph.record_initial_loss
     _assert_same(_parts(Y0), _parts(Y1))
@@ -160,7 +161,7 @@ def test_graph_matches_jax_trajectory(case_id):
     ref_out = ref(X, iteration=ITERATIONS, **call)
     ours = _solver(case)
     out = _call(ours, case, X)
-    assert len(ours._graph_cache) == 1
+    assert len(_step_graphs(ours)) == 1
     np.testing.assert_allclose(ours.loss, ref.loss, rtol=1e-9)
     for a, b in zip(_parts(out), ref_out if isinstance(ref_out, tuple) else (ref_out,)):
         b = np.asarray(b)
@@ -175,12 +176,12 @@ def test_idlma_graph_is_cached_per_network():
     solver = _solver(case)
     _call(solver, case, X)
     _call(solver, case, X)
-    assert len(solver._graph_cache) == 1
+    assert len(_step_graphs(solver)) == 1
     W1, W2 = _mlp_weights()
     other = port.torch_dnn(VarianceMLP(W1 * 2, W2))
     np.random.seed(SEED)
     Y = solver(X, iteration=ITERATIONS, dnn=other)
-    assert len(solver._graph_cache) == 2
+    assert len(_step_graphs(solver)) == 2
     eager = _solver(case, emulate=False)
     np.random.seed(SEED)
     _assert_same([Y], [eager(X, iteration=ITERATIONS, dnn=other)])
@@ -247,7 +248,7 @@ def test_audit_lets_a_kernels_plain_version_through():
     batched_eigh.launches = 0
     solver = _Stub(step)
     solver(_input("mix2"), iteration=5)
-    assert len(solver._graph_cache) == 1 and batched_eigh.launches == 5
+    assert len(_step_graphs(solver)) == 1 and batched_eigh.launches == 5
 
 
 # an input of its kind for each class of CAPTURABLE, and its call's kwargs
@@ -268,7 +269,7 @@ def test_every_capturable_configuration_passes_the_audit(name, kwargs):
     case = (name, name, kwargs, {}, AUDIT_INPUTS.get(name, "mix2"), {"dnn": NETWORK} if name == "GaussIDLMA" else {})
     solver = _solver(case)
     _call(solver, case, _input_rest(case[4]), iteration=2)
-    assert len(solver._graph_cache) == 1
+    assert len(_step_graphs(solver)) == 1
 
 
 def test_capturable_covers_every_family():
@@ -333,4 +334,4 @@ def test_graph_equals_eager_on_card(cuda, case):
     _assert_same(Y0, Y1)
     np.random.seed(SEED)
     graph(X, iteration=3, **call)
-    assert len(graph._graph_cache) == 1
+    assert len(_step_graphs(graph)) == 1
