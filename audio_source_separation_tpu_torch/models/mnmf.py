@@ -28,9 +28,12 @@ Ozerov per-bin equilibration (published in the input frame).
 FastMNMF's diagonaliser update takes all C weighted covariances ``(1/T)
 sum_t x x^H / R[m, f, t]`` in one call of kernel K1
 (:func:`~..ops.cov_kernel.weighted_covariance_planes`, per-bin ``(C, F, T)``
-weights) per iteration, and at C <= 4 its row sweep and the per-bin part
-of its power normalisation in one call of kernel K4
-(:func:`~..ops.mnmf_rows.fastmnmf_rows`); Sawada's frame contractions and
+weights) per iteration, at C <= 4 its row sweep and the per-bin part of
+its power normalisation in one call of kernel K4
+(:func:`~..ops.mnmf_rows.fastmnmf_rows`), and its MU sweeps, K1's weights
+and the NLL's fit each in one call of kernel K5
+(:func:`~..ops.mnmf_mu.fastmnmf_mu`), which forms the model inside the
+contractions; Sawada's frame contractions and
 Ozerov's EM are batched PyTorch products, no kernel.
 
 Under a mesh (the JAX package's ``field_axes``) every per-bin field shards
@@ -68,6 +71,8 @@ from ..ops.fast_linalg import (
 )
 from ..ops.ip import cond_guard
 from ..ops.ip_components import assemble_matrices, pair_products_planes, quadratic_power_planes
+from ..ops.mnmf_mu import fastmnmf_mu, fastmnmf_mu_plain, model_power
+from ..ops.mnmf_mu import takes as k5_takes
 from ..ops.mnmf_rows import MAX_C, fastmnmf_rows, power_normalize_bins
 from ..runtime.solver import IterativeSolver, state_tensor
 from ..utils.flooring import EPS, THRESHOLD, floor_below
@@ -624,7 +629,9 @@ class FastMultichannelISNMF(MultichannelNMFBase):
     diagonaliser update forms all M weighted covariances in one K1 call,
     then at C <= 4 with a cheap guard sweeps the rows and applies the
     per-bin part of the power normalisation in one call of K4, else sweeps
-    in matrix layout with :func:`~..ops.ip.cond_guard`.
+    in matrix layout with :func:`~..ops.ip.cond_guard`.  The MU sweeps, K1's
+    weights and the NLL's fit read the model ``R (M, F, T)`` only inside K5
+    (at C <= 4, S <= 4 and ``S K <= 24``; the plain einsums past that).
     """
 
     state_fields = ("diagonalizer", "spatial_covariance", "basis", "activation", "latent")
@@ -723,54 +730,33 @@ class FastMultichannelISNMF(MultichannelNMFBase):
         return torch.stack(rows)
 
     def _model_power(self, state):
-        """``R[m] = sum_s (W H)_s g[s, :, m] (M, F, T)`` as one GEMM, ``g``
-        folded into ``W`` over the joint (source, basis) axis; contiguous, as
-        K1 takes ``1 / R``."""
-        W, H = state["basis"], state["activation"]
-        g = state["spatial_covariance"]  # (S, F, M)
-        n_sources, n_bins, n_basis = W.shape
-        Wg = torch.einsum("sfk,sfm->mfsk", W, g).reshape(g.shape[-1], n_bins, n_sources * n_basis)
-        return torch.matmul(Wg, H.reshape(n_sources * n_basis, -1))
+        """``R[m] = sum_s (W H)_s g[s, :, m] (M, F, T)``, the plain version's
+        GEMM (:func:`~..ops.mnmf_mu.model_power`)."""
+        return model_power(state["basis"], state["spatial_covariance"], state["activation"])
+
+    def _mu(self, entry, state):
+        """One of K5's results (:func:`~..ops.mnmf_mu.fastmnmf_mu`) from
+        ``state``, the plain version where the kernel does not take the
+        shapes; a sweep whose statistics' axis this call shards makes them
+        whole by one all-reduce."""
+        W, g, H = state["basis"], state["spatial_covariance"], state["activation"]
+        x = state["qx_power"]
+        mode = {"basis": "frames", "gains": "frames", "activation": "bins"}.get(entry)
+        whole = None
+        if mode is not None and self._shard_group(mode) is not None:
+            whole = lambda sums: self._shard_sums(sums, mode)  # noqa: E731
+        mu = fastmnmf_mu if k5_takes(x.shape[0], W.shape[0], W.shape[2]) else fastmnmf_mu_plain
+        return mu(entry, x, W, g, H, self.eps, whole=whole)
 
     def _update_nmf(self, state):
         """MU sweeps of W then H (``mnmf.py:789-813``), the frame or bin
-        contraction first, into a small ``(M, F, S, K)`` tensor."""
-        eps = self.eps
-        g = state["spatial_covariance"]
-        W, H = state["basis"], state["activation"]
-        x_tilde = state["qx_power"]  # (M, F, T)
-
-        E_num, E_den = self._frame_statistics(state)
-        num = torch.einsum("sfm,mfsk->sfk", g, E_num)
-        den = floor_below(torch.einsum("sfm,mfsk->sfk", g, E_den), eps)
-        W = W * torch.sqrt(num / den)
-        state = dict(state, basis=W)
-
-        R = floor_below(self._model_power(state), eps)
-        Wg = torch.einsum("sfk,sfm->skmf", W, g)  # (S, K, M, F)
-        num, den = self._shard_sums(
-            [torch.einsum("mft,skmf->skt", x_tilde / R**2, Wg), torch.einsum("mft,skmf->skt", 1 / R, Wg)], "bins"
-        )
-        return dict(state, activation=H * torch.sqrt(num / floor_below(den, eps)))
-
-    def _frame_statistics(self, state):
-        """``sum_t x~ / R^2 H`` and ``sum_t H / R``, ``(M, F, S, K)`` each,
-        whole over the frame shards (one all-reduce)."""
-        R = floor_below(self._model_power(state), self.eps)
-        H = state["activation"]
-        return self._shard_sums(
-            [torch.einsum("mft,skt->mfsk", state["qx_power"] / R**2, H), torch.einsum("mft,skt->mfsk", 1 / R, H)],
-            "frames",
-        )
+        contraction inside K5."""
+        state = dict(state, basis=self._mu("basis", state))
+        return dict(state, activation=self._mu("activation", state))
 
     def _update_scm(self, state):
-        """Gain MU (``mnmf.py:815-827``) from the same frame contractions."""
-        eps = self.eps
-        g, W = state["spatial_covariance"], state["basis"]
-        E_num, E_den = self._frame_statistics(state)
-        A = torch.einsum("sfk,mfsk->sfm", W, E_num)
-        B = floor_below(torch.einsum("sfk,mfsk->sfm", W, E_den), eps)
-        return dict(state, spatial_covariance=g * torch.sqrt(A / B))
+        """Gain MU (``mnmf.py:815-827``) from the frame contractions."""
+        return dict(state, spatial_covariance=self._mu("gains", state))
 
     def _update_diagonalizer(self, state, normalize):
         """IP-style row update of Q (``mnmf.py:848-888``), then with
@@ -783,8 +769,8 @@ class FastMultichannelISNMF(MultichannelNMFBase):
         eps, threshold = self.eps, self.threshold
         Q, g, W = state["diagonalizer"], state["spatial_covariance"], state["basis"]
         C = Q.shape[-1]
-        R = floor_below(self._model_power(state), eps)  # (M, F, T)
-        U_planes = self._frames_mean(weighted_covariance_planes(state["input"], 1.0 / R))  # (C^2, F, M): one K1 launch
+        weights = self._mu("weights", state)  # 1 / R (M, F, T)
+        U_planes = self._frames_mean(weighted_covariance_planes(state["input"], weights))  # (C^2, F, M): one K1 launch
 
         if self.guard in ("one_norm", "none") and C <= MAX_C:
             Q, g, W = fastmnmf_rows(U_planes, Q, g, W, eps, threshold, guard=self.guard, normalize=normalize)
@@ -835,12 +821,9 @@ class FastMultichannelISNMF(MultichannelNMFBase):
 
     def nll(self, state):
         """``sum (x~/y~ + log y~) - T sum log|det Q Q^T|`` (``mnmf.py:890-917``)."""
-        eps = self.eps
         Q = state["diagonalizer"]
-        x_tilde = state["qx_power"] + eps
-        y_tilde = self._model_power(state) + eps
         detQQ = torch.abs(batched_det(Q @ Q.transpose(-2, -1)))
-        fit = torch.sum(x_tilde / y_tilde + torch.log(y_tilde))
+        fit = self._mu("fit", state)
         return self._fit_less_per_bin(fit, self._n_frames(state["input"]) * torch.sum(torch.log(detQQ)))
 
     def finalize(self, state):

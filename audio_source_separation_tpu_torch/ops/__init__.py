@@ -1,9 +1,9 @@
 """Per-bin C x C math, the padded block layout of the block-PSD models
-(``blocks.py``) and the four hand-written kernels (K1 in ``cov_kernel.py``,
-K2 in ``fused_ip.py``, K3 in ``eigh_kernel.py``, K4 in ``mnmf_rows.py``;
-sources in ``../csrc``)."""
+(``blocks.py``) and the five hand-written kernels (K1 in ``cov_kernel.py``,
+K2 in ``fused_ip.py``, K3 in ``eigh_kernel.py``, K4 in ``mnmf_rows.py``, K5
+in ``mnmf_mu.py``; sources in ``../csrc``)."""
 
-from . import cov_kernel, eigh_kernel, fused_ip, mnmf_rows
+from . import cov_kernel, eigh_kernel, fused_ip, mnmf_mu, mnmf_rows
 from .blocks import BlockLayout
 from .covariance import (
     pair_products,
@@ -24,13 +24,13 @@ from .ip_components import (
 from .iss import iss_sweep
 
 # the kernels' wrappers, each counting its launches in ``launches`` (K2, K1,
-# K3, K4), which a graph's replay adds to; and the wrapper modules that keep
+# K3, K4, K5), which a graph's replay adds to; and the wrapper modules that keep
 # scratch per stream, which a graph takes after its capture (``take_scratch``)
 COUNTED_KERNELS = (
     fused_ip.fused_auxiva_ip_iter, cov_kernel.weighted_covariance_planes, eigh_kernel.batched_eigh,
-    mnmf_rows.fastmnmf_rows,
+    mnmf_rows.fastmnmf_rows, mnmf_mu.fastmnmf_mu,
 )
-SCRATCH_OWNERS = (fused_ip, cov_kernel)
+SCRATCH_OWNERS = (fused_ip, cov_kernel, mnmf_mu)
 
 __all__ = [
     "spatial_covariance",

@@ -28,6 +28,7 @@ SOURCES = {
     "fused_auxiva_ip": "fused_auxiva_ip.cu",
     "batched_eigh": "batched_eigh.cu",
     "fastmnmf_rows": "fastmnmf_rows.cu",
+    "fastmnmf_mu": "fastmnmf_mu.cu",
 }
 
 NVCC_FLAGS = (

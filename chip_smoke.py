@@ -28,7 +28,12 @@ Phases (each asserts; any failure exits non-zero):
      C = 2, 3, 4 complex64 and C = 2 complex128 (K4_CASES) against its
      plain version under both guards (1e-4 single, 1e-10 double), one
      launch a call, bit-identical launches; ms against the bound and the
-     plain version's chain;
+     plain version's chain; then K5 (FastMNMF's MU sweeps, K1's weights and
+     the NLL's fit) at 2049 bins, 470 frames, C = 2 (K = 10) and 3 (K = 8)
+     float32 and C = 2 float64 (K5_CASES), each entry against its plain version
+     fused and with the statistics written for a mesh (1e-5 single, 1e-12
+     double), one launch a call, bit-identical launches; ms against the
+     bound and the plain version's chain;
   3. main path, C = 2: a 60 s, 16 kHz stereo convolutive mixture ->
      stft(4096, 2048) -> AuxLaplaceIVA(IP) x 100 -> projection-back -> istft
      on the card; K2 once per iteration, loss finite and non-increasing,
@@ -208,8 +213,9 @@ Phases (each asserts; any failure exits non-zero):
      blocks (K1, K3), Ikeshita and TIPSDTA(1000) (K3), LDPSDTF at K = 2 and
      3 on 64 x 64 x 469 (K3)) x 20 (x 10 where the eager loop is slow,
      GRAPH_SLOW) from the same draws, one line: bits or gap (equal bits
-     held on the K2 path, 1e-5 elsewhere), the launches of K1, K2, K3 and
-     K4 per call as the eager loop's, one capture across two calls, ms an
+     held on the K2 and K5 paths, 1e-5 elsewhere), the launches of K1, K2,
+     K3, K4 and K5 per call as the eager loop's, one capture across two
+     calls, ms an
      iteration for both by
      ``per_iteration``'s differencing, the replay's host ms and the capture
      seconds; ``batch_separate`` over AuxLaplaceIVA IP x 30 on 8 x 2 x 2049
@@ -217,7 +223,7 @@ Phases (each asserts; any failure exits non-zero):
      ``benchmark_solver`` on the main path, graph against eager.  Every
      earlier phase runs through the captured loop too;
  16. the script's seconds, one ``{"kernels": [...]}`` line (K1, K2 once
-     per contrast, K3, K4), then the last line ``{"ok": true, "device":
+     per contrast, K3, K4, K5), then the last line ``{"ok": true, "device":
      {...}}``.
 
 Phase 2 also holds K2's Gauss instance at both shapes, K2 (both contrasts)
@@ -304,6 +310,9 @@ from audio_source_separation_tpu_torch.ops.fused_ip import (
     k2_cost,
     k2_launch_plan,
 )
+from audio_source_separation_tpu_torch.ops.mnmf_mu import ENTRIES as K5_ENTRIES
+from audio_source_separation_tpu_torch.ops.mnmf_mu import fastmnmf_mu, fastmnmf_mu_plain, k5_cost
+from audio_source_separation_tpu_torch.ops.mnmf_mu import takes as k5_takes
 from audio_source_separation_tpu_torch.ops.mnmf_rows import fastmnmf_rows, fastmnmf_rows_plain, k4_cost
 from audio_source_separation_tpu_torch.ops.ip_components import (
     _covariance_planes,
@@ -571,6 +580,46 @@ def k4_case(gen, C, dtype, F=2049, T=470, K=10):
         "C": C, "S": C, "K": K, "F": F, "dtype": str(dtype).replace("torch.", ""), "rel_err": errs,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_us": bound_ms * 1e3, "bound_by": bound_by,
     }
+
+
+# K5's cases at the FastMNMF cell's 2049 bins and 470 frames, S = C sources:
+# (C, K, real type), K = 10 but at C = 3, where S K = 30 is past the
+# kernel's 24; against its plain version, max |err| / max |plain|
+K5_CASES = [(2, 10, torch.float32), (3, 8, torch.float32), (2, 10, torch.float64)]
+K5_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def k5_case(gen, C, dtype, F=2049, T=470, K=10):
+    """Each of K5's entries against its plain version on powers over five
+    decades and uniform factors: bit-identical across two launches, one
+    launch counted a call, the statistics written for a mesh as close as the
+    fused update; median times of K5 and of the plain version's einsum
+    chain, beside the bound from ``k5_cost``."""
+    x = (10 ** (5 * torch.rand((C, F, T), generator=gen, device="cuda", dtype=torch.float64) - 3)).to(dtype)
+    W, g, H = (
+        (0.05 + 0.95 * torch.rand(shape, generator=gen, device="cuda", dtype=torch.float64)).to(dtype)
+        for shape in ((C, F, K), (C, F, C), (C, K, T))
+    )
+    args = (x, W, g, H, EPS)
+    entries = {}
+    for entry in K5_ENTRIES:
+        before = fastmnmf_mu.launches
+        out = fastmnmf_mu(entry, *args)
+        again = fastmnmf_mu(entry, *args)
+        ref = fastmnmf_mu_plain(entry, *args)
+        torch.cuda.synchronize()
+        assert fastmnmf_mu.launches == before + 2, ("K5 launches", entry, fastmnmf_mu.launches - before)
+        assert torch.equal(out, again), ("K5 not bit-identical across launches", entry, C, dtype)
+        err = rel_err(out, ref)
+        if entry in ("basis", "gains", "activation"):
+            err = max(err, rel_err(fastmnmf_mu(entry, *args, whole=lambda sums: list(sums)), ref))
+        assert math.isfinite(err) and err <= K5_RTOL[dtype], ("K5", entry, C, dtype, err)
+        bound_ms, bound_by = bound(*k5_cost(entry, C, C, K, F, T, x.element_size()))
+        entries[entry] = {
+            "rel_err": err, "ms": median_ms(lambda: fastmnmf_mu(entry, *args)),
+            "plain_ms": median_ms(lambda: fastmnmf_mu_plain(entry, *args)), "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    return {"C": C, "S": C, "K": K, "F": F, "T": T, "dtype": str(dtype).replace("torch.", ""), "entries": entries}
 
 
 # K3 against its plain version (both at float64 arithmetic, the result at the
@@ -1522,6 +1571,8 @@ def mnmf(mixture, images, mixture3, images3, failed):
         checks = {
             "K1 launches": res["k1_launches"] == iterations * k1_per_iteration and res["k2_launches"] == 0,
             "K4 launches": res["k4_launches"] == iterations * k1_per_iteration,
+            # FastMNMF: four sweeps an iteration and one a loss, the first in the init
+            "K5 launches": res["k5_launches"] == (5 * iterations + 1) * k1_per_iteration * k5_takes(2, 2, FACTOR_BASIS),
             "loss length": len(loss) == iterations + 1,
             "loss falls": loss[-1] < loss[0],
             "loss vs CPU float64 within {}".format(rtol): gaps.max() <= rtol,
@@ -1566,6 +1617,8 @@ def mnmf(mixture, images, mixture3, images3, failed):
         record_checks(failed, key, {
             "K1 launches": res["k1_launches"] == iterations * k1_per_iteration and res["k2_launches"] == 0,
             "K4 launches": res["k4_launches"] == iterations * k1_per_iteration,
+            # at C = 3, S K = 30 takes the plain version
+            "K5 launches": res["k5_launches"] == (5 * iterations + 1) * k1_per_iteration * k5_takes(3, 3, FACTOR_BASIS),
             "loss length": len(loss) == iterations + 1,
             "output shape": tuple(Y.shape) == tuple(X.shape),
         })
@@ -1922,6 +1975,7 @@ def counts_zero():
     weighted_covariance_planes.launches = 0
     batched_eigh.launches = 0
     fastmnmf_rows.launches = 0
+    fastmnmf_mu.launches = 0
     torch.cuda.synchronize()
 
 
@@ -1929,6 +1983,7 @@ def counts():
     return {
         "k1_launches": weighted_covariance_planes.launches, "k2_launches": fused_auxiva_ip_iter.launches,
         "k3_launches": batched_eigh.launches, "k4_launches": fastmnmf_rows.launches,
+        "k5_launches": fastmnmf_mu.launches,
     }
 
 
@@ -1982,6 +2037,10 @@ def batch_rows(Xs, mixtures, images, failed):
         }
         if sdr_bar:
             checks["SI-SDR up by more than 5 dB on every member"] = min(gains) > 5.0
+        if key == "batch_fast_mnmf_c2":  # K5: four sweeps and a loss a step (a member records no initial loss)
+            checks["K5 {} in {}".format(BATCH * 5 * ITERS_BATCH, BATCH * ITERS_BATCH)] = (
+                res["k5_launches"] == BATCH * 5 * ITERS_BATCH
+            )
         record_checks(failed, key, checks)
     return out
 
@@ -2415,9 +2474,11 @@ def slice_10c_world_one(X, mesh, failed):
                    unsharded_per_iteration=mesh_per_iteration(make, Xk, n=iteration, **call))  # fmt: skip
         out[key] = res
         gathers = 1 if key == "idlma_bins" else 0
+        k5 = 5 * iteration + 1 if key.startswith("fastmnmf") else 0  # four sweeps and a loss a step, a loss at init
         record_checks(failed, "mesh_w1_" + key, {
             "K1 {} in {}, no K2".format(iteration * k1_per_iteration, iteration):
             res["k1_launches"] == iteration * k1_per_iteration and res["k2_launches"] == 0,
+            "K5 {} in {}".format(k5, iteration): res["k5_launches"] == k5,
             "{} all-gather an iteration".format(gathers): res["per_iteration"]["all_gather"] == gathers,
             "an all-reduce an iteration": res["per_iteration"]["all_reduce"] >= 1,
             "output and losses within {}".format(MESH_W1_RTOL): max(res["output_gap"], res["loss_gap"]) <= MESH_W1_RTOL,
@@ -2677,7 +2738,8 @@ def cost_rows(mlp_weights):
         ("gauss_ip_c2", lambda d: AuxGaussIVA(device=d), "X", {"K2": 1}, "fast"),
         ("laplace_ip_c3", lambda d: AuxLaplaceIVA(device=d), "X3", {"K1": 1}, "mid"),
         ("gauss_ilrma_10", lambda d: GaussILRMA(n_basis=10, device=d), "X", {"K1": 1}, "mid"),
-        ("fast_mnmf_10", lambda d: FastMultichannelISNMF(n_basis=10, device=d), "X", {"K1": 1, "K4": 1}, "mid"),
+        ("fast_mnmf_10", lambda d: FastMultichannelISNMF(n_basis=10, device=d), "X", {"K1": 1, "K4": 1, "K5": 4},
+         "mid"),
         ("gauss_idlma", idlma, "X", {"K1": 1}, "mid"),
         # the source step's square-root chain: two K3 calls
         ("ipsdta_kondo", lambda d: GaussIPSDTA(n_basis=2, device=d), "X", {"K1": 1, "K3": 2}, "slow"),
@@ -2723,6 +2785,7 @@ def cost_model(X, X3, copy_gb_s, failed):
                 "K2": fused_auxiva_ip_iter.launches - init["k2_launches"],
                 "K3": batched_eigh.launches - init["k3_launches"],
                 "K4": fastmnmf_rows.launches - init["k4_launches"],
+                "K5": fastmnmf_mu.launches - init["k5_launches"],
             }
             np.random.seed(SEED)
             cpu = iteration_cost(make("cpu"), target.cpu())
@@ -2773,46 +2836,47 @@ ITERS_GRAPH, GRAPH_N, GRAPH_WARM = 20, 50, 5
 GRAPH_RTOL = 1e-5
 # key, constructor, input (phase 3's mixture "X2", phase 5's "X3", a seeded
 # 4-mic "X4", phase 11's Gram targets "gram2" and "gram3", or a
-# factorisation target of factor_targets), K1, K2, K3 and K4 launches an
-# iteration
+# factorisation target of factor_targets), K1, K2, K3, K4 and K5 launches an
+# iteration (K5: FastMNMF's four sweeps and its loss)
 GRAPH_CASES = [
-    ("laplace_ip_c2", lambda: AuxLaplaceIVA(), "X2", (0, 1, 0, 0)),
-    ("gauss_ip_c2", lambda: AuxGaussIVA(), "X2", (0, 1, 0, 0)),
-    ("laplace_ip_c3", lambda: AuxLaplaceIVA(), "X3", (1, 0, 0, 0)),
-    ("gauss_ip_c3", lambda: AuxGaussIVA(), "X3", (1, 0, 0, 0)),
-    ("laplace_iss_c2", lambda: AuxLaplaceIVA(algorithm_spatial="ISS"), "X2", (0, 0, 0, 0)),
-    ("laplace_ip2_c2", lambda: AuxLaplaceIVA(algorithm_spatial="IP2"), "X2", (1, 0, 0, 0)),
-    ("gauss_ilrma_ip_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS), "X2", (1, 0, 0, 0)),
-    ("gauss_ilrma_iss_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS, algorithm_spatial="ISS"), "X2", (0, 0, 0, 0)),
-    ("gauss_ilrma_ip2_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS, algorithm_spatial="IP2"), "X2", (1, 0, 0, 0)),
-    ("tilrma_c2", lambda: TILRMA(n_basis=BATCH_BASIS), "X2", (1, 0, 0, 0)),
-    ("consistent_ilrma_c2", lambda: ConsistentGaussILRMA(n_basis=BATCH_BASIS, fft_size=FFT_SIZE), "X2", (1, 0, 0, 0)),
-    ("fast_mnmf_c2", lambda: FastMultichannelISNMF(n_basis=BATCH_BASIS), "X2", (1, 0, 0, 1)),
-    ("eucnmf", lambda: EUCNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0, 0)),
-    ("klnmf", lambda: KLNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0, 0)),
-    ("isnmf_mm", lambda: ISNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0, 0)),
-    ("tnmf", lambda: TNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0, 0)),
-    ("cauchy_mm_fast", lambda: CauchyNMF(n_basis=FACTOR_BASIS, algorithm="mm_fast"), "power", (0, 0, 0, 0)),
-    ("complex_eucnmf", lambda: ComplexEUCNMF(n_basis=FACTOR_BASIS), "spectrogram", (0, 0, 0, 0)),
-    ("eucntf", lambda: EUCNTF(n_basis=FACTOR_BASIS), "power_tensor", (0, 0, 0, 0)),
+    ("laplace_ip_c2", lambda: AuxLaplaceIVA(), "X2", (0, 1, 0, 0, 0)),
+    ("gauss_ip_c2", lambda: AuxGaussIVA(), "X2", (0, 1, 0, 0, 0)),
+    ("laplace_ip_c3", lambda: AuxLaplaceIVA(), "X3", (1, 0, 0, 0, 0)),
+    ("gauss_ip_c3", lambda: AuxGaussIVA(), "X3", (1, 0, 0, 0, 0)),
+    ("laplace_iss_c2", lambda: AuxLaplaceIVA(algorithm_spatial="ISS"), "X2", (0, 0, 0, 0, 0)),
+    ("laplace_ip2_c2", lambda: AuxLaplaceIVA(algorithm_spatial="IP2"), "X2", (1, 0, 0, 0, 0)),
+    ("gauss_ilrma_ip_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS), "X2", (1, 0, 0, 0, 0)),
+    ("gauss_ilrma_iss_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS, algorithm_spatial="ISS"), "X2", (0, 0, 0, 0, 0)),
+    ("gauss_ilrma_ip2_c2", lambda: GaussILRMA(n_basis=BATCH_BASIS, algorithm_spatial="IP2"), "X2", (1, 0, 0, 0, 0)),
+    ("tilrma_c2", lambda: TILRMA(n_basis=BATCH_BASIS), "X2", (1, 0, 0, 0, 0)),
+    ("consistent_ilrma_c2", lambda: ConsistentGaussILRMA(n_basis=BATCH_BASIS, fft_size=FFT_SIZE), "X2",
+     (1, 0, 0, 0, 0)),
+    ("fast_mnmf_c2", lambda: FastMultichannelISNMF(n_basis=BATCH_BASIS), "X2", (1, 0, 0, 1, 5)),
+    ("eucnmf", lambda: EUCNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0, 0, 0)),
+    ("klnmf", lambda: KLNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0, 0, 0)),
+    ("isnmf_mm", lambda: ISNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0, 0, 0)),
+    ("tnmf", lambda: TNMF(n_basis=FACTOR_BASIS), "power", (0, 0, 0, 0, 0)),
+    ("cauchy_mm_fast", lambda: CauchyNMF(n_basis=FACTOR_BASIS, algorithm="mm_fast"), "power", (0, 0, 0, 0, 0)),
+    ("complex_eucnmf", lambda: ComplexEUCNMF(n_basis=FACTOR_BASIS), "spectrogram", (0, 0, 0, 0, 0)),
+    ("eucntf", lambda: EUCNTF(n_basis=FACTOR_BASIS), "power_tensor", (0, 0, 0, 0, 0)),
     # captured since K3 made their eigensolves capturable
-    ("grad_iva_c2", lambda: GradLaplaceIVA(), "X2", (0, 0, 0, 0)),
-    ("natural_grad_iva_c2", lambda: NaturalGradLaplaceIVA(), "X2", (0, 0, 0, 0)),
-    ("grad_fdica_c2", lambda: GradLaplaceFDICA(lr=0.1), "X2", (0, 0, 0, 0)),
-    ("natural_grad_fdica_c2", lambda: NaturalGradLaplaceFDICA(lr=0.1), "X2", (0, 0, 0, 0)),
-    ("over_4to2", lambda: OverAuxLaplaceIVA("IP", n_sources=2), "X4", (0, 1, 0, 0)),
-    ("prox_c2", lambda: ProxLaplaceIVA(), "X2", (0, 0, 0, 0)),
-    ("sawada_c2", lambda: MultichannelISNMF(n_basis=FACTOR_BASIS), "X2", (0, 0, 0, 0)),
-    ("sawada_c3", lambda: MultichannelISNMF(n_basis=FACTOR_BASIS), "X3", (0, 0, 3, 0)),  # the Riccati's three
-    ("ozerov_c2", lambda: MultichannelISNMF(n_basis=FACTOR_BASIS, author="Ozerov"), "X2", (0, 0, 0, 0)),
-    ("cov_isnmf_c2", lambda: CovarianceISNMF(n_basis=FACTOR_BASIS), "covariance", (0, 0, 0, 0)),
-    ("cov_isnmf_c3", lambda: CovarianceISNMF(n_basis=FACTOR_BASIS), "covariance_c3", (0, 0, 3, 0)),
-    ("idlma_mlp_c2", lambda: GaussIDLMA(jax_dnn=True), "X2", (1, 0, 0, 0)),
-    ("kondo_c2", lambda: GaussIPSDTA(n_basis=2), "X2", (1, 0, 2, 0)),  # 1024 blocks, B = 3
-    ("ikeshita_c2", lambda: GaussIPSDTA(n_basis=2, author="Ikeshita"), "X2", (0, 0, 1, 0)),
-    ("t_nu1000_c2", lambda: TIPSDTA(n_basis=2, nu=1000), "X2", (0, 0, 2, 0)),
-    ("ldpsdtf_k2", lambda: LDPSDTF(n_basis=2), "gram2", (0, 0, 2, 0)),
-    ("ldpsdtf_k3", lambda: LDPSDTF(n_basis=3), "gram3", (0, 0, 3, 0)),
+    ("grad_iva_c2", lambda: GradLaplaceIVA(), "X2", (0, 0, 0, 0, 0)),
+    ("natural_grad_iva_c2", lambda: NaturalGradLaplaceIVA(), "X2", (0, 0, 0, 0, 0)),
+    ("grad_fdica_c2", lambda: GradLaplaceFDICA(lr=0.1), "X2", (0, 0, 0, 0, 0)),
+    ("natural_grad_fdica_c2", lambda: NaturalGradLaplaceFDICA(lr=0.1), "X2", (0, 0, 0, 0, 0)),
+    ("over_4to2", lambda: OverAuxLaplaceIVA("IP", n_sources=2), "X4", (0, 1, 0, 0, 0)),
+    ("prox_c2", lambda: ProxLaplaceIVA(), "X2", (0, 0, 0, 0, 0)),
+    ("sawada_c2", lambda: MultichannelISNMF(n_basis=FACTOR_BASIS), "X2", (0, 0, 0, 0, 0)),
+    ("sawada_c3", lambda: MultichannelISNMF(n_basis=FACTOR_BASIS), "X3", (0, 0, 3, 0, 0)),  # the Riccati's three
+    ("ozerov_c2", lambda: MultichannelISNMF(n_basis=FACTOR_BASIS, author="Ozerov"), "X2", (0, 0, 0, 0, 0)),
+    ("cov_isnmf_c2", lambda: CovarianceISNMF(n_basis=FACTOR_BASIS), "covariance", (0, 0, 0, 0, 0)),
+    ("cov_isnmf_c3", lambda: CovarianceISNMF(n_basis=FACTOR_BASIS), "covariance_c3", (0, 0, 3, 0, 0)),
+    ("idlma_mlp_c2", lambda: GaussIDLMA(jax_dnn=True), "X2", (1, 0, 0, 0, 0)),
+    ("kondo_c2", lambda: GaussIPSDTA(n_basis=2), "X2", (1, 0, 2, 0, 0)),  # 1024 blocks, B = 3
+    ("ikeshita_c2", lambda: GaussIPSDTA(n_basis=2, author="Ikeshita"), "X2", (0, 0, 1, 0, 0)),
+    ("t_nu1000_c2", lambda: TIPSDTA(n_basis=2, nu=1000), "X2", (0, 0, 2, 0, 0)),
+    ("ldpsdtf_k2", lambda: LDPSDTF(n_basis=2), "gram2", (0, 0, 2, 0, 0)),
+    ("ldpsdtf_k3", lambda: LDPSDTF(n_basis=3), "gram3", (0, 0, 3, 0, 0)),
 ]
 # the rows whose eager loop takes tens of ms an iteration or more: their
 # iterations a call and loop_ms's (n, warm, repeats), so the phase stays
@@ -2877,7 +2941,7 @@ def parts(output):
 
 def graph_row(key, make, X, per_iteration, failed, call=None):
     """One family through the captured loop and the eager one (module
-    docstring, phase 15); ``per_iteration`` its K1, K2, K3 and K4 launches an
+    docstring, phase 15); ``per_iteration`` its K1, K2, K3, K4 and K5 launches an
     iteration, ``call`` its call's keywords (GaussIDLMA's network)."""
     call = call or {}
     iterations, (n, warm, repeats) = GRAPH_SLOW.get(key, (ITERS_GRAPH, (GRAPH_N, GRAPH_WARM, 3)))
@@ -2919,7 +2983,7 @@ def graph_row(key, make, X, per_iteration, failed, call=None):
     torch.cuda.synchronize()
     expected = {
         k + "_launches": outside[k + "_launches"] + per * iterations
-        for k, per in zip(("k1", "k2", "k3", "k4"), per_iteration)
+        for k, per in zip(("k1", "k2", "k3", "k4", "k5"), per_iteration)
     }
     res = {
         "iterations": iterations, "bits_equal": bits, "loss_max_rel_gap": loss_gap, "output_max_rel_gap": out_gap,
@@ -2934,8 +2998,8 @@ def graph_row(key, make, X, per_iteration, failed, call=None):
         "one capture across two calls": captures == 1 and same_graph,
         "losses finite": bool(np.isfinite(L_g).all()),
     }
-    if per_iteration[1]:
-        checks["graph equals eager bit for bit (K2)"] = bits
+    if per_iteration[1] or per_iteration[4]:
+        checks["graph equals eager bit for bit ({})".format("K2" if per_iteration[1] else "K5")] = bits
     else:
         checks["graph equals eager within {}".format(GRAPH_RTOL)] = loss_gap <= GRAPH_RTOL and out_gap <= GRAPH_RTOL
     record_checks(failed, key, checks)
@@ -3077,6 +3141,8 @@ def main():
     print(json.dumps({"k3_cases": k3, "k3_phase_s": time.perf_counter() - start}), flush=True)
     k4 = [k4_case(gen, C, dtype) for C, dtype in K4_CASES]
     print(json.dumps({"k4_cases": k4}), flush=True)
+    k5 = [k5_case(gen, C, dtype, K=K) for C, K, dtype in K5_CASES]
+    print(json.dumps({"k5_cases": k5}), flush=True)
 
     rng = np.random.RandomState(SEED)
     X2, mix2, c2 = main_path_c2(rng)
@@ -3329,6 +3395,30 @@ def main():
             "ms": k4[1]["ms"], "plain_ms": k4[1]["plain_ms"], "bound_ms": k4[1]["bound_ms"],
             "bound_us": k4[1]["bound_us"], "bound_by": k4[1]["bound_by"], "shape": [3, 2049, 3],
             "cases": k4,
+        },
+        {
+            "name": "fastmnmf_mu (K5)", "route": "cuda",
+            "source": "audio_source_separation_tpu_torch/csrc/fastmnmf_mu.cu",
+            # no pl.pallas_call: the model and ratio chains XLA fuses in the JAX step
+            "replaces": "audio_source_separation_tpu/models/mnmf.py (FastMultichannelISNMF's MU sweeps, K1's "
+                        "weights and the NLL's fit)",
+            "launches": mnmf_runs["fast_mnmf"]["k5_launches"],
+            "launches_by_path": {
+                "fast_mnmf_c2": mnmf_runs["fast_mnmf"]["k5_launches"],
+                "fast_mnmf_c3": mnmf_runs["fast_mnmf_c3"]["k5_launches"],
+                "batch_fast_mnmf_c2": phase12["batch_fast_mnmf_c2"]["k5_launches"],
+                "cost_model_fast_mnmf_10": costs["fast_mnmf_10"]["launches_during_count"]["K5"],
+                "graph_phase": sum(graphs[key]["launches_graph"]["k5_launches"] for key, *_ in GRAPH_CASES),
+            },
+            "max_rel_err": {
+                "{}_c{}".format(case["dtype"], case["C"]): max(e["rel_err"] for e in case["entries"].values())
+                for case in k5
+            },
+            "tolerance": {str(k).replace("torch.", ""): v for k, v in K5_RTOL.items()},
+            "ms": sum(e["ms"] for e in k5[0]["entries"].values()),
+            "plain_ms": sum(e["plain_ms"] for e in k5[0]["entries"].values()),
+            "bound_ms": sum(e["bound_ms"] for e in k5[0]["entries"].values()), "shape": [2, 2049, 470],
+            "cases": k5,
         },
     ]
     print(json.dumps({"chip_smoke_s": time.perf_counter() - script_start}), flush=True)

@@ -221,7 +221,7 @@ def test_replay_adds_launches_once_a_call():
 
     state = {"x": torch.ones(3)}
     g = graph.StepGraph("stub", step(state), step)
-    assert g.launches == (1, 0, 0, 0)
+    assert g.launches == (1, 0, 0, 0, 0)
     before = fused_ip.fused_auxiva_ip_iter.launches
     replays = profiling.counters["graph_replays"]
     g.replay(7)
