@@ -68,6 +68,7 @@ from ..ops.fast_linalg import (
     psd_parts_planes,
     sandwich_hermitian_compact,
     solve_riccati_hermitian_compact,
+    trace_planes,
 )
 from ..ops.ip import cond_guard
 from ..ops.ip_components import assemble_matrices, pair_products_planes, quadratic_power_planes
@@ -362,16 +363,23 @@ class MultichannelISNMF(MultichannelNMFBase):
     def _nll_sawada(self, state):
         """Log-det divergence between the PSD-projected observed and model
         covariances (``criterion/divergence.py:83-105`` semantics) on
-        planes: one closed-form eigvalsh per operand gives the floored
-        log-determinants, the trace comes from the planes product."""
+        planes: the floored log-determinants from the eigenvalues, the trace
+        from the planes product.  The observed ``x x^H`` is rank 1, so its
+        eigenvalues are ``|x|^2`` and ``C - 1`` zeros exactly and its shift is
+        the ``eps |x|^2`` ridge: a closed-form eigvalsh would return the zeros
+        as rounding noise (about 1e-8 of the trace at C = 3 in float64, 1e-7
+        in float32) far above that ridge, and move the loss by a constant of
+        the data.  The model's eigenvalues come from the closed form."""
         C, eps = self.n_channels, self.eps
-        X_psd, wX = psd_parts_planes(expand_hermitian_compact(state["covariance_planes"]), eps=eps)
+        X = expand_hermitian_compact(state["covariance_planes"])
+        power = trace_planes(X)  # |x|^2
+        ridge = eps * power + eps  # the shift and the loss's own eps
+        X_psd = add_diag_planes(X, ridge)
+        logdet_x = torch.log(power + ridge) + (C - 1) * torch.log(ridge)
         Xh_psd, wXh = psd_parts_planes(expand_hermitian_compact(self._xhat_compact(state)), eps=eps)
-        ridge = torch.full(X_psd.shape[2:], eps, dtype=wX.dtype, device=wX.device)
-        X_psd = add_diag_planes(X_psd, ridge)
-        inv_h = inv_planes(add_diag_planes(Xh_psd, ridge))
+        inv_h = inv_planes(add_diag_planes(Xh_psd, torch.full_like(wXh[0], eps)))
         trace = _sum((X_psd[c, d] * inv_h[d, c]).real for c in range(C) for d in range(C))
-        logdet = torch.log(floor_below(wX + eps, eps)).sum(dim=0) - torch.log(floor_below(wXh + eps, eps)).sum(dim=0)
+        logdet = logdet_x - torch.log(floor_below(wXh + eps, eps)).sum(dim=0)
         return self._shard_sum((trace - logdet - C).sum())
 
     def _separate_sawada(self, state):

@@ -1498,10 +1498,7 @@ def beamformers(rng, failed):
 # CPU float64 run, then, where not None, the tolerance of the first loss alone
 # (the row then holds the increments L_k - L_0 relative to |L_0| at the one
 # before) and of the output against the CPU float64 run's, relative to its
-# largest entry.  Sawada's loss holds the log-determinant of the rank-1
-# observed covariance, whose small eigenvalue is rounding noise at float32: a
-# constant of the data, 1.8e-2 of the first loss on this mixture in a CPU
-# float32 run.  Its output leaves float64 in a few bins where float32's
+# largest entry.  Sawada's output leaves float64 in a few bins where float32's
 # Riccati solve is ill-conditioned (2.6e-3 of the largest entry after 10
 # iterations in a CPU float32 run), and Ozerov's losses leave it by 2.8e-4
 # through its float32 guards (the noise floor at 100 eps_machine, not 1e-12)

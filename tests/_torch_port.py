@@ -81,9 +81,10 @@ def make_target(kind, rng, n_channels=2):
 
 def assert_losses_match(ours, ref, rtol=1e-9, first_rtol=None):
     """Loss trajectories at ``rtol``.  Where ``first_rtol`` is given, the
-    loss holds a constant of the data whose value is rounding noise (Sawada
-    MNMF's rank-1 log-determinant): the increments ``L_k - L_0`` are held at
-    ``rtol`` of ``|L_0|`` and ``L_0`` at ``first_rtol``."""
+    reference loss holds a constant of the data whose value is rounding noise
+    (the JAX package's Sawada MNMF, :func:`jax_sawada_losses`): the
+    increments ``L_k - L_0`` are held at ``rtol`` of ``|L_0|`` and ``L_0`` at
+    ``first_rtol``."""
     ours, ref = np.asarray(ours), np.asarray(ref)
     assert ours.shape == ref.shape
     if first_rtol is None:
@@ -91,3 +92,53 @@ def assert_losses_match(ours, ref, rtol=1e-9, first_rtol=None):
         return
     np.testing.assert_allclose(ours[0], ref[0], rtol=first_rtol)
     np.testing.assert_allclose(ours - ours[0], ref - ref[0], rtol=0, atol=rtol * abs(ref[0]))
+
+
+SAWADA_FIELDS = ("latent", "spatial", "basis", "activation")
+
+
+class SawadaStates:
+    """A callback keeping the ``(latent, spatial, basis, activation)`` of
+    each of a Sawada MNMF call's losses (after init and every iteration)."""
+
+    def __init__(self):
+        self.states = []
+
+    def __call__(self, solver):
+        self.states.append(tuple(np.array(to_np(getattr(solver, field))) for field in SAWADA_FIELDS))
+
+
+def jax_sawada_losses(solver, X, losses, states):
+    """The JAX package's Sawada MNMF ``losses`` with the observed covariance
+    taken as the port takes it.  ``solver`` is the JAX solver, ``X (C, F,
+    T)`` the mixture, ``states`` the :class:`SawadaStates` of the losses.
+
+    The eigenvalues of the rank-1 ``x x^H`` are ``|x|^2`` and ``C - 1``
+    zeros.  The JAX package takes them from its closed form, which returns
+    the zeros as rounding noise ``w`` (about 1e-16 of the trace at C = 2,
+    1e-8 at C = 3, where the trigonometric form loses half the digits), far
+    above the ``eps tr`` ridge at C = 3; the port takes them as 0.  So the
+    JAX package's log-determinant of the observed covariance differs by a
+    constant of the data, taken out here from the JAX package's own jitted
+    closed form, and its shift by ``s = max(-min w, 0)``, which adds ``s
+    tr((X^ + (eps tr X^ + eps) I)^-1)`` to each loss's trace term, taken out
+    from the state."""
+    import jax
+    import jax.numpy as jnp
+    from audio_source_separation_tpu.ops import fast_linalg as jax_linalg
+    from audio_source_separation_tpu.ops.ip_components import pair_products_planes
+
+    eps, C = solver.eps, X.shape[0]
+    P = solver._cov_planes_complex({"covariance_planes": pair_products_planes(jnp.asarray(X))})
+    shifted = np.asarray(jax.jit(lambda P: jax_linalg.psd_parts_planes(P, eps=eps)[1])(P))
+    s = np.maximum(-np.asarray(jax.jit(jax_linalg.hermitian_eigvalsh_planes)(P)).min(axis=0), 0.0)  # (F, T)
+    power = (np.abs(X) ** 2).sum(axis=0)
+    ridge = eps * power + eps
+    data = np.log(np.maximum(shifted + eps, eps)).sum() - (np.log(power + ridge) + (C - 1) * np.log(ridge)).sum()
+    assert len(losses) == len(states)
+    out = []
+    for loss, (Z, H, T, V) in zip(losses, states):
+        Xh = np.einsum("sk,fk,kt,fscd->ftcd", Z, T, V, H)
+        Xh = Xh + (eps * np.trace(Xh, axis1=-2, axis2=-1).real + eps)[..., None, None] * np.eye(C)
+        out.append(loss + data - (s * np.trace(np.linalg.inv(Xh), axis1=-2, axis2=-1).real).sum())
+    return np.array(out)

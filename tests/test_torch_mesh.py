@@ -88,13 +88,15 @@ JAX_CASES = [
     ("ldpsdtf_frames", 3),  # :528
 ]
 # the losses that hold log(w + eps) of the rank-1 observed covariances'
-# eigenvalues (Sawada's MNMF, CovarianceISNMF): the zero eigenvalue comes out
-# as rounding noise of about 1e-16 of the largest, which moves log(w + eps)
-# by noise / eps, so the two packages' closed forms (and the JAX package's
-# sharded frame sums of CovarianceISNMF's scale) leave an offset that the
-# iterations do not change, about 1e-7 of the loss here (the JAX package's
-# own mesh test holds that case at rtol 1e-6).  These compare the trajectory
-# less its offset at rtol 1e-9 and bound the offset by 1e-6 of the loss
+# eigenvalues (Sawada's MNMF, CovarianceISNMF): a closed form returns the zero
+# eigenvalue as rounding noise of about 1e-16 of the largest, which moves
+# log(w + eps) by noise / eps.  The JAX package takes both from closed forms,
+# the port CovarianceISNMF's from its own and Sawada's as exactly 0, so the
+# two packages (and the JAX package's sharded frame sums of CovarianceISNMF's
+# scale) leave an offset that the iterations do not change, about 1e-7 of the
+# loss here (the JAX package's own mesh test holds that case at rtol 1e-6).
+# These compare the trajectory less its offset at rtol 1e-9 and bound the
+# offset by 1e-6 of the loss
 DATA_LOGDET_OFFSET = {"sawada_bins", "sawada_frames", "cov_isnmf_bins", "cov_isnmf_frames"}
 
 

@@ -18,23 +18,20 @@ import audio_source_separation_tpu_torch as port
 from audio_source_separation_tpu_torch import state_from_jax
 from audio_source_separation_tpu_torch.models import mnmf as port_mnmf
 
-from _torch_port import assert_losses_match, to_np
+from _torch_port import SawadaStates, assert_losses_match, jax_sawada_losses, to_np
 from conftest import make_mixture
 
 N_BASIS = 3
-# solver id -> (class name, constructor kwargs, the fields a checkpoint holds,
-# the relative tolerance of the absolute loss; see test_torch_mnmf.py)
+# solver id -> (class name, constructor kwargs, the fields a checkpoint holds)
 SOLVERS = {
-    "sawada": ("MultichannelISNMF", {"author": "Sawada"}, {"latent", "spatial", "basis", "activation"}, 5e-8),
-    "ozerov": (
-        "MultichannelISNMF", {"author": "Ozerov"}, {"mix_filter", "noise_covariance", "basis", "activation"}, None
-    ),
-    "fast": ("FastMultichannelISNMF", {}, {"diagonalizer", "spatial_covariance", "basis", "activation"}, None),
+    "sawada": ("MultichannelISNMF", {"author": "Sawada"}, {"latent", "spatial", "basis", "activation"}),
+    "ozerov": ("MultichannelISNMF", {"author": "Ozerov"}, {"mix_filter", "noise_covariance", "basis", "activation"}),
+    "fast": ("FastMultichannelISNMF", {}, {"diagonalizer", "spatial_covariance", "basis", "activation"}),
 }
 
 
 def build(package, solver, **more):
-    name, kwargs, _, _ = SOLVERS[solver]
+    name, kwargs, _ = SOLVERS[solver]
     if package is port:
         more.setdefault("device", "cpu")
     with warnings.catch_warnings():
@@ -44,6 +41,13 @@ def build(package, solver, **more):
 
 def mixture(n_channels=2, n_bins=9, n_frames=16):
     return make_mixture(np.random.RandomState(111), n_channels=n_channels, n_bins=n_bins, n_frames=n_frames)
+
+
+def expected_losses(solver, ref, X, losses, states):
+    """The JAX run's ``losses`` as the port defines them: Sawada's with the
+    JAX package's rounding noise of the rank-1 ``x x^H`` taken out
+    (``_torch_port.py::jax_sawada_losses``), the others as they are."""
+    return jax_sawada_losses(ref, X, losses, states.states) if solver == "sawada" else losses
 
 
 @pytest.mark.parametrize("solver", sorted(SOLVERS))
@@ -89,17 +93,23 @@ def test_callbacks_see_each_iteration(solver, calls):
     solver, after iterations only for FastMNMF, and see the basis that
     JAX's do (Ozerov's in the input frame)."""
     X = mixture()
-    seen, seen_ref = [], []
+    seen, seen_ref, states = [], [], SawadaStates()
     np.random.seed(111)
     ours = build(port, solver, callbacks=lambda s: seen.append(to_np(s.basis).copy()))
     ours(X, iteration=3)
+
+    def record(s):
+        seen_ref.append(np.asarray(s.basis).copy())
+        if solver == "sawada":
+            states(s)
+
     np.random.seed(111)
-    ref = build(jax_models, solver, callbacks=lambda s: seen_ref.append(np.asarray(s.basis).copy()))
+    ref = build(jax_models, solver, callbacks=record)
     ref(X, iteration=3)
     assert len(seen) == len(seen_ref) == calls
     for a, b in zip(seen, seen_ref):
         np.testing.assert_allclose(a, b, atol=1e-9)
-    assert_losses_match(ours.loss, ref.loss, first_rtol=SOLVERS[solver][3])
+    assert_losses_match(ours.loss, expected_losses(solver, ref, X, ref.loss, states))
 
 
 @pytest.mark.parametrize("solver", sorted(SOLVERS))
@@ -139,13 +149,15 @@ def test_resume_jax_checkpoint(tmp_path, solver):
     jax_solver(X, iteration=3)
     path = tmp_path / "mnmf.npz"
     jax_solver.save_state(path)
+    states = SawadaStates()
+    jax_solver.callbacks = [states] if solver == "sawada" else None
     Y_ref = jax_solver(X, iteration=3, **jax_models.MultichannelISNMF.load_state(path))
 
     loaded = state_from_jax(path, device="cpu")
     assert set(loaded) == SOLVERS[solver][2] and all(isinstance(v, torch.Tensor) for v in loaded.values())
     ours = build(port, solver)
     Y = ours(X, iteration=3, **loaded)
-    assert_losses_match(ours.loss, jax_solver.loss[4:], first_rtol=SOLVERS[solver][3])
+    assert_losses_match(ours.loss, expected_losses(solver, jax_solver, X, jax_solver.loss[4:], states))
     np.testing.assert_allclose(to_np(Y), np.asarray(Y_ref), atol=1e-8)
     np.testing.assert_allclose(to_np(ours.basis), np.asarray(jax_solver.basis), atol=1e-8)
 

@@ -227,8 +227,9 @@ def _outputs_close(ours, theirs, atol=1e-8):
 
 
 def _losses_close(name, ours, theirs):
-    # Sawada's loss holds the rounding noise of a rank-1 log-determinant
-    # (tests/_torch_port.py::assert_losses_match): its increments are held
+    # the JAX package's Sawada loss holds the rounding noise of a rank-1
+    # log-determinant (tests/_torch_port.py::jax_sawada_losses), a constant
+    # of the data at 4e-7 of the loss at C = 2: its increments are held
     first_rtol = 1e-6 if name == "sawada" else None
     for a, b in zip(ours, theirs):
         assert_losses_match(a, b, rtol=1e-10, first_rtol=first_rtol)
